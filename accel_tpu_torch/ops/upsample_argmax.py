@@ -1,0 +1,83 @@
+"""Fused bilinear upsample + channel argmax (counterpart of
+``accel_tpu/ops/upsample_argmax.py``): the serving tail that turns
+stride-level logits into a full-resolution uint8 class map without the
+full-resolution C-channel logits. The kernel is
+``kernels/upsample_argmax.cu``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from accel_tpu_torch import kernels
+
+
+def upscale_taps(n_in: int, n_out: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-output-sample taps ``(i0, i1, l1)`` of the half-pixel bilinear
+    upscale, exactly as ``kernels/upsample_argmax.cu`` forms them:
+    ``s = (o + 0.5) * n_in / n_out - 0.5`` clamped to ``[0, n_in-1]``,
+    ``i0 = floor(s)``, ``i1 = min(i0 + 1, n_in - 1)``, ``l1 = s - i0``."""
+    scale = torch.tensor(n_in / n_out, dtype=torch.float32)
+    s = scale * (torch.arange(n_out, dtype=torch.float32) + 0.5) - 0.5
+    s = s.clamp(0.0, float(n_in - 1))
+    i0 = s.to(torch.int64)
+    i1 = (i0 + 1).clamp(max=n_in - 1)
+    return i0, i1, s - i0.to(torch.float32)
+
+
+def resize_matrix(n_in: int, n_out: int) -> torch.Tensor:
+    """(n_out, n_in) f32 matrix M with ``M @ x`` the bilinear upscale of x
+    along one axis (``accel_tpu``'s ``resize_matrix`` for n_out >= n_in)."""
+    i0, i1, l1 = upscale_taps(n_in, n_out)
+    m = torch.zeros((n_out, n_in), dtype=torch.float32)
+    rows = torch.arange(n_out)
+    m.index_put_((rows, i0), 1.0 - l1, accumulate=True)
+    m.index_put_((rows, i1), l1, accumulate=True)
+    return m
+
+
+def upsample_argmax_plain(logits: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """The kernel's plain version: materialize the bilinear upsample, then
+    argmax. logits (N,C,h,w) -> (N,H,W) uint8."""
+    up = F.interpolate(logits.to(torch.float32), size=tuple(out_hw), mode="bilinear",
+                       align_corners=False)
+    return up.argmax(dim=1).to(torch.uint8)
+
+
+def upsample_argmax_cuda(logits: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Launch ``kernels/upsample_argmax.cu``. logits (N,C,h,w) f32 on CUDA
+    -> (N,H,W) uint8. Any H >= h, W >= w; a downscale raises."""
+    if logits.device.type != "cuda" or logits.dtype != torch.float32:
+        raise ValueError(f"upsample_argmax_cuda takes f32 CUDA logits, got "
+                         f"{logits.dtype} on {logits.device}")
+    N, C, h, w = logits.shape
+    H, W = int(out_hw[0]), int(out_hw[1])
+    if H < h or W < w:
+        raise ValueError(f"upsample_argmax_cuda upscales only: ({h},{w}) -> ({H},{W})")
+    if C > 256:
+        raise ValueError(f"class index {C - 1} does not fit uint8")
+    if H > 65535 or N > 65535:
+        raise ValueError(f"upsample_argmax_cuda grid limit: H={H}, N={N} (max 65535)")
+    logits = logits.contiguous()
+    out = torch.empty((N, H, W), dtype=torch.uint8, device=logits.device)
+    with torch.cuda.device(logits.device):
+        launch = kernels.load("upsample_argmax")
+        err = launch(logits.data_ptr(), out.data_ptr(), N, C, h, w, H, W,
+                     torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, "upsample_argmax_cuda")
+    upsample_argmax_cuda.launches += 1
+    return out
+
+
+upsample_argmax_cuda.launches = 0
+
+
+def upsample_argmax(logits: torch.Tensor, out_hw: tuple[int, int],
+                    plain: bool = False) -> torch.Tensor:
+    """``argmax(resize_bilinear(logits, out_hw), dim=1)`` as uint8: the
+    kernel for a CUDA tensor, the plain version for a CPU tensor or when
+    ``plain`` is set (``accel_tpu``'s ``upsample_argmax_or_oracle``)."""
+    if plain or logits.device.type == "cpu":
+        return upsample_argmax_plain(logits, out_hw)
+    return upsample_argmax_cuda(logits, out_hw)

@@ -1,0 +1,80 @@
+"""Flow-guided bilinear warp (counterpart of ``accel_tpu/ops/warp.py``).
+
+``out[n, c, y, x] = feat[n, c, y + dy, x + dx]`` with bilinear interpolation
+and zero padding outside the image (MXNet ``BilinearSampler`` semantics).
+``flow`` is ``(N, 2, h, w)`` with channel 0 = dx (along W) and channel 1 =
+dy (along H), in feature-resolution pixels.
+
+:func:`bilinear_warp_plain` is the exact, unbounded 4-gather form of
+``bilinear_warp_xla``. :func:`bilinear_warp` dispatches as the JAX package
+does on a TPU: narrow maps (C <= 64) go to the displacement-bounded kernel
+(``ops/warp_cuda.py``), whose flow is clamped to ``±max_disp``; wider maps,
+or ``use_pallas=False``, take the unbounded plain form.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from accel_tpu_torch.ops.upsample import resize_bilinear
+from accel_tpu_torch.ops.warp_cuda import warp
+
+
+def bilinear_warp_plain(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Exact bilinear warp via 4 gathers. feat (N,C,H,W), flow (N,2,H,W).
+
+    Accumulates in f32 and returns feat's dtype."""
+    N, C, H, W = feat.shape
+    f32 = torch.float32
+    dx = flow[:, 0].to(f32)
+    dy = flow[:, 1].to(f32)
+    yy = torch.arange(H, device=feat.device, dtype=f32).view(1, H, 1)
+    xx = torch.arange(W, device=feat.device, dtype=f32).view(1, 1, W)
+    sy = yy + dy
+    sx = xx + dx
+    y0 = torch.floor(sy)
+    x0 = torch.floor(sx)
+    wy = sy - y0
+    wx = sx - x0
+    y0i = y0.to(torch.int64)
+    x0i = x0.to(torch.int64)
+
+    flat = feat.to(f32).reshape(N, C, H * W)
+    out = torch.zeros((N, C, H * W), dtype=f32, device=feat.device)
+    for oy, ox, w in (
+        (0, 0, (1 - wy) * (1 - wx)),
+        (0, 1, (1 - wy) * wx),
+        (1, 0, wy * (1 - wx)),
+        (1, 1, wy * wx),
+    ):
+        yi, xi = y0i + oy, x0i + ox
+        valid = ((yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)).reshape(N, 1, H * W)
+        idx = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).reshape(N, 1, H * W)
+        g = torch.gather(flat, 2, idx.expand(N, C, H * W))
+        out = out + torch.where(valid, g, 0.0) * w.reshape(N, 1, H * W)
+    return out.reshape(N, C, H, W).to(feat.dtype)
+
+
+def bilinear_warp(
+    feat: torch.Tensor,
+    flow: torch.Tensor,
+    use_pallas: bool = True,
+    max_disp: int = 16,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Dispatching entry point (``accel_tpu.ops.warp.bilinear_warp``).
+
+    ``use_pallas`` keeps the JAX package's name for the kernel switch.
+    ``plain=True`` runs the kernel's plain version even on a CUDA tensor
+    (for comparing the two)."""
+    if use_pallas and feat.shape[1] <= 64:
+        return warp(feat, flow, max_disp, plain=plain)
+    return bilinear_warp_plain(feat, flow)
+
+
+def flow_to_feature_res(flow: torch.Tensor, feat_hw: tuple[int, int],
+                        unit_scale: float) -> torch.Tensor:
+    """Resize a flow field (N,2,h,w) to ``feat_hw`` in f32 and rescale its
+    units by ``unit_scale`` (e.g. FlowNet ran on 2x-downscaled frames and
+    features are at stride 16 -> 2/16)."""
+    return resize_bilinear(flow.to(torch.float32), feat_hw) * unit_scale

@@ -1,0 +1,59 @@
+"""Displacement-bounded bilinear warp: CUDA kernel and its plain version.
+
+Counterpart of ``accel_tpu/ops/warp_pallas.py::warp_pallas_fwd``: the warp
+of ``ops/warp.py`` with the flow clamped to ``±max_disp`` on both axes, as
+the TPU kernel clamps it. The kernel is ``kernels/warp.cu``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from accel_tpu_torch import kernels
+
+
+def warp_plain(feat: torch.Tensor, flow: torch.Tensor, max_disp: float) -> torch.Tensor:
+    """The kernel's plain version: the 4-gather warp of the clamped flow."""
+    from accel_tpu_torch.ops.warp import bilinear_warp_plain
+
+    d = float(max_disp)
+    return bilinear_warp_plain(feat, flow.to(torch.float32).clamp(-d, d))
+
+
+def warp_cuda(feat: torch.Tensor, flow: torch.Tensor, max_disp: float) -> torch.Tensor:
+    """Launch ``kernels/warp.cu``. feat (N,C,H,W) f32 or bf16 on CUDA, flow
+    (N,2,H,W) -> warped (N,C,H,W) in feat's dtype. Raises on anything the
+    kernel does not take."""
+    if feat.device.type != "cuda" or flow.device != feat.device:
+        raise ValueError(f"warp_cuda needs CUDA tensors on one device, got "
+                         f"{feat.device} and {flow.device}")
+    if feat.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"warp_cuda takes f32 or bf16 feat, got {feat.dtype}")
+    N, C, H, W = feat.shape
+    if tuple(flow.shape) != (N, 2, H, W):
+        raise ValueError(f"flow {tuple(flow.shape)} does not match feat {tuple(feat.shape)}")
+    if H > 65535 or N > 65535:
+        raise ValueError(f"warp_cuda grid limit: H={H}, N={N} (max 65535)")
+    feat = feat.contiguous()
+    flow = flow.to(torch.float32).contiguous()
+    out = torch.empty_like(feat)
+    with torch.cuda.device(feat.device):
+        launch = kernels.load("warp")
+        err = launch(feat.data_ptr(), flow.data_ptr(), out.data_ptr(), N, C, H, W,
+                     float(max_disp), int(feat.dtype == torch.bfloat16),
+                     torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, "warp_cuda")
+    warp_cuda.launches += 1
+    return out
+
+
+warp_cuda.launches = 0
+
+
+def warp(feat: torch.Tensor, flow: torch.Tensor, max_disp: float,
+         plain: bool = False) -> torch.Tensor:
+    """Bounded warp: the kernel for a CUDA tensor, the plain version for a
+    CPU tensor or when ``plain`` is set."""
+    if plain or feat.device.type == "cpu":
+        return warp_plain(feat, flow, max_disp)
+    return warp_cuda(feat, flow, max_disp)
