@@ -2,9 +2,11 @@
 ``accel_tpu/core/pipeline.py``).
 
 A clip runs group by group: each keyframe group of ``interval`` frames runs
-the reference branch once on its keyframe and propagates its score map to
-the other frames by flow-guided warps. The non-sequential work of a group
-(FlowNet passes, update branch, fusion) runs batched across its frames.
+the reference branch once on its keyframe and propagates its output (the
+score map for accel, fc6 features for dff) to the other frames by
+flow-guided warps. The non-sequential work of a group (FlowNet passes,
+score heads, update branch, fusion) runs batched across its frames. The
+``deeplab`` family runs every frame as its own keyframe.
 Propagation is ``incremental`` (anchor = previous frame; ``scale_cascade``
 ``last`` or ``product``) or ``direct`` (anchor = keyframe).
 
@@ -42,8 +44,11 @@ def _frames(t: torch.Tensor) -> torch.Tensor:
 
 
 def _update_fuse_tail(model, frames_g, ref_all):
-    """Per-frame update branch at batch B*k + batched 1x1 fusion."""
+    """Per-frame update branch at batch B*k + batched 1x1 fusion (accel),
+    or the ref scores as they are (dff, deeplab)."""
     B, k = frames_g.shape[:2]
+    if model.family != "accel":
+        return ref_all
     upd = _chunked_apply(model.update_scores, _frames(frames_g))
     fused = model.fuse(_frames(ref_all), upd)
     return fused.reshape(B, k, *fused.shape[1:])
@@ -131,9 +136,10 @@ def _group_step(model, frames_g, propagate: str):
 def clip_logits(model, clip: torch.Tensor, interval: int,
                 propagate: str = "incremental") -> torch.Tensor:
     """clip (B,F,3,H,W) normalized, F % interval == 0 -> stride-level
-    logits (B,F,C,h,w) f32, one keyframe group after another."""
+    logits (B,F,C,h,w) f32, one keyframe group after another. The
+    ``deeplab`` family takes interval 1 (every frame is a keyframe)."""
     F = clip.shape[1]
-    k = int(interval)
+    k = 1 if model.family == "deeplab" else int(interval)
     if F % k != 0:
         raise ValueError(f"clip length {F} not divisible by interval {k}")
     return torch.cat([_group_step(model, clip[:, g:g + k], propagate)

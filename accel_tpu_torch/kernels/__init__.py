@@ -42,6 +42,11 @@ ARGTYPES = {
     "upsample_argmax": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, w, inv, shift, out, N, H, W, Ho, Wo, is_bf16, stream
     "fused_stem": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # feat, flow, scale, gain, out, N, C, H, W, max_disp, feat_bf16, scale_bf16,
+    # weights_bf16, stream
+    "warp_onehot": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    # x, packed weights, out, N, Cin, Cout, H, W, dilation, is_bf16, stream
+    "dilated_conv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 SOURCES = tuple(ARGTYPES)
 

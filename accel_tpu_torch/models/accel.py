@@ -1,10 +1,13 @@
-"""Accel: corrective-fusion video segmentation (counterpart of
-``accel_tpu/models/accel.py``, family ``accel``).
+"""Accel, DFF and per-frame DeepLab (counterpart of
+``accel_tpu/models/accel.py``), one module for the three families:
 
-A DeepLab reference branch runs on keyframes; FlowNet-S flow plus the DFF
-scale field warps the keyframe's score map forward; a DeepLab update branch
-runs on every frame; a 1x1 fusion conv merges the two score maps. Every
-branch emits at feature stride.
+- ``deeplab``: the per-frame DeepLab reference branch only;
+- ``dff``: keyframe fc6 *features* warped forward by FlowNet-S flow and the
+  DFF scale field, then the shared 1x1 score head;
+- ``accel``: the keyframe's *score map* warped forward, a DeepLab update
+  branch on every frame, and a 1x1 fusion conv merging the two.
+
+Every branch emits at feature stride.
 """
 
 from __future__ import annotations
@@ -20,23 +23,38 @@ from accel_tpu_torch.models.flownet import FlowNetS
 from accel_tpu_torch.models.resnet import FrozenBatchNorm
 from accel_tpu_torch.ops.upsample import resize_bilinear
 from accel_tpu_torch.ops.warp import bilinear_warp, flow_to_feature_res
+from accel_tpu_torch.ops.warp_onehot import warp_onehot
+
+FAMILIES = ("deeplab", "dff", "accel")
 
 
 class AccelNet(nn.Module):
-    """Family ``accel`` of ``accel_tpu``'s ``AccelNet``.
+    """``accel_tpu``'s ``AccelNet`` for the families ``deeplab``, ``dff`` and
+    ``accel``. Only the family's modules exist: ``ref_net`` always,
+    ``flownet`` for dff/accel, ``update_net`` and ``fusion`` for accel.
 
-    ``use_kernels=False`` runs every kernel's plain PyTorch version even on
-    CUDA tensors (for comparing the two); on CPU tensors the plain versions
-    always run."""
+    ``warp_dtype``: 'f32' (warp and modulation in f32) or 'native' (the
+    propagated tensor's dtype). ``warp_gather``: 'taps' or 'onehot' (the
+    wide-feature warp, with the scale modulation fused into it).
+    ``warp_gain_fold`` folds mean1's per-sample gain into that fused
+    epilogue. ``use_kernels=False`` runs every kernel's plain PyTorch
+    version even on CUDA tensors (for comparing the two); on CPU tensors
+    the plain versions always run."""
 
     def __init__(self, ref_depth=101, update_depth=18, num_classes=19, feat_stride=16,
                  head_channels=1024, head_dilation=6, flow_input_downscale=2,
                  norm="frozenbn", stem="conv7", use_pallas_warp=True, warp_max_disp=8,
-                 flow_width_mult=1.0, scale_field_norm="none", scale_cascade="last", *,
-                 use_kernels=True, device=None, dtype=torch.bfloat16):
+                 flow_width_mult=1.0, scale_field_norm="none", scale_cascade="last",
+                 family="accel", warp_dtype="f32", warp_gather="taps", warp_gain_fold=False,
+                 dilated_conv="auto", *, use_kernels=True, device=None, dtype=torch.bfloat16):
         super().__init__()
         if scale_field_norm not in ("none", "mean1"):
             raise ValueError(f"unsupported scale_field_norm {scale_field_norm!r}")
+        if family not in FAMILIES:
+            raise ValueError(f"unknown family {family!r} {FAMILIES}")
+        if warp_dtype not in ("f32", "native"):
+            raise ValueError(f"unsupported warp_dtype {warp_dtype!r} (f32 | native)")
+        self.family = family
         self.num_classes = num_classes
         self.feat_stride = feat_stride
         self.flow_input_downscale = flow_input_downscale
@@ -44,24 +62,40 @@ class AccelNet(nn.Module):
         self.warp_max_disp = warp_max_disp
         self.scale_field_norm = scale_field_norm
         self.scale_cascade = scale_cascade
+        self.warp_dtype = warp_dtype
+        self.warp_gather = warp_gather
+        self.warp_gain_fold = warp_gain_fold
+        self.dtype = dtype
         self.use_kernels = use_kernels
         branch = dict(num_classes=num_classes, output_stride=feat_stride,
                       head_channels=head_channels, head_dilation=head_dilation, norm=norm,
-                      stem=stem, use_kernels=use_kernels, device=device, dtype=dtype)
+                      stem=stem, dilated_conv=dilated_conv, use_kernels=use_kernels,
+                      device=device, dtype=dtype)
         self.ref_net = DeepLab(ref_depth, **branch)
-        self.update_net = DeepLab(update_depth, **branch)
-        self.fusion = nn.Conv2d(2 * num_classes, num_classes, 1, device=device,
-                                dtype=torch.float32)
-        self.flownet = FlowNetS(num_classes, flow_width_mult, device=device, dtype=dtype)
+        if family == "accel":
+            self.update_net = DeepLab(update_depth, **branch)
+            self.fusion = nn.Conv2d(2 * num_classes, num_classes, 1, device=device,
+                                    dtype=torch.float32)
+        if family in ("dff", "accel"):
+            scale_channels = head_channels if self.warp_tensor == "features" else num_classes
+            self.flownet = FlowNetS(scale_channels, flow_width_mult, device=device, dtype=dtype)
+
+    @property
+    def warp_tensor(self) -> str:
+        """DFF warps fc6 features (the score head runs per frame); Accel
+        warps the score map."""
+        return "features" if self.family == "dff" else "scores"
 
     # ---- branch applications -------------------------------------------
 
     def ref_propagated(self, image):
-        """Keyframe pass of the reference branch -> the score map that is
-        cached and warped."""
-        return self.ref_net(image, mode="full")
+        """Keyframe pass of the reference branch -> the tensor that is
+        cached and warped (scores for accel, fc6 features for dff)."""
+        return self.ref_net(image, mode="features" if self.warp_tensor == "features" else "full")
 
     def ref_scores_from_propagated(self, prop):
+        if self.warp_tensor == "features":
+            return self.ref_net.scores_from_features(prop)
         return prop
 
     def update_scores(self, image):
@@ -79,6 +113,9 @@ class AccelNet(nn.Module):
     def _flow_post(self, flow_small, scale_small, feat_hw):
         flow = flow_to_feature_res(flow_small, feat_hw,
                                    self.flow_input_downscale / self.feat_stride)
+        if self.warp_dtype == "native":
+            # the resize then runs on the storage dtype
+            scale_small = scale_small.to(self.dtype)
         return flow, resize_bilinear(scale_small, feat_hw)
 
     def flow_pair(self, cur_small, anchor_small):
@@ -106,14 +143,29 @@ class AccelNet(nn.Module):
         return scale
 
     def warp(self, prop, flow, scale, normalize_scale=True, max_disp=None, modulate=True):
-        """Warp the propagated tensor in f32 and (``modulate``) multiply by
-        the (``normalize_scale``: normalized) scale field."""
+        """Warp the propagated tensor (in f32, or in its own dtype under
+        ``warp_dtype='native'``) and (``modulate``) multiply by the
+        (``normalize_scale``: normalized) scale field. Under
+        ``warp_gather='onehot'`` the multiply is fused into the warp."""
+        x = prop if self.warp_dtype == "native" else prop.to(torch.float32)
         d = self.warp_max_disp if max_disp is None else max_disp
-        warped = bilinear_warp(prop.to(torch.float32), flow, use_pallas=self.use_pallas_warp,
-                               max_disp=d, plain=not self.use_kernels)
+        plain = not self.use_kernels
+        if self.warp_gather == "onehot" and modulate:
+            if normalize_scale and self.warp_gain_fold and self.scale_field_norm == "mean1":
+                # mean1's 1/|mean| rides the fused epilogue as a per-sample
+                # f32 scalar; the normalized field never materializes
+                gain = self.norm_scale_gain(scale)
+                return warp_onehot(x, flow, scale.to(x.dtype), d, gain=gain, plain=plain)
+            if normalize_scale:
+                scale = self.norm_scale(scale)
+            return warp_onehot(x, flow, scale.to(x.dtype), d, plain=plain)
+        warped = bilinear_warp(x, flow, use_pallas=self.use_pallas_warp, max_disp=d,
+                               gather=self.warp_gather, plain=plain)
         if modulate:
             if normalize_scale:
                 scale = self.norm_scale(scale)
+            if self.warp_dtype == "native":
+                scale = scale.to(warped.dtype)
             warped = warped * scale
         return warped
 
@@ -140,7 +192,8 @@ def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 def init_weights(model: AccelNet, generator: torch.Generator) -> None:
     """Seeded init of every parameter and buffer, in module order: lecun
     normal convs with zero biases, unit norms, zero predict heads, a scale
-    field of one, and the fusion ``0.5*I | 0.5*I``."""
+    field of one, and the fusion ``0.5*I | 0.5*I`` (the last two where the
+    family has them)."""
     for mod in model.modules():
         if isinstance(mod, nn.Conv2d):
             _lecun_normal_(mod.weight, generator)
@@ -152,29 +205,31 @@ def init_weights(model: AccelNet, generator: torch.Generator) -> None:
             if isinstance(mod, FrozenBatchNorm):
                 mod.running_mean.zero_()
                 mod.running_var.fill_(1.0)
-    fn = model.flownet
-    for name in ("predict_flow6", "predict_flow5", "predict_flow4", "predict_flow3",
-                 "predict_flow2", "scale_field"):
-        getattr(fn, name).weight.zero_()
-    fn.scale_field.bias.fill_(1.0)
-    c = model.num_classes
-    eye = 0.5 * torch.eye(c, dtype=torch.float32)
-    model.fusion.weight.copy_(torch.cat([eye, eye], dim=1).view(c, 2 * c, 1, 1))
+    if hasattr(model, "flownet"):
+        fn = model.flownet
+        for name in ("predict_flow6", "predict_flow5", "predict_flow4", "predict_flow3",
+                     "predict_flow2", "scale_field"):
+            getattr(fn, name).weight.zero_()
+        fn.scale_field.bias.fill_(1.0)
+    if hasattr(model, "fusion"):
+        c = model.num_classes
+        eye = 0.5 * torch.eye(c, dtype=torch.float32)
+        model.fusion.weight.copy_(torch.cat([eye, eye], dim=1).view(c, 2 * c, 1, 1))
 
 
 # cfg.network keys whose other values need code that a later port slice adds
 _ONLY = {
-    "name": ("accel",),
+    "name": FAMILIES,
     "use_scale_field": (True,),
-    "warp_dtype": ("f32",),
-    "warp_gather": ("taps",),
-    "warp_gain_fold": (False,),
+    "warp_dtype": ("f32", "native"),
+    "warp_gather": ("taps", "onehot"),
+    "warp_gain_fold": (False, True),
     "update_input_downscale": (1,),
     "fold_update_downscale": (False,),
     "fold_flow_downscale": (False,),
     "quantize_ref": (False,),
     "quantize_update": (False,),
-    "dilated_conv": ("auto", "direct"),
+    "dilated_conv": ("auto", "direct", "pallas", "pallas_fc6"),
     "scale_cascade": ("last", "product"),
 }
 
@@ -201,9 +256,10 @@ def build_model(network: Mapping | None = None, *, num_classes: int = 19,
     kwargs = {k: net[k] for k in (
         "ref_depth", "update_depth", "feat_stride", "head_channels", "head_dilation",
         "flow_input_downscale", "norm", "stem", "use_pallas_warp", "warp_max_disp",
-        "flow_width_mult", "scale_field_norm", "scale_cascade") if k in net}
-    model = AccelNet(num_classes=num_classes, use_kernels=use_kernels, device="meta",
-                     dtype=dtype, **kwargs)
+        "flow_width_mult", "scale_field_norm", "scale_cascade", "warp_dtype", "warp_gather",
+        "warp_gain_fold", "dilated_conv") if k in net}
+    model = AccelNet(num_classes=num_classes, family=net.get("name", "accel"),
+                     use_kernels=use_kernels, device="meta", dtype=dtype, **kwargs)
     model.to_empty(device=device or "cpu")
     init_weights(model, generator)
     return model.eval()

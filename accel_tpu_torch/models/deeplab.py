@@ -10,16 +10,16 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from accel_tpu_torch.models.resnet import DilatedResNet
+from accel_tpu_torch.models.resnet import DilatedResNet, _conv
 
 
 class DeepLabHead(nn.Module):
     def __init__(self, in_channels, num_classes=19, head_channels=1024, head_dilation=6, *,
-                 device=None, dtype=torch.bfloat16):
+                 dilated_conv="auto", use_kernels=True, device=None, dtype=torch.bfloat16):
         super().__init__()
-        d = head_dilation
-        self.fc6 = nn.Conv2d(in_channels, head_channels, 3, padding=d, dilation=d,
-                             device=device, dtype=dtype)
+        self.fc6 = _conv(in_channels, head_channels, 3, dilation=head_dilation, bias=True,
+                         dilated_conv=dilated_conv, use_kernels=use_kernels, device=device,
+                         dtype=dtype)
         self.score = nn.Conv2d(head_channels, num_classes, 1, device=device,
                                dtype=torch.float32)
 
@@ -36,16 +36,25 @@ class DeepLabHead(nn.Module):
 
 
 class DeepLab(nn.Module):
-    """Dilated ResNet backbone + DeepLab head; logits at feature stride."""
+    """Dilated ResNet backbone + DeepLab head; logits at feature stride.
+
+    ``dilated_conv``: 'auto'/'direct' (``nn.Conv2d`` everywhere), 'pallas'
+    (every dilated 3x3 conv of the backbone and fc6 through the dilated
+    kernel) or 'pallas_fc6' (fc6 only, the backbone as 'auto'), as
+    ``accel_tpu``'s ``DeepLab.setup`` splits them."""
 
     def __init__(self, depth=101, num_classes=19, output_stride=16, head_channels=1024,
-                 head_dilation=6, norm="frozenbn", stem="conv7", *, use_kernels=True,
-                 device=None, dtype=torch.bfloat16):
+                 head_dilation=6, norm="frozenbn", stem="conv7", *, dilated_conv="auto",
+                 use_kernels=True, device=None, dtype=torch.bfloat16):
         super().__init__()
+        fc6_only = dilated_conv == "pallas_fc6"
         self.backbone = DilatedResNet(depth, output_stride, norm, stem,
+                                      dilated_conv="auto" if fc6_only else dilated_conv,
                                       use_kernels=use_kernels, device=device, dtype=dtype)
         self.head = DeepLabHead(self.backbone.out_channels, num_classes, head_channels,
-                                head_dilation, device=device, dtype=dtype)
+                                head_dilation,
+                                dilated_conv="pallas" if fc6_only else dilated_conv,
+                                use_kernels=use_kernels, device=device, dtype=dtype)
 
     def forward(self, image, mode: str = "full"):
         """image (N,3,H,W) normalized -> logits/features at feature stride."""

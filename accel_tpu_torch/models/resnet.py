@@ -13,6 +13,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from accel_tpu_torch.ops.dilated_cuda import conv3x3_dilated
 from accel_tpu_torch.ops.fused_stem import fused_stem
 
 STAGE_PLANS = {
@@ -88,7 +89,35 @@ def make_norm(norm: str, c: int, *, device=None) -> nn.Module:
     raise ValueError(f"unsupported norm {norm!r} (frozenbn | groupnorm)")
 
 
-def _conv(cin, cout, k, *, stride=1, dilation=1, bias=False, device=None, dtype=None):
+class DilatedConv3x3(nn.Conv2d):
+    """A 3x3, stride-1 conv with dilation d and padding d whose conv runs
+    through ``ops/dilated_cuda.py`` (the kernel on CUDA, ``F.conv2d`` on the
+    CPU or with ``use_kernels=False``); the bias is added after it, as the
+    flax hook computes only the conv. Same parameters and ``state_dict``
+    keys as ``nn.Conv2d``."""
+
+    def __init__(self, cin, cout, dilation, *, bias=False, use_kernels=True, device=None,
+                 dtype=None):
+        super().__init__(cin, cout, 3, padding=dilation, dilation=dilation, bias=bias,
+                         device=device, dtype=dtype)
+        self.use_kernels = use_kernels
+
+    def forward(self, x):
+        y = conv3x3_dilated(x, self.weight, self.dilation[0], plain=not self.use_kernels)
+        if self.bias is not None:
+            y = y + self.bias.view(1, -1, 1, 1)
+        return y
+
+
+def _conv(cin, cout, k, *, stride=1, dilation=1, bias=False, dilated_conv="auto",
+          use_kernels=True, device=None, dtype=None):
+    """Conv with 'same' padding. ``dilated_conv='pallas'`` sends a 3x3,
+    stride-1 conv with dilation > 1 to the dilated kernel
+    (``accel_tpu``'s ``_pick_conv_fn`` and ``pallas_conv_general_dilated``
+    route the same convs); 'auto' and 'direct' keep ``nn.Conv2d``."""
+    if dilated_conv == "pallas" and k == 3 and stride == 1 and dilation > 1:
+        return DilatedConv3x3(cin, cout, dilation, bias=bias, use_kernels=use_kernels,
+                              device=device, dtype=dtype)
     pad = dilation * (k // 2)
     return nn.Conv2d(cin, cout, k, stride=stride, padding=pad, dilation=dilation,
                      bias=bias, device=device, dtype=dtype)
@@ -98,12 +127,13 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, cin, width, stride=1, dilation=1, norm="frozenbn", *,
-                 device=None, dtype=torch.bfloat16):
+                 dilated_conv="auto", use_kernels=True, device=None, dtype=torch.bfloat16):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.conv1 = _conv(cin, width, 3, stride=stride, dilation=dilation, **kw)
+        routed = dict(kw, dilated_conv=dilated_conv, use_kernels=use_kernels)
+        self.conv1 = _conv(cin, width, 3, stride=stride, dilation=dilation, **routed)
         self.bn1 = make_norm(norm, width, device=device)
-        self.conv2 = _conv(width, width, 3, dilation=dilation, **kw)
+        self.conv2 = _conv(width, width, 3, dilation=dilation, **routed)
         self.bn2 = make_norm(norm, width, device=device)
         if cin != width or stride != 1:
             self.downsample = _conv(cin, width, 1, stride=stride, **kw)
@@ -122,13 +152,14 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, cin, width, stride=1, dilation=1, norm="frozenbn", *,
-                 device=None, dtype=torch.bfloat16):
+                 dilated_conv="auto", use_kernels=True, device=None, dtype=torch.bfloat16):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         out_ch = 4 * width
         self.conv1 = _conv(cin, width, 1, **kw)
         self.bn1 = make_norm(norm, width, device=device)
-        self.conv2 = _conv(width, width, 3, stride=stride, dilation=dilation, **kw)
+        self.conv2 = _conv(width, width, 3, stride=stride, dilation=dilation,
+                           dilated_conv=dilated_conv, use_kernels=use_kernels, **kw)
         self.bn2 = make_norm(norm, width, device=device)
         self.conv3 = _conv(width, out_ch, 1, **kw)
         self.bn3 = make_norm(norm, out_ch, device=device)
@@ -151,12 +182,17 @@ class DilatedResNet(nn.Module):
 
     ``stem``: 'conv7' (conv + norm + relu) or 'fused7' (the same parameters
     through the fused stem kernel; frozenbn only, since the norm must fold
-    into a per-channel affine). ``use_kernels=False`` runs the fused stem's
-    plain version even on CUDA (for comparing the two)."""
+    into a per-channel affine). ``dilated_conv``: 'auto' or 'direct'
+    (``nn.Conv2d``), or 'pallas' (every dilated 3x3 conv through the dilated
+    kernel). ``use_kernels=False`` runs the kernels' plain versions even on
+    CUDA (for comparing the two)."""
 
     def __init__(self, depth=101, output_stride=16, norm="frozenbn", stem="conv7", *,
-                 use_kernels=True, device=None, dtype=torch.bfloat16):
+                 dilated_conv="auto", use_kernels=True, device=None, dtype=torch.bfloat16):
         super().__init__()
+        if dilated_conv not in ("auto", "direct", "pallas"):
+            raise ValueError(f"unsupported dilated_conv {dilated_conv!r} "
+                             "(auto | direct | pallas)")
         if stem not in ("conv7", "fused7"):
             raise ValueError(f"unsupported stem {stem!r} (conv7 | fused7)")
         if stem == "fused7" and norm != "frozenbn":
@@ -176,7 +212,9 @@ class DilatedResNet(nn.Module):
             for bi in range(n_blocks):
                 name = f"layer{si + 1}_block{bi}"
                 self.add_module(name, block_cls(cin, w, s if bi == 0 else 1, d, norm,
-                                                device=device, dtype=dtype))
+                                                dilated_conv=dilated_conv,
+                                                use_kernels=use_kernels, device=device,
+                                                dtype=dtype))
                 self.block_names.append(name)
                 cin = w * block_cls.expansion
         self.out_channels = cin

@@ -1,0 +1,68 @@
+"""Stride-1, 'same'-padded dilated 3x3 convolution: CUDA kernel and its
+plain version (counterpart of ``accel_tpu/ops/dilated_pallas.py``; the
+kernel is ``kernels/dilated_conv.cu``).
+
+``network.dilated_conv: pallas`` routes DeepLab's atrous convs here
+(``models/resnet.py::DilatedConv3x3``). The JAX hook also falls back to the
+lax conv for shapes its TPU tiles reject (``_eligible``: channel counts,
+H % 8, W % 16, d <= 8). The CUDA kernel takes any H, W, channel count and
+dilation, so every conv the hook would consider goes to the kernel; no
+shape the router sends falls back.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from accel_tpu_torch import kernels
+
+
+def conv3x3_dilated_plain(x: torch.Tensor, weight: torch.Tensor, dilation: int) -> torch.Tensor:
+    """The kernel's plain version: ``F.conv2d`` with padding = dilation.
+    x (N,Cin,H,W), weight (Cout,Cin,3,3) in x's dtype -> (N,Cout,H,W)."""
+    d = int(dilation)
+    return F.conv2d(x, weight, padding=d, dilation=d)
+
+
+def conv3x3_dilated_cuda(x: torch.Tensor, weight: torch.Tensor, dilation: int) -> torch.Tensor:
+    """Launch ``kernels/dilated_conv.cu``. x and weight both f32 or both
+    bf16 on one CUDA device; f32 accumulation, output in their dtype. The
+    OIHW weights are packed to (tap, Cin, Cout) on every call."""
+    if x.device.type != "cuda" or weight.device != x.device:
+        raise ValueError(f"conv3x3_dilated_cuda needs CUDA tensors on one device, got "
+                         f"{x.device} and {weight.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or weight.dtype != x.dtype:
+        raise ValueError(f"conv3x3_dilated_cuda takes f32 or bf16 operands of one dtype, "
+                         f"got {x.dtype} and {weight.dtype}")
+    N, Cin, H, W = x.shape
+    Cout = weight.shape[0]
+    if tuple(weight.shape) != (Cout, Cin, 3, 3):
+        raise ValueError(f"weight {tuple(weight.shape)} is not ({Cout},{Cin},3,3)")
+    d = int(dilation)
+    if d < 1:
+        raise ValueError(f"dilation {d} < 1")
+    if H > 65535 or N * -(-Cout // 64) > 65535:
+        raise ValueError(f"conv3x3_dilated_cuda grid limit: H={H}, N={N}, Cout={Cout}")
+    x = x.contiguous()
+    wp = weight.permute(2, 3, 1, 0).reshape(9, Cin, Cout).contiguous()
+    out = torch.empty((N, Cout, H, W), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        launch = kernels.load("dilated_conv")
+        err = launch(x.data_ptr(), wp.data_ptr(), out.data_ptr(), N, Cin, Cout, H, W, d,
+                     int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, "conv3x3_dilated_cuda")
+    conv3x3_dilated_cuda.launches += 1
+    return out
+
+
+conv3x3_dilated_cuda.launches = 0
+
+
+def conv3x3_dilated(x: torch.Tensor, weight: torch.Tensor, dilation: int,
+                    plain: bool = False) -> torch.Tensor:
+    """Dilated 3x3 conv, no bias: the kernel for a CUDA tensor, the plain
+    version for a CPU tensor or when ``plain`` is set."""
+    if plain or x.device.type == "cpu":
+        return conv3x3_dilated_plain(x, weight, dilation)
+    return conv3x3_dilated_cuda(x, weight, dilation)

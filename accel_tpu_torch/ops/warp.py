@@ -7,9 +7,11 @@ dy (along H), in feature-resolution pixels.
 
 :func:`bilinear_warp_plain` is the exact, unbounded 4-gather form of
 ``bilinear_warp_xla``. :func:`bilinear_warp` dispatches as the JAX package
-does on a TPU: narrow maps (C <= 64) go to the displacement-bounded kernel
-(``ops/warp_cuda.py``), whose flow is clamped to ``±max_disp``; wider maps,
-or ``use_pallas=False``, take the unbounded plain form.
+does on a TPU: ``gather='onehot'`` first, at any width, to the wide-feature
+warp (``ops/warp_onehot.py``: flow_y clamped to ``±max_disp``, bf16 tap
+weights); then narrow maps (C <= 64) to the displacement-bounded kernel
+(``ops/warp_cuda.py``), whose flow is clamped to ``±max_disp`` on both
+axes; wider maps, or ``use_pallas=False``, take the unbounded plain form.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from accel_tpu_torch.ops.upsample import resize_bilinear
 from accel_tpu_torch.ops.warp_cuda import warp
+from accel_tpu_torch.ops.warp_onehot import warp_onehot
 
 
 def bilinear_warp_plain(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -60,13 +63,20 @@ def bilinear_warp(
     flow: torch.Tensor,
     use_pallas: bool = True,
     max_disp: int = 16,
+    gather: str = "taps",
     plain: bool = False,
 ) -> torch.Tensor:
     """Dispatching entry point (``accel_tpu.ops.warp.bilinear_warp``).
 
-    ``use_pallas`` keeps the JAX package's name for the kernel switch.
+    ``use_pallas`` keeps the JAX package's name for the kernel switch;
+    ``gather`` is 'taps' or 'onehot' ('stacked' is not ported).
     ``plain=True`` runs the kernel's plain version even on a CUDA tensor
     (for comparing the two)."""
+    if gather == "onehot":
+        return warp_onehot(feat, flow, None, max_disp, plain=plain)
+    if gather != "taps":
+        raise NotImplementedError(f"warp gather {gather!r} is not ported yet "
+                                  "(supported: 'taps', 'onehot')")
     if use_pallas and feat.shape[1] <= 64:
         return warp(feat, flow, max_disp, plain=plain)
     return bilinear_warp_plain(feat, flow)

@@ -1,0 +1,133 @@
+"""Bilinear warp of wide feature maps with a fused scale epilogue: CUDA
+kernel and its plain version (counterpart of ``accel_tpu/ops/warp_onehot.py``
+``warp_onehot_fwd``; the kernel is ``kernels/warp_onehot.cu``).
+
+The TPU kernel serves DFF's 1024-channel fc6 feature warp. Its numerics,
+which both versions here repeat:
+
+- flow_y is clamped to ``±max_disp``; flow_x is not clamped;
+- each tap weight ``ry * cx`` is formed in f32 and rounded once to
+  ``weights_dtype`` (bf16 by default);
+- the feature values are rounded to ``weights_dtype`` too;
+- taps outside the image read 0; the sum is in f32;
+- with ``scale``: ``out * (f32(scale) * gain[n])``, gain only when given;
+- the result is cast to feat's dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from accel_tpu_torch import kernels
+
+_WEIGHTS_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _check_args(feat, flow, scale, gain, weights_dtype) -> None:
+    N, C, H, W = feat.shape
+    if tuple(flow.shape) != (N, 2, H, W):
+        raise ValueError(f"flow {tuple(flow.shape)} does not match feat {tuple(feat.shape)}")
+    if scale is not None and tuple(scale.shape) != tuple(feat.shape):
+        raise ValueError(f"scale {tuple(scale.shape)} does not match feat {tuple(feat.shape)}")
+    if gain is not None:
+        if scale is None:
+            raise ValueError("gain requires scale (it rides the scale epilogue)")
+        if tuple(gain.shape) != (N,):
+            raise ValueError(f"gain {tuple(gain.shape)} is not ({N},)")
+    if weights_dtype not in _WEIGHTS_DTYPES:
+        raise ValueError(f"weights_dtype must be bf16 or f32, got {weights_dtype}")
+
+
+def warp_onehot_plain(feat: torch.Tensor, flow: torch.Tensor, scale: torch.Tensor | None = None,
+                      max_disp: int = 4, gain: torch.Tensor | None = None,
+                      weights_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The kernel's plain version: a 4-gather warp with the TPU kernel's
+    clamp and roundings. feat (N,C,H,W), flow (N,2,H,W) (dx, dy), scale like
+    feat, gain (N,) -> (N,C,H,W) in feat's dtype."""
+    _check_args(feat, flow, scale, gain, weights_dtype)
+    N, C, H, W = feat.shape
+    f32 = torch.float32
+    d = float(max_disp)
+    dx = flow[:, 0].to(f32)
+    dy = flow[:, 1].to(f32).clamp(-d, d)
+    yy = torch.arange(H, device=feat.device, dtype=f32).view(1, H, 1)
+    xx = torch.arange(W, device=feat.device, dtype=f32).view(1, 1, W)
+    sy = yy + dy
+    sx = xx + dx
+    y0 = torch.floor(sy)
+    x0 = torch.floor(sx)
+    wy = sy - y0
+    wx = sx - x0
+
+    flat = feat.to(weights_dtype).to(f32).reshape(N, C, H * W)
+    out = torch.zeros((N, C, H * W), dtype=f32, device=feat.device)
+    for oy, ox, w in (
+        (0, 0, (1 - wy) * (1 - wx)),
+        (0, 1, (1 - wy) * wx),
+        (1, 0, wy * (1 - wx)),
+        (1, 1, wy * wx),
+    ):
+        w = w.to(weights_dtype).to(f32)
+        yi, xi = y0 + oy, x0 + ox
+        # bounds in float: flow_x is unbounded
+        valid = ((yi >= 0) & (yi <= H - 1) & (xi >= 0) & (xi <= W - 1)).reshape(N, 1, H * W)
+        idx = (yi.clamp(0, H - 1).to(torch.int64) * W
+               + xi.clamp(0, W - 1).to(torch.int64))
+        g = torch.gather(flat, 2, idx.reshape(N, 1, H * W).expand(N, C, H * W))
+        out = out + torch.where(valid, g, 0.0) * w.reshape(N, 1, H * W)
+    out = out.reshape(N, C, H, W)
+    if scale is not None:
+        s = scale.to(f32)
+        if gain is not None:
+            s = s * gain.to(f32).view(N, 1, 1, 1)
+        out = out * s
+    return out.to(feat.dtype)
+
+
+def warp_onehot_cuda(feat: torch.Tensor, flow: torch.Tensor, scale: torch.Tensor | None = None,
+                     max_disp: int = 4, gain: torch.Tensor | None = None,
+                     weights_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Launch ``kernels/warp_onehot.cu``. feat and scale f32 or bf16 on one
+    CUDA device. Raises on anything the kernel does not take."""
+    if feat.device.type != "cuda" or flow.device != feat.device:
+        raise ValueError(f"warp_onehot_cuda needs CUDA tensors on one device, got "
+                         f"{feat.device} and {flow.device}")
+    _check_args(feat, flow, scale, gain, weights_dtype)
+    for name, t in (("feat", feat), ("scale", scale)):
+        if t is not None and t.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"warp_onehot_cuda takes f32 or bf16 {name}, got {t.dtype}")
+    N, C, H, W = feat.shape
+    if H > 65535 or N * -(-C // 64) > 65535:
+        raise ValueError(f"warp_onehot_cuda grid limit: H={H}, N={N}, C={C}")
+    feat = feat.contiguous()
+    flow = flow.to(torch.float32).contiguous()
+    if scale is not None:
+        scale = scale.to(feat.device).contiguous()
+    if gain is not None:
+        gain = gain.to(device=feat.device, dtype=torch.float32).contiguous()
+    out = torch.empty_like(feat)
+    with torch.cuda.device(feat.device):
+        launch = kernels.load("warp_onehot")
+        err = launch(feat.data_ptr(), flow.data_ptr(),
+                     None if scale is None else scale.data_ptr(),
+                     None if gain is None else gain.data_ptr(), out.data_ptr(),
+                     N, C, H, W, float(max_disp), int(feat.dtype == torch.bfloat16),
+                     int(scale is not None and scale.dtype == torch.bfloat16),
+                     int(weights_dtype == torch.bfloat16),
+                     torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, "warp_onehot_cuda")
+    warp_onehot_cuda.launches += 1
+    return out
+
+
+warp_onehot_cuda.launches = 0
+
+
+def warp_onehot(feat: torch.Tensor, flow: torch.Tensor, scale: torch.Tensor | None = None,
+                max_disp: int = 4, gain: torch.Tensor | None = None,
+                weights_dtype: torch.dtype = torch.bfloat16, plain: bool = False) -> torch.Tensor:
+    """Warp [* scale * gain]: the kernel for a CUDA tensor, the plain version
+    for a CPU tensor or when ``plain`` is set."""
+    if plain or feat.device.type == "cpu":
+        return warp_onehot_plain(feat, flow, scale, max_disp, gain, weights_dtype)
+    return warp_onehot_cuda(feat, flow, scale, max_disp, gain, weights_dtype)

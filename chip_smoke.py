@@ -19,6 +19,15 @@ Phases, one JSON line each:
    class-map agreement between the two.
 5. e2e_flagship: one incremental + 'last' group with the flagship cfg's
    groupnorm + conv7 stem + scale_field_norm mean1.
+6. e2e_dff: the bench's DFF row (R101 keyframe fc6 features warped by the
+   one-hot warp with the scale field fused in, D=4, native dtype, FlowNet
+   at 1/4 input and half width) at 1024x2048, B=1, k=5: two direct groups
+   and one incremental + 'last' group, kernels and plain versions.
+7. e2e_dff_fc6: one direct group of that model with fc6 through the
+   dilated kernel (``dilated_conv: pallas_fc6``) against cuDNN's fc6.
+8. e2e_deeplab: the per-frame DeepLab-101 baseline on 5 frames with every
+   dilated conv through the dilated kernel (``pallas``) against cuDNN
+   (``auto``), in bf16 and, for the class-map check, in f32.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit from
 nvidia-smi, and, last, ``{"ok": true, "device": {...}}``. Any failed check
@@ -30,6 +39,7 @@ the flow heads are re-drawn so the flow moves content (at init it is 0).
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -42,9 +52,11 @@ from accel_tpu_torch import kernels
 from accel_tpu_torch.core.pipeline import clip_logits
 from accel_tpu_torch.core.serving import VideoSegmenter
 from accel_tpu_torch.models.accel import build_model
+from accel_tpu_torch.ops import dilated_cuda as dilated_ops
 from accel_tpu_torch.ops import fused_stem as stem_ops
 from accel_tpu_torch.ops import upsample_argmax as ua_ops
 from accel_tpu_torch.ops import warp_cuda as warp_ops
+from accel_tpu_torch.ops import warp_onehot as onehot_ops
 
 SEED = 0
 H, W = 1024, 2048
@@ -55,15 +67,27 @@ BENCH_NET = dict(ref_depth=101, update_depth=18, feat_stride=16, head_channels=1
                  warp_gather="taps", scale_field_norm="none", scale_cascade="last",
                  flow_width_mult=1.0)
 FLAGSHIP_NET = dict(BENCH_NET, norm="groupnorm", stem="conv7", scale_field_norm="mean1")
+# bench.py's dff row: R101 keyframe branch, fc6 features warped forward
+DFF_NET = dict(name="dff", ref_depth=101, feat_stride=16, head_channels=1024, head_dilation=6,
+               norm="frozenbn", stem="fused7", dtype="bfloat16", use_pallas_warp=True,
+               warp_max_disp=4, warp_dtype="native", warp_gather="onehot",
+               flow_input_downscale=4, flow_width_mult=0.5)
+# bench.py's baseline row: per-frame DeepLab-101
+DEEPLAB_NET = dict(name="deeplab", ref_depth=101, feat_stride=16, head_channels=1024,
+                   head_dilation=6, norm="frozenbn", stem="fused7", dtype="bfloat16")
 LAUNCHERS = {
     "warp": warp_ops.warp_cuda,
     "upsample_argmax": ua_ops.upsample_argmax_cuda,
     "fused_stem": stem_ops.fused_stem_cuda,
+    "warp_onehot": onehot_ops.warp_onehot_cuda,
+    "dilated_conv": dilated_ops.conv3x3_dilated_cuda,
 }
 REPLACES = {
     "warp": "accel_tpu/ops/warp_pallas.py:84",
     "upsample_argmax": "accel_tpu/ops/upsample_argmax.py:48",
     "fused_stem": "accel_tpu/ops/fused_stem.py:84",
+    "warp_onehot": "accel_tpu/ops/warp_onehot.py:117",
+    "dilated_conv": "accel_tpu/ops/dilated_pallas.py:96",
 }
 
 
@@ -179,6 +203,70 @@ def kernel_fused_stem(results: dict) -> None:
     results["fused_stem"] = rows[0]
 
 
+def kernel_warp_onehot(results: dict) -> None:
+    """DFF's feature warp: |flow_y| up to 6 > D=4 (clamped), |flow_x| up to
+    12 (not clamped). At most 1e-5 * max|ref| for f32 outputs, one bf16 ulp
+    at max|ref| for bf16 outputs."""
+    rows = []
+    for shape, dtype, with_scale, with_gain in (((4, 1024, 64, 128), torch.bfloat16, True, False),
+                                                ((4, 1024, 64, 128), torch.float32, False, False),
+                                                ((4, 1024, 64, 128), torch.bfloat16, True, True),
+                                                ((2, 1024, 45, 60), torch.bfloat16, True, False)):
+        g = _gen(SEED + 10)
+        N, C, h, w = shape
+        feat = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        flow = torch.rand((N, 2, h, w), generator=g, device="cuda") * 2 - 1
+        flow[:, 0] *= 12.0
+        flow[:, 1] *= 6.0
+        scale = (torch.rand(shape, generator=g, device="cuda") + 0.5).to(dtype) if with_scale else None
+        gain = torch.rand((N,), generator=g, device="cuda") + 0.5 if with_gain else None
+        args = (feat, flow, scale, 4, gain)
+        got = onehot_ops.warp_onehot_cuda(*args)
+        ref = onehot_ops.warp_onehot_plain(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        peak = ref.float().abs().max().item()
+        bound = 1e-5 * peak if dtype == torch.float32 else 2.0 ** (math.floor(math.log2(peak)) - 7)
+        check(got.dtype == dtype and got.shape == ref.shape and err <= bound,
+              f"warp_onehot {shape} {dtype}: max err {err} > {bound}")
+        row = dict(kernel="warp_onehot", dtype=str(dtype), shape=list(shape), max_disp=4,
+                   max_abs_flow_x=12.0, max_abs_flow_y=6.0, scale=with_scale, gain=with_gain,
+                   max_abs_err=err, tol=bound,
+                   ms=median_ms(lambda: onehot_ops.warp_onehot_cuda(*args)),
+                   plain_ms=median_ms(lambda: onehot_ops.warp_onehot_plain(*args)))
+        emit(dict(phase="kernel", **row))
+        rows.append(row)
+    results["warp_onehot"] = rows[0]
+
+
+def kernel_dilated_conv(results: dict) -> None:
+    """Dilated 3x3 conv against F.conv2d (cuDNN, TF32 off): 1e-4 relative
+    for f32, 2e-2 * max|ref| for bf16."""
+    rows = []
+    for shape, cout, d, dtype in (((1, 2048, 64, 128), 1024, 6, torch.bfloat16),  # fc6
+                                  ((1, 512, 64, 128), 512, 2, torch.bfloat16),    # layer4 conv2
+                                  ((1, 2048, 45, 60), 1024, 6, torch.bfloat16),   # not TPU-tileable
+                                  ((1, 128, 16, 32), 128, 8, torch.float32)):
+        g = _gen(SEED + 11)
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        w = (torch.randn((cout, shape[1], 3, 3), generator=g, device="cuda")
+             / math.sqrt(9 * shape[1])).to(dtype)
+        got = dilated_ops.conv3x3_dilated_cuda(x, w, d)
+        ref = dilated_ops.conv3x3_dilated_plain(x, w, d)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        bound = (1e-4 if dtype == torch.float32 else 2e-2) * ref.float().abs().max().item()
+        check(got.dtype == dtype and got.shape == ref.shape and err <= bound,
+              f"dilated_conv {shape}->{cout} d={d} {dtype}: max err {err} > {bound}")
+        row = dict(kernel="dilated_conv", dtype=str(dtype), shape=list(shape), cout=cout,
+                   dilation=d, max_abs_err=err, tol=bound,
+                   ms=median_ms(lambda: dilated_ops.conv3x3_dilated_cuda(x, w, d)),
+                   plain_ms=median_ms(lambda: dilated_ops.conv3x3_dilated_plain(x, w, d)))
+        emit(dict(phase="kernel", **row))
+        rows.append(row)
+    results["dilated_conv"] = rows[0]
+
+
 # ---- end to end ---------------------------------------------------------------
 
 
@@ -275,8 +363,8 @@ def e2e_bench() -> dict[str, int]:
               group_ms={f"{p}{i}": ms for i, ((p, _), (_, ms)) in enumerate(zip(groups, out))},
               incremental_fps=K * len(inc_ms) / (sum(inc_ms) / 1e3),
               direct_fps=K / (out[-1][1] / 1e3), launches=launched))
-    for name, n in launched.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ("warp", "upsample_argmax", "fused_stem"):
+        check(launched[name] > 0, f"kernel {name} was not launched on the main path")
 
     plain = build_model(BENCH_NET, device="cuda", generator=torch.Generator().manual_seed(SEED),
                         use_kernels=False)
@@ -313,6 +401,138 @@ def e2e_flagship() -> None:
           "flagship path skipped a kernel")
 
 
+def run_groups(model, groups) -> tuple[list[tuple[torch.Tensor, float]], dict[str, int]]:
+    """Serve ``groups`` [(propagate, frames)] through fresh segmenters
+    after one warm-up pass (cuDNN algorithm choice, allocator). Returns
+    (prediction, ms) per group and the launch counts of the timed pass."""
+    def run():
+        segs = {p: VideoSegmenter(model, K, propagate=p) for p in ("incremental", "direct")}
+        return [timed_group(segs[p], frames) for p, frames in groups]
+
+    run()
+    reset_counts()
+    out = run()
+    return out, counts()
+
+
+def agreement(out, ref) -> list[float]:
+    return [(a[0] == b[0]).float().mean().item() for a, b in zip(out, ref)]
+
+
+def e2e_dff() -> tuple[dict[str, int], dict]:
+    """Phase 6. Returns the launch counts of its kernel run and the model's
+    weights (for phase 7)."""
+    model = build_model(DFF_NET, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    clip = moving_clip(3 * K, (H, W), SEED + 12, "cuda")
+    max_flow = live_flow_heads(model, clip, SEED + 13)
+    check(max_flow > 0.5, f"flow {max_flow} too small to exercise the warp")
+    groups = [("direct", clip[:, :K]), ("direct", clip[:, K:2 * K]),
+              ("incremental", clip[:, 2 * K:])]
+    names = [f"{p}{i}" for i, (p, _) in enumerate(groups)]
+    out, launched = run_groups(model, groups)
+    for pred, _ in out:
+        check_pred(pred, (1, K, H, W))
+    plain = build_model(DFF_NET, device="cuda", generator=torch.Generator().manual_seed(SEED),
+                        use_kernels=False)
+    plain.load_state_dict(model.state_dict())
+    plain_out, plain_launched = run_groups(plain, groups)
+    check(not any(plain_launched.values()), f"the plain dff path launched {plain_launched}")
+    agree = dict(zip(names, agreement(out, plain_out)))
+    emit(dict(phase="e2e_dff", config="dff101 frozenbn fused7 bf16 onehot native D=4",
+              hw=[H, W], B=1, k=K, max_abs_flow=max_flow,
+              group_ms=dict(zip(names, (ms for _, ms in out))),
+              plain_group_ms=dict(zip(names, (ms for _, ms in plain_out))),
+              class_agreement_vs_plain=agree, launches=launched))
+    for name in ("warp_onehot", "upsample_argmax", "fused_stem"):
+        check(launched[name] > 0, f"kernel {name} was not launched on the dff path")
+    check(launched["warp"] == 0 and launched["dilated_conv"] == 0,
+          "the dff path launched the score-map warp or the dilated conv")
+    for key, a in agree.items():
+        check(a >= 0.999, f"e2e_dff class maps kernel vs plain, group {key}: {a}")
+    return launched, model.state_dict()
+
+
+def e2e_dff_fc6(state: dict) -> None:
+    """Phase 7: fc6 through the dilated kernel, against cuDNN's fc6."""
+    clip = moving_clip(K, (H, W), SEED + 14, "cuda")
+    out, launched = {}, {}
+    for mode in ("auto", "pallas_fc6"):
+        model = build_model(dict(DFF_NET, dilated_conv=mode), device="cuda",
+                            generator=torch.Generator().manual_seed(SEED))
+        model.load_state_dict(state)
+        (out[mode],), launched[mode] = run_groups(model, [("direct", clip)])
+        del model
+    agree = (out["auto"][0] == out["pallas_fc6"][0]).float().mean().item()
+    emit(dict(phase="e2e_dff_fc6", hw=[H, W], B=1, k=K, group_ms=out["pallas_fc6"][1],
+              auto_group_ms=out["auto"][1], class_agreement_vs_auto=agree,
+              launches=launched["pallas_fc6"]))
+    check_pred(out["pallas_fc6"][0], (1, K, H, W))
+    check(agree >= 0.999, f"e2e_dff_fc6 class maps vs auto: {agree}")
+    # one fc6 per group: the keyframe's
+    check(launched["pallas_fc6"]["dilated_conv"] == 1,
+          f"pallas_fc6 fc6 launches {launched['pallas_fc6']['dilated_conv']} != 1")
+    check(launched["auto"]["dilated_conv"] == 0, "auto launched the dilated conv")
+
+
+def e2e_deeplab() -> dict[str, int]:
+    """Phase 8. Returns the launch counts of the bf16 ``pallas`` run.
+
+    With random weights, bf16 DeepLab-101 puts ~0.6% of the pixels at
+    top-2 logit margins within the bf16 noise of layer4 and fc6. On an
+    H100, cuDNN's bf16 convs and exactly rounded ones (an f32 conv of the
+    same bf16 operands, rounded once) agree on 0.9938 of the class map,
+    the kernel and cuDNN on 0.9940, the kernel and the exact conv on
+    0.9939. So the bf16 class maps must agree on >= 0.999 of the pixels
+    whose top-2 margin exceeds 1e-2 * max|logits| (>= 0.99 overall, logits
+    within 2e-2 * max|logits|), and the same model in f32, where rounding
+    is no longer in the way, on >= 0.999 of all pixels."""
+    clip = moving_clip(K, (H, W), SEED + 15, "cuda")
+    out, launched, logits = {}, {}, {}
+    for mode in ("pallas", "auto"):
+        # one seed, so both modes hold the same weights
+        model = build_model(dict(DEEPLAB_NET, dilated_conv=mode), device="cuda",
+                            generator=torch.Generator().manual_seed(SEED))
+        (out[mode],), launched[mode] = run_groups(model, [("direct", clip)])
+        logits[mode] = clip_logits(model, clip.permute(0, 1, 4, 2, 3), K)[0]
+        del model
+    pred, ref = out["pallas"][0][0], out["auto"][0][0]
+    agree = (pred == ref).float().mean().item()
+    logit_err = (logits["pallas"] - logits["auto"]).abs().max().item()
+    peak = logits["auto"].abs().max().item()
+    up = F.interpolate(logits["auto"], size=(H, W), mode="bilinear", align_corners=False)
+    top2 = up.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-2 * peak
+    agree_clear = (pred == ref)[clear].float().mean().item()
+    del up, top2
+
+    f32_pred = {}
+    for mode in ("pallas", "auto"):
+        model = build_model(dict(DEEPLAB_NET, dilated_conv=mode, dtype="float32"),
+                            device="cuda", generator=torch.Generator().manual_seed(SEED))
+        f32_pred[mode] = VideoSegmenter(model, K).push_group(clip)
+        del model
+    agree_f32 = (f32_pred["pallas"] == f32_pred["auto"]).float().mean().item()
+    emit(dict(phase="e2e_deeplab", config="deeplab101 frozenbn fused7 bf16", hw=[H, W], B=1,
+              frames=K, pallas_ms=out["pallas"][1], auto_ms=out["auto"][1],
+              pallas_fps=K / (out["pallas"][1] / 1e3), auto_fps=K / (out["auto"][1] / 1e3),
+              class_agreement_vs_auto=agree, clear_pixel_share=clear.float().mean().item(),
+              class_agreement_clear=agree_clear, logits_max_abs_err=logit_err,
+              logits_max_abs=peak, f32_class_agreement_vs_auto=agree_f32,
+              launches=launched["pallas"]))
+    check_pred(out["pallas"][0], (1, K, H, W))
+    check(logit_err <= 2e-2 * peak, f"e2e_deeplab logits pallas vs auto: {logit_err}")
+    check(agree >= 0.99 and agree_clear >= 0.999,
+          f"e2e_deeplab bf16 class maps pallas vs auto: {agree}, {agree_clear} off near-ties")
+    check(agree_f32 >= 0.999, f"e2e_deeplab f32 class maps pallas vs auto: {agree_f32}")
+    # 3 layer4 conv2 + fc6 per frame
+    check(launched["pallas"]["dilated_conv"] == 4 * K,
+          f"deeplab dilated_conv launches {launched['pallas']['dilated_conv']} != {4 * K}")
+    check(launched["auto"]["dilated_conv"] == 0, "auto launched the dilated conv")
+    check(launched["pallas"]["fused_stem"] == K and launched["pallas"]["upsample_argmax"] > 0,
+          "deeplab path skipped a kernel")
+    return launched["pallas"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -334,10 +554,22 @@ def main() -> int:
     kernel_warp(results)
     kernel_upsample_argmax(results)
     kernel_fused_stem(results)
+    kernel_warp_onehot(results)
+    kernel_dilated_conv(results)
     small_reference()
     launched = e2e_bench()
     torch.cuda.empty_cache()
     e2e_flagship()
+    torch.cuda.empty_cache()
+    dff_launched, dff_state = e2e_dff()
+    torch.cuda.empty_cache()
+    e2e_dff_fc6(dff_state)
+    del dff_state
+    torch.cuda.empty_cache()
+    deeplab_launched = e2e_deeplab()
+    # each kernel with the launches of one path it serves
+    launched = dict(launched, warp_onehot=dff_launched["warp_onehot"],
+                    dilated_conv=deeplab_launched["dilated_conv"])
 
     emit({"kernels": [
         dict(name=name, route="cuda", source=f"accel_tpu_torch/kernels/{name}.cu",

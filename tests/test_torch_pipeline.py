@@ -94,7 +94,7 @@ def test_unported_modes_raise(tiny):
     with pytest.raises(ValueError, match="divisible"):
         tpipe.clip_logits(tm, nchw(clip), 3)
     with pytest.raises(NotImplementedError, match="dilated_conv"):
-        build_model({"dilated_conv": "pallas"}, generator=torch.Generator())
+        build_model({"dilated_conv": "s2b"}, generator=torch.Generator())
     with pytest.raises(NotImplementedError, match="scale_cascade"):
         build_model({"scale_cascade": "mean1"}, generator=torch.Generator())
 
