@@ -7,9 +7,10 @@ PyTorch's headers, so a build takes seconds rather than the minutes a
 ``torch.utils.cpp_extension`` build takes; the build needs no ``ninja``.
 
 Libraries land in ``_build/`` beside this file (listed in ``.gitignore``),
-named by a hash of the source and the compiler flags, so an edited source
-rebuilds. The first :func:`load` builds every missing library at once, one
-``nvcc`` process per source, all started together.
+named by a hash of the source, the shared headers (``*.cuh``) and the
+compiler flags, so an edited source or header rebuilds. The first
+:func:`load` builds every missing library at once, one ``nvcc`` process
+per source, all started together.
 """
 
 from __future__ import annotations
@@ -40,12 +41,14 @@ ARGTYPES = {
     "warp": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     # logits, out, N, C, h, w, H, W, stream
     "upsample_argmax": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # x, w, inv, shift, out, N, H, W, Ho, Wo, is_bf16, stream
+    # x, w (bf16: packed (176, 64); f32: (3, 7, 7, 64)), inv, shift, out, N, H, W, Ho,
+    # Wo, is_bf16, stream
     "fused_stem": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # feat, flow, scale, gain, out, N, C, H, W, max_disp, feat_bf16, scale_bf16,
     # weights_bf16, stream
     "warp_onehot": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
-    # x, packed weights, out, N, Cin, Cout, H, W, dilation, is_bf16, stream
+    # x (bf16: NHWC; f32: NCHW), packed weights (9, Cout, Cin), out, N, Cin, Cout, H, W,
+    # dilation, is_bf16, stream
     "dilated_conv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 SOURCES = tuple(ARGTYPES)
@@ -60,8 +63,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Build product of ``<name>.cu``, keyed on the source and the flags."""
+    """Build product of ``<name>.cu``, keyed on the source, every header in
+    this directory (``*.cuh``) and the flags, so editing a header rebuilds."""
     digest = hashlib.sha256((KERNEL_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(KERNEL_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

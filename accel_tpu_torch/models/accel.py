@@ -240,8 +240,10 @@ def build_model(network: Mapping | None = None, *, num_classes: int = 19,
     keys (a plain mapping; missing keys take ``AccelNet``'s defaults).
 
     Values this port does not run yet raise ``NotImplementedError``. The
-    parameters are drawn from ``generator`` on its own device, so one seed
-    gives the same weights on every device."""
+    model lives on ``device``, by default the card ("cuda"); without one
+    it raises rather than build on the CPU, which takes ``device="cpu"``.
+    The parameters are drawn from ``generator`` on its own device, so one
+    seed gives the same weights on every device."""
     net = dict(network or {})
     for key, allowed in _ONLY.items():
         if key in net and net[key] not in allowed:
@@ -258,8 +260,11 @@ def build_model(network: Mapping | None = None, *, num_classes: int = 19,
         "flow_input_downscale", "norm", "stem", "use_pallas_warp", "warp_max_disp",
         "flow_width_mult", "scale_field_norm", "scale_cascade", "warp_dtype", "warp_gather",
         "warp_gain_fold", "dilated_conv") if k in net}
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_model: no CUDA device; pass device='cpu' to build on the CPU")
     model = AccelNet(num_classes=num_classes, family=net.get("name", "accel"),
                      use_kernels=use_kernels, device="meta", dtype=dtype, **kwargs)
-    model.to_empty(device=device or "cpu")
+    model.to_empty(device=device)
     init_weights(model, generator)
     return model.eval()

@@ -13,8 +13,8 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from accel_tpu_torch.ops.dilated_cuda import conv3x3_dilated
-from accel_tpu_torch.ops.fused_stem import fused_stem
+from accel_tpu_torch.ops.dilated_cuda import conv3x3_dilated, pack_dilated_weight
+from accel_tpu_torch.ops.fused_stem import fused_stem, stem_kernel_weight
 
 STAGE_PLANS = {
     18: ("basic", (2, 2, 2, 2)),
@@ -89,21 +89,45 @@ def make_norm(norm: str, c: int, *, device=None) -> nn.Module:
     raise ValueError(f"unsupported norm {norm!r} (frozenbn | groupnorm)")
 
 
+class PackedWeight:
+    """A kernel's packing of a parameter, made once per parameter version:
+    again after an in-place write (``load_state_dict``, ``copy_``) or a
+    move to other storage. A plain attribute, so ``state_dict`` keeps only
+    the parameter."""
+
+    def __init__(self, pack):
+        self.pack, self.key, self.value = pack, None, None
+
+    def __call__(self, param: torch.Tensor, *args) -> torch.Tensor:
+        key = (param.data_ptr(), param._version, *args)
+        if key != self.key:
+            self.value, self.key = self.pack(param.detach(), *args), key
+        return self.value
+
+
 class DilatedConv3x3(nn.Conv2d):
     """A 3x3, stride-1 conv with dilation d and padding d whose conv runs
     through ``ops/dilated_cuda.py`` (the kernel on CUDA, ``F.conv2d`` on the
     CPU or with ``use_kernels=False``); the bias is added after it, as the
     flax hook computes only the conv. Same parameters and ``state_dict``
-    keys as ``nn.Conv2d``."""
+    keys as ``nn.Conv2d``; the kernel's packed weights are a cache beside
+    them (``packed_weight``)."""
 
     def __init__(self, cin, cout, dilation, *, bias=False, use_kernels=True, device=None,
                  dtype=None):
         super().__init__(cin, cout, 3, padding=dilation, dilation=dilation, bias=bias,
                          device=device, dtype=dtype)
         self.use_kernels = use_kernels
+        self._packed = PackedWeight(pack_dilated_weight)
+
+    def packed_weight(self) -> torch.Tensor:
+        """``pack_dilated_weight(self.weight)``, packed once per weight version."""
+        return self._packed(self.weight)
 
     def forward(self, x):
-        y = conv3x3_dilated(x, self.weight, self.dilation[0], plain=not self.use_kernels)
+        plain = not self.use_kernels or x.device.type == "cpu"
+        y = conv3x3_dilated(x, self.weight, self.dilation[0], plain=plain,
+                            packed=None if plain else self.packed_weight())
         if self.bias is not None:
             y = y + self.bias.view(1, -1, 1, 1)
         return y
@@ -201,6 +225,7 @@ class DilatedResNet(nn.Module):
         if output_stride not in STRIDE_PLANS:
             raise ValueError(f"bad output_stride {output_stride}")
         self.stem, self.dtype, self.use_kernels = stem, dtype, use_kernels
+        self._stem_packed = PackedWeight(stem_kernel_weight)
         kind, plan = STAGE_PLANS[depth]
         block_cls = BasicBlock if kind == "basic" else Bottleneck
         strides, dils = STRIDE_PLANS[output_stride]
@@ -223,7 +248,9 @@ class DilatedResNet(nn.Module):
         x = x.to(self.dtype)
         if self.stem == "fused7":
             inv, shift = self.bn.folded()
-            x = fused_stem(x, self.conv1.weight, inv, shift, plain=not self.use_kernels)
+            plain = not self.use_kernels or x.device.type == "cpu"
+            x = fused_stem(x, self.conv1.weight, inv, shift, plain=plain,
+                           packed=None if plain else self._stem_packed(self.conv1.weight, x.dtype))
         else:
             x = torch.relu(self.bn(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)

@@ -8,7 +8,11 @@ Phases, one JSON line each:
 1. build: compile the CUDA kernels from ``accel_tpu_torch/kernels/*.cu``.
 2. kernel: each kernel against its plain PyTorch version on the card, at
    the main path's shapes, with the max error (or the class-map agreement
-   and the logit margins at disagreements) and median CUDA-event times.
+   and the logit margins at disagreements), median CUDA-event times of the
+   kernel, its plain version and the one PyTorch call that computes the
+   same function where there is one (``library_ms``, a yardstick the port
+   never calls), and the least time the card could take for the row
+   (``bound_ms``: bytes at the HBM rate or operations at the peak rate).
 3. small_reference: a tiny f32 Accel model on the card (kernels) against
    the same model on the CPU (plain versions): logits and class maps.
 4. e2e: Accel-18 (R101 keyframe branch, R18 update branch, FlowNet-S at
@@ -16,7 +20,8 @@ Phases, one JSON line each:
    through ``VideoSegmenter.push_group``: three incremental + 'last'
    groups and one direct group, with every kernel launch counted; then the
    same groups with every kernel replaced by its plain version, and the
-   class-map agreement between the two.
+   two compared as two bf16 paths are (``compare_paths``: logits, and class
+   maps overall and off bf16 near-ties).
 5. e2e_flagship: one incremental + 'last' group with the flagship cfg's
    groupnorm + conv7 stem + scale_field_norm mean1.
 6. e2e_dff: the bench's DFF row (R101 keyframe fc6 features warped by the
@@ -29,11 +34,13 @@ Phases, one JSON line each:
    dilated conv through the dilated kernel (``pallas``) against cuDNN
    (``auto``), in bf16 and, for the class-map check, in f32.
 
-Then the ``{"kernels": [...]}`` line, the card's name and power limit from
-nvidia-smi, and, last, ``{"ok": true, "device": {...}}``. Any failed check
-raises, so the script exits non-zero and prints no result line. Without a
-CUDA device it exits with code 2. Weights are random, drawn from a seed;
-the flow heads are re-drawn so the flow moves content (at init it is 0).
+Then the ``{"kernels": [...]}`` line (each kernel's first row, with its
+launches on one path it serves and per group there), the card's name and
+power limit from nvidia-smi, and, last, ``{"ok": true, "device": {...}}``.
+Any failed check raises, so the script exits non-zero and prints no result
+line. Without a CUDA device it exits with code 2. Weights are random, drawn
+from a seed; the flow heads are re-drawn so the flow moves content (at init
+it is 0).
 """
 
 from __future__ import annotations
@@ -115,6 +122,37 @@ def median_ms(fn, iters: int = 10) -> float:
     return statistics.median(times)
 
 
+# the card's peaks (H100 SXM data sheet, dense): HBM bytes and operations per ms
+HBM_BYTES_PER_MS = 3.35e9
+PEAK_OPS_PER_MS = {"bf16": 989e9, "f32": 67e9}
+
+
+def bound(n_bytes: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: each input byte read once and
+    each output byte written once at the HBM rate, or ``ops`` at the peak
+    rate of ``kind`` ('bf16' tensor cores, 'f32' CUDA cores), whichever is
+    longer."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_MS, ops / PEAK_OPS_PER_MS[kind]
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=n_bytes, bound_ops=ops, bound_ops_kind=kind)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def sample_grid(flow: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``F.grid_sample``'s grid (align_corners=True) for pixel flow
+    (N,2,h,w) = (dx, dy): the library yardstick of the warps."""
+    _, _, h, w = flow.shape
+    ys = torch.arange(h, device=flow.device, dtype=torch.float32).view(1, h, 1)
+    xs = torch.arange(w, device=flow.device, dtype=torch.float32).view(1, 1, w)
+    gx = 2 * (xs + flow[:, 0].float()) / (w - 1) - 1
+    gy = 2 * (ys + flow[:, 1].float()) / (h - 1) - 1
+    return torch.stack([gx, gy], dim=-1).to(dtype)
+
+
 def reset_counts() -> None:
     for fn in LAUNCHERS.values():
         fn.launches = 0
@@ -141,12 +179,19 @@ def kernel_warp(results: dict) -> None:
         ref = warp_ops.warp_plain(feat, flow, 8)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
-        bound = 1e-5 if dtype == torch.float32 else 1e-2 * ref.float().abs().max().item()
-        check(got.dtype == dtype and err <= bound, f"warp {dtype}: max err {err} > {bound}")
+        tol = 1e-5 if dtype == torch.float32 else 1e-2 * ref.float().abs().max().item()
+        check(got.dtype == dtype and err <= tol, f"warp {dtype}: max err {err} > {tol}")
+        grid = sample_grid(flow.clamp(-8, 8), dtype)
+        # four taps (4 multiplies, 3 adds) per output element, in f32
         row = dict(kernel="warp", dtype=str(dtype), shape=list(feat.shape), max_abs_flow=12.0,
-                   max_disp=8, max_abs_err=err, tol=bound,
+                   max_disp=8, max_abs_err=err, tol=tol,
                    ms=median_ms(lambda: warp_ops.warp_cuda(feat, flow, 8)),
-                   plain_ms=median_ms(lambda: warp_ops.warp_plain(feat, flow, 8)))
+                   plain_ms=median_ms(lambda: warp_ops.warp_plain(feat, flow, 8)),
+                   library_call="F.grid_sample(bilinear, zeros, align_corners=True) on the "
+                                "clamped flow's grid",
+                   library_ms=median_ms(lambda: F.grid_sample(feat, grid, align_corners=True,
+                                                              padding_mode="zeros")),
+                   **bound(nbytes(feat, flow, got), 7 * got.numel(), "f32"))
         emit(dict(phase="kernel", **row))
         rows.append(row)
     results["warp"] = rows[0]
@@ -173,7 +218,11 @@ def kernel_upsample_argmax(results: dict) -> None:
                    agreement=agree, n_disagree=int(diff.sum().item()),
                    max_abs_err=max_gap, tie_tol=tie,
                    ms=median_ms(lambda: ua_ops.upsample_argmax_cuda(logits, out_hw)),
-                   plain_ms=median_ms(lambda: ua_ops.upsample_argmax_plain(logits, out_hw)))
+                   plain_ms=median_ms(lambda: ua_ops.upsample_argmax_plain(logits, out_hw)),
+                   library_call=None, library_ms=None,
+                   # three lerps (one FMA each) and a compare per class and output pixel
+                   **bound(nbytes(logits, got), 7 * shape[0] * shape[1] * out_hw[0] * out_hw[1],
+                           "f32"))
         del up, gap
         emit(dict(phase="kernel", **row))
         rows.append(row)
@@ -181,23 +230,46 @@ def kernel_upsample_argmax(results: dict) -> None:
 
 
 def kernel_fused_stem(results: dict) -> None:
+    """bf16 (the tensor-core kernel; f32 weights, rounded to bf16 by both
+    sides; (1,3,30,34) takes its unaligned loads and stores) and f32 (the
+    CUDA-core kernel): within 2e-2 * max|ref| of the plain version, and in
+    bf16 at most 0.1% of the outputs other than the plain version's. ``ms`` times
+    the kernel on weights packed beforehand (as the model keeps them),
+    ``pack_ms`` the packing. The library yardstick is cuDNN's conv with inv
+    folded into the weights and shift as the bias, without the relu."""
     rows = []
-    for shape in ((4, 3, H, W), (1, 3, 720, 960)):
+    for shape, dtype in (((4, 3, H, W), torch.bfloat16), ((1, 3, 720, 960), torch.bfloat16),
+                         ((1, 3, 30, 34), torch.bfloat16), ((1, 3, H, W), torch.float32)):
         g = _gen(SEED + 3)
-        x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
-        w = (torch.randn((64, 3, 7, 7), generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        w = torch.randn((64, 3, 7, 7), generator=g, device="cuda") * 0.1
         inv = torch.rand((64,), generator=g, device="cuda") + 0.5
         shift = torch.randn((64,), generator=g, device="cuda") * 0.1
-        got = stem_ops.fused_stem_cuda(x, w, inv, shift)
+        packed = stem_ops.stem_kernel_weight(w, dtype)
+        got = stem_ops.fused_stem_cuda(x, w, inv, shift, packed)
         ref = stem_ops.fused_stem_plain(x, w, inv, shift)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
-        bound = 2e-2 * ref.float().abs().max().item()
-        check(got.dtype == torch.bfloat16 and got.shape == ref.shape and err <= bound,
-              f"fused_stem {shape}: max err {err} > {bound}")
-        row = dict(kernel="fused_stem", dtype="bfloat16", shape=list(shape), max_abs_err=err,
-                   tol=bound, ms=median_ms(lambda: stem_ops.fused_stem_cuda(x, w, inv, shift)),
-                   plain_ms=median_ms(lambda: stem_ops.fused_stem_plain(x, w, inv, shift)))
+        tol = 2e-2 * ref.float().abs().max().item()
+        differ = (got != ref).float().mean().item()
+        check(got.dtype == dtype and got.shape == ref.shape and err <= tol,
+              f"fused_stem {shape} {dtype}: max err {err} > {tol}")
+        # the sums differ from the plain version's only in their f32 order: a
+        # bf16 output rounds otherwise only where it lies next to a midpoint
+        check(dtype != torch.bfloat16 or differ <= 1e-3,
+              f"fused_stem {shape} {dtype}: {differ} of outputs differ")
+        w_lib = (w * inv.view(-1, 1, 1, 1)).to(dtype)
+        b_lib = shift.to(dtype)
+        row = dict(kernel="fused_stem", dtype=str(dtype), shape=list(shape), max_abs_err=err,
+                   tol=tol, differ_share=differ,
+                   ms=median_ms(lambda: stem_ops.fused_stem_cuda(x, w, inv, shift, packed)),
+                   pack_ms=median_ms(lambda: stem_ops.stem_kernel_weight(w, dtype)),
+                   plain_ms=median_ms(lambda: stem_ops.fused_stem_plain(x, w, inv, shift)),
+                   library_call="F.conv2d(stride 2, pad 3) with inv folded into the weights, "
+                                "shift as bias; no relu",
+                   library_ms=median_ms(lambda: F.conv2d(x, w_lib, b_lib, stride=2, padding=3)),
+                   **bound(nbytes(x, got) + 64 * 147 * x.element_size(),
+                           2 * 147 * got.numel(), "bf16" if dtype == torch.bfloat16 else "f32"))
         emit(dict(phase="kernel", **row))
         rows.append(row)
     results["fused_stem"] = rows[0]
@@ -226,22 +298,43 @@ def kernel_warp_onehot(results: dict) -> None:
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         peak = ref.float().abs().max().item()
-        bound = 1e-5 * peak if dtype == torch.float32 else 2.0 ** (math.floor(math.log2(peak)) - 7)
-        check(got.dtype == dtype and got.shape == ref.shape and err <= bound,
-              f"warp_onehot {shape} {dtype}: max err {err} > {bound}")
+        tol = 1e-5 * peak if dtype == torch.float32 else 2.0 ** (math.floor(math.log2(peak)) - 7)
+        check(got.dtype == dtype and got.shape == ref.shape and err <= tol,
+              f"warp_onehot {shape} {dtype}: max err {err} > {tol}")
+        clamped = torch.stack([flow[:, 0], flow[:, 1].clamp(-4, 4)], dim=1)
+        grid = sample_grid(clamped, dtype)
+        # four taps per output element, plus the scale and gain multiplies
+        ops = (7 + int(with_scale) + int(with_gain)) * got.numel()
         row = dict(kernel="warp_onehot", dtype=str(dtype), shape=list(shape), max_disp=4,
                    max_abs_flow_x=12.0, max_abs_flow_y=6.0, scale=with_scale, gain=with_gain,
-                   max_abs_err=err, tol=bound,
+                   max_abs_err=err, tol=tol,
                    ms=median_ms(lambda: onehot_ops.warp_onehot_cuda(*args)),
-                   plain_ms=median_ms(lambda: onehot_ops.warp_onehot_plain(*args)))
+                   plain_ms=median_ms(lambda: onehot_ops.warp_onehot_plain(*args)),
+                   library_call="F.grid_sample(bilinear, zeros, align_corners=True) on the "
+                                "clamped flow's grid; no scale or gain multiply",
+                   library_ms=median_ms(lambda: F.grid_sample(feat, grid, align_corners=True,
+                                                              padding_mode="zeros")),
+                   **bound(nbytes(feat, flow, scale, gain, got), ops, "f32"))
         emit(dict(phase="kernel", **row))
         rows.append(row)
     results["warp_onehot"] = rows[0]
 
 
+def valid_taps(h: int, w: int, d: int) -> int:
+    """Sum over output pixels of the taps that land inside the image: the
+    products a 'same'-padded dilated 3x3 conv needs (the rest multiply
+    padding zeros)."""
+    return (sum(max(0, h - abs(i * d)) for i in (-1, 0, 1))
+            * sum(max(0, w - abs(j * d)) for j in (-1, 0, 1)))
+
+
 def kernel_dilated_conv(results: dict) -> None:
     """Dilated 3x3 conv against F.conv2d (cuDNN, TF32 off): 1e-4 relative
-    for f32, 2e-2 * max|ref| for bf16."""
+    for f32, 2e-2 * max|ref| for bf16. ``ms`` times the kernel with weights
+    packed beforehand (as ``DilatedConv3x3`` keeps them) on an NCHW x, so
+    it includes the bf16 path's channels-last copy of x; ``pack_ms`` is the
+    packing alone, ``channels_last_ms`` the kernel on an x that is already
+    channels-last. The plain version is the library call."""
     rows = []
     for shape, cout, d, dtype in (((1, 2048, 64, 128), 1024, 6, torch.bfloat16),  # fc6
                                   ((1, 512, 64, 128), 512, 2, torch.bfloat16),    # layer4 conv2
@@ -251,17 +344,28 @@ def kernel_dilated_conv(results: dict) -> None:
         x = torch.randn(shape, generator=g, device="cuda").to(dtype)
         w = (torch.randn((cout, shape[1], 3, 3), generator=g, device="cuda")
              / math.sqrt(9 * shape[1])).to(dtype)
-        got = dilated_ops.conv3x3_dilated_cuda(x, w, d)
+        packed = dilated_ops.pack_dilated_weight(w)
+        got = dilated_ops.conv3x3_dilated_cuda(x, w, d, packed)
         ref = dilated_ops.conv3x3_dilated_plain(x, w, d)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
-        bound = (1e-4 if dtype == torch.float32 else 2e-2) * ref.float().abs().max().item()
-        check(got.dtype == dtype and got.shape == ref.shape and err <= bound,
-              f"dilated_conv {shape}->{cout} d={d} {dtype}: max err {err} > {bound}")
+        tol = (1e-4 if dtype == torch.float32 else 2e-2) * ref.float().abs().max().item()
+        check(got.dtype == dtype and got.shape == ref.shape and err <= tol,
+              f"dilated_conv {shape}->{cout} d={d} {dtype}: max err {err} > {tol}")
+        x_cl = x.contiguous(memory_format=torch.channels_last)
+        ops = 2 * shape[0] * shape[1] * cout * valid_taps(shape[2], shape[3], d)
         row = dict(kernel="dilated_conv", dtype=str(dtype), shape=list(shape), cout=cout,
-                   dilation=d, max_abs_err=err, tol=bound,
-                   ms=median_ms(lambda: dilated_ops.conv3x3_dilated_cuda(x, w, d)),
-                   plain_ms=median_ms(lambda: dilated_ops.conv3x3_dilated_plain(x, w, d)))
+                   dilation=d, max_abs_err=err, tol=tol,
+                   ms=median_ms(lambda: dilated_ops.conv3x3_dilated_cuda(x, w, d, packed)),
+                   channels_last_ms=median_ms(
+                       lambda: dilated_ops.conv3x3_dilated_cuda(x_cl, w, d, packed)),
+                   pack_ms=median_ms(lambda: dilated_ops.pack_dilated_weight(w)),
+                   plain_ms=median_ms(lambda: dilated_ops.conv3x3_dilated_plain(x, w, d)),
+                   library_call="F.conv2d(padding=d, dilation=d) (cuDNN)",
+                   library_ms=median_ms(lambda: F.conv2d(x, w, padding=d, dilation=d)),
+                   nominal_ops=2 * shape[0] * shape[1] * cout * 9 * shape[2] * shape[3],
+                   **bound(nbytes(x, w, got), ops, "bf16" if dtype == torch.bfloat16 else "f32"))
+        row["tflops"] = ops / row["ms"] / 1e9
         emit(dict(phase="kernel", **row))
         rows.append(row)
     results["dilated_conv"] = rows[0]
@@ -297,6 +401,42 @@ def moving_clip(n_frames: int, hw: tuple[int, int], seed: int, device) -> torch.
     return torch.stack(frames, dim=1).permute(0, 1, 3, 4, 2).contiguous()
 
 
+@torch.inference_mode()
+def compare_paths(pred: torch.Tensor, ref: torch.Tensor, model, ref_model, frames: torch.Tensor,
+                  propagate: str) -> dict:
+    """Two bf16 paths on one group: their class maps ``pred`` and ``ref``
+    (1, F, H, W), and their stride-level logits, as push_group makes them.
+    Agreement is taken overall and on the clear pixels: those whose top-2
+    margin in the reference path's logits (upsampled as the tail does)
+    exceeds 1e-2 * max|logits|.
+
+    With random weights a bf16 model puts ~0.6% of its pixels at top-2
+    margins within bf16 rounding noise. Two paths whose bf16 values differ
+    anywhere by rounding (cuDNN against an exactly rounded conv, or the
+    tensor-core stem against the f32 conv, which differ on ~0.004% of the
+    stem's outputs) flip those pixels: agreement ~0.994 overall, >= 0.9999
+    on the clear pixels."""
+    logits = clip_logits(model, frames.permute(0, 1, 4, 2, 3), K, propagate)[0]
+    ref_logits = clip_logits(ref_model, frames.permute(0, 1, 4, 2, 3), K, propagate)[0]
+    peak = ref_logits.abs().max().item()
+    up = F.interpolate(ref_logits, size=pred.shape[-2:], mode="bilinear", align_corners=False)
+    top2 = up.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-2 * peak
+    eq = pred[0] == ref[0]
+    return dict(agreement=eq.float().mean().item(), clear_share=clear.float().mean().item(),
+                clear_agreement=eq[clear].float().mean().item(),
+                logits_max_abs_err=(logits - ref_logits).abs().max().item(), logits_max_abs=peak)
+
+
+def check_bf16_paths(phase: str, c: dict, overall: float = 0.99) -> None:
+    """Two bf16 paths agree: logits within 2e-2 * max|logits|, class maps
+    on >= 0.999 of the clear pixels and on ``overall`` of all of them."""
+    check(c["logits_max_abs_err"] <= 2e-2 * c["logits_max_abs"],
+          f"{phase} logits: {c['logits_max_abs_err']} of {c['logits_max_abs']}")
+    check(c["agreement"] >= overall and c["clear_agreement"] >= 0.999,
+          f"{phase} class maps: {c['agreement']}, {c['clear_agreement']} off near-ties")
+
+
 def timed_group(seg: VideoSegmenter, frames: torch.Tensor) -> tuple[torch.Tensor, float]:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -324,19 +464,20 @@ def small_reference() -> None:
         want = clip_logits(cpu, clip.permute(0, 1, 4, 2, 3), K, propagate)
         got = clip_logits(gpu, clip.cuda().permute(0, 1, 4, 2, 3), K, propagate).cpu()
         err = (got - want).abs().max().item()
-        bound = 1e-3 * (1 + want.abs().max().item())
+        tol = 1e-3 * (1 + want.abs().max().item())
         seg_c, seg_g = (VideoSegmenter(m, K, propagate=propagate) for m in (cpu, gpu))
         agree = min((seg_g.push_group(clip[:, g:g + K].cuda()).cpu()
                      == seg_c.push_group(clip[:, g:g + K])).float().mean().item()
                     for g in (0, K))
         emit(dict(phase="small_reference", propagate=propagate, max_abs_flow=max_flow,
-                  logits_max_abs_err=err, tol=bound, class_agreement=agree))
-        check(err <= bound, f"small reference logits {propagate}: {err} > {bound}")
+                  logits_max_abs_err=err, tol=tol, class_agreement=agree))
+        check(err <= tol, f"small reference logits {propagate}: {err} > {tol}")
         check(agree >= 0.999, f"small reference class maps {propagate}: {agree}")
 
 
-def e2e_bench() -> dict[str, int]:
-    """Phase 4. Returns the launch counts of the main path's run."""
+def e2e_bench() -> tuple[dict[str, int], int]:
+    """Phase 4. Returns the launch counts of the main path's run and its
+    number of groups."""
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(SEED)
     model = build_model(BENCH_NET, device="cuda", generator=gen)
@@ -372,15 +513,14 @@ def e2e_bench() -> dict[str, int]:
     run(plain)  # warm-up
     plain_out = run(plain)
     check(counts() == launched, "the plain path launched a kernel")
-    agree = {}
-    for i, ((p, _), (pred, _), (ref, _)) in enumerate(zip(groups, out, plain_out)):
-        agree[f"{p}{i}"] = (pred == ref).float().mean().item()
+    vs_plain = {f"{p}{i}": compare_paths(pred, ref, model, plain, frames, p)
+                for i, ((p, frames), (pred, _), (ref, _)) in enumerate(zip(groups, out, plain_out))}
     emit(dict(phase="e2e_plain", group_ms={f"{p}{i}": ms for i, ((p, _), (_, ms))
                                            in enumerate(zip(groups, plain_out))},
-              class_agreement_vs_kernels=agree))
-    for key, a in agree.items():
-        check(a >= 0.999, f"e2e class maps kernel vs plain, group {key}: {a}")
-    return launched
+              kernels_vs_plain=vs_plain))
+    for key, c in vs_plain.items():
+        check_bf16_paths(f"e2e kernel vs plain, group {key}", c)
+    return launched, len(groups)
 
 
 def e2e_flagship() -> None:
@@ -415,13 +555,9 @@ def run_groups(model, groups) -> tuple[list[tuple[torch.Tensor, float]], dict[st
     return out, counts()
 
 
-def agreement(out, ref) -> list[float]:
-    return [(a[0] == b[0]).float().mean().item() for a, b in zip(out, ref)]
-
-
-def e2e_dff() -> tuple[dict[str, int], dict]:
-    """Phase 6. Returns the launch counts of its kernel run and the model's
-    weights (for phase 7)."""
+def e2e_dff() -> tuple[dict[str, int], int, dict]:
+    """Phase 6. Returns the launch counts of its kernel run, its number of
+    groups and the model's weights (for phase 7)."""
     model = build_model(DFF_NET, device="cuda", generator=torch.Generator().manual_seed(SEED))
     clip = moving_clip(3 * K, (H, W), SEED + 12, "cuda")
     max_flow = live_flow_heads(model, clip, SEED + 13)
@@ -437,19 +573,22 @@ def e2e_dff() -> tuple[dict[str, int], dict]:
     plain.load_state_dict(model.state_dict())
     plain_out, plain_launched = run_groups(plain, groups)
     check(not any(plain_launched.values()), f"the plain dff path launched {plain_launched}")
-    agree = dict(zip(names, agreement(out, plain_out)))
+    vs_plain = {name: compare_paths(pred, ref, model, plain, frames, p)
+                for name, (p, frames), (pred, _), (ref, _) in zip(names, groups, out, plain_out)}
     emit(dict(phase="e2e_dff", config="dff101 frozenbn fused7 bf16 onehot native D=4",
               hw=[H, W], B=1, k=K, max_abs_flow=max_flow,
               group_ms=dict(zip(names, (ms for _, ms in out))),
               plain_group_ms=dict(zip(names, (ms for _, ms in plain_out))),
-              class_agreement_vs_plain=agree, launches=launched))
+              kernels_vs_plain=vs_plain, launches=launched))
     for name in ("warp_onehot", "upsample_argmax", "fused_stem"):
         check(launched[name] > 0, f"kernel {name} was not launched on the dff path")
     check(launched["warp"] == 0 and launched["dilated_conv"] == 0,
           "the dff path launched the score-map warp or the dilated conv")
-    for key, a in agree.items():
-        check(a >= 0.999, f"e2e_dff class maps kernel vs plain, group {key}: {a}")
-    return launched, model.state_dict()
+    # DFF scores warped fc6 features: ~1% of its pixels sit at bf16 near-ties
+    # (0.9897-0.9907 overall on an H100, >= 0.99997 on the clear pixels)
+    for key, c in vs_plain.items():
+        check_bf16_paths(f"e2e_dff kernel vs plain, group {key}", c, overall=0.98)
+    return launched, len(groups), model.state_dict()
 
 
 def e2e_dff_fc6(state: dict) -> None:
@@ -477,33 +616,20 @@ def e2e_dff_fc6(state: dict) -> None:
 def e2e_deeplab() -> dict[str, int]:
     """Phase 8. Returns the launch counts of the bf16 ``pallas`` run.
 
-    With random weights, bf16 DeepLab-101 puts ~0.6% of the pixels at
-    top-2 logit margins within the bf16 noise of layer4 and fc6. On an
-    H100, cuDNN's bf16 convs and exactly rounded ones (an f32 conv of the
-    same bf16 operands, rounded once) agree on 0.9938 of the class map,
-    the kernel and cuDNN on 0.9940, the kernel and the exact conv on
-    0.9939. So the bf16 class maps must agree on >= 0.999 of the pixels
-    whose top-2 margin exceeds 1e-2 * max|logits| (>= 0.99 overall, logits
-    within 2e-2 * max|logits|), and the same model in f32, where rounding
-    is no longer in the way, on >= 0.999 of all pixels."""
+    bf16 ``pallas`` against ``auto`` (cuDNN) as ``compare_paths`` holds two
+    bf16 paths (on an H100, cuDNN's bf16 convs and exactly rounded ones
+    agree on 0.9938 of the class map), and the same model in f32, where
+    rounding is no longer in the way, on >= 0.999 of all pixels."""
     clip = moving_clip(K, (H, W), SEED + 15, "cuda")
-    out, launched, logits = {}, {}, {}
+    out, launched, models = {}, {}, {}
     for mode in ("pallas", "auto"):
         # one seed, so both modes hold the same weights
-        model = build_model(dict(DEEPLAB_NET, dilated_conv=mode), device="cuda",
-                            generator=torch.Generator().manual_seed(SEED))
-        (out[mode],), launched[mode] = run_groups(model, [("direct", clip)])
-        logits[mode] = clip_logits(model, clip.permute(0, 1, 4, 2, 3), K)[0]
-        del model
-    pred, ref = out["pallas"][0][0], out["auto"][0][0]
-    agree = (pred == ref).float().mean().item()
-    logit_err = (logits["pallas"] - logits["auto"]).abs().max().item()
-    peak = logits["auto"].abs().max().item()
-    up = F.interpolate(logits["auto"], size=(H, W), mode="bilinear", align_corners=False)
-    top2 = up.topk(2, dim=1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 1e-2 * peak
-    agree_clear = (pred == ref)[clear].float().mean().item()
-    del up, top2
+        models[mode] = build_model(dict(DEEPLAB_NET, dilated_conv=mode), device="cuda",
+                                   generator=torch.Generator().manual_seed(SEED))
+        (out[mode],), launched[mode] = run_groups(models[mode], [("direct", clip)])
+    vs_auto = compare_paths(out["pallas"][0], out["auto"][0], models["pallas"], models["auto"],
+                            clip, "direct")
+    del models
 
     f32_pred = {}
     for mode in ("pallas", "auto"):
@@ -515,14 +641,10 @@ def e2e_deeplab() -> dict[str, int]:
     emit(dict(phase="e2e_deeplab", config="deeplab101 frozenbn fused7 bf16", hw=[H, W], B=1,
               frames=K, pallas_ms=out["pallas"][1], auto_ms=out["auto"][1],
               pallas_fps=K / (out["pallas"][1] / 1e3), auto_fps=K / (out["auto"][1] / 1e3),
-              class_agreement_vs_auto=agree, clear_pixel_share=clear.float().mean().item(),
-              class_agreement_clear=agree_clear, logits_max_abs_err=logit_err,
-              logits_max_abs=peak, f32_class_agreement_vs_auto=agree_f32,
+              pallas_vs_auto=vs_auto, f32_class_agreement_vs_auto=agree_f32,
               launches=launched["pallas"]))
     check_pred(out["pallas"][0], (1, K, H, W))
-    check(logit_err <= 2e-2 * peak, f"e2e_deeplab logits pallas vs auto: {logit_err}")
-    check(agree >= 0.99 and agree_clear >= 0.999,
-          f"e2e_deeplab bf16 class maps pallas vs auto: {agree}, {agree_clear} off near-ties")
+    check_bf16_paths("e2e_deeplab pallas vs auto", vs_auto)
     check(agree_f32 >= 0.999, f"e2e_deeplab f32 class maps pallas vs auto: {agree_f32}")
     # 3 layer4 conv2 + fc6 per frame
     check(launched["pallas"]["dilated_conv"] == 4 * K,
@@ -557,25 +679,29 @@ def main() -> int:
     kernel_warp_onehot(results)
     kernel_dilated_conv(results)
     small_reference()
-    launched = e2e_bench()
+    accel_launched, accel_groups = e2e_bench()
     torch.cuda.empty_cache()
     e2e_flagship()
     torch.cuda.empty_cache()
-    dff_launched, dff_state = e2e_dff()
+    dff_launched, dff_groups, dff_state = e2e_dff()
     torch.cuda.empty_cache()
     e2e_dff_fc6(dff_state)
     del dff_state
     torch.cuda.empty_cache()
     deeplab_launched = e2e_deeplab()
-    # each kernel with the launches of one path it serves
-    launched = dict(launched, warp_onehot=dff_launched["warp_onehot"],
-                    dilated_conv=deeplab_launched["dilated_conv"])
+    # each kernel with the launches of one path it serves: (path, launches, groups)
+    paths = {name: ("accel18", accel_launched[name], accel_groups)
+             for name in ("warp", "upsample_argmax", "fused_stem")}
+    paths["warp_onehot"] = ("dff", dff_launched["warp_onehot"], dff_groups)
+    paths["dilated_conv"] = ("deeplab101 pallas", deeplab_launched["dilated_conv"], 1)
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_call")
     emit({"kernels": [
         dict(name=name, route="cuda", source=f"accel_tpu_torch/kernels/{name}.cu",
-             replaces=REPLACES[name], launches=launched[name],
-             max_abs_err=results[name]["max_abs_err"], ms=results[name]["ms"],
-             plain_ms=results[name]["plain_ms"])
+             replaces=REPLACES[name], path=paths[name][0], launches=paths[name][1],
+             launches_per_group=paths[name][1] / paths[name][2],
+             **{k: results[name][k] for k in keys})
         for name in LAUNCHERS]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

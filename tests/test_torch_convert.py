@@ -112,9 +112,9 @@ def test_family_trees_load(family, children):
 def test_build_model_seeds_family(family):
     net = dict(name=family, ref_depth=18, head_channels=64, dtype="float32",
                warp_dtype="native", warp_gather="onehot", dilated_conv="pallas_fc6")
-    a = build_model(net, generator=torch.Generator().manual_seed(3))
-    b = build_model(net, generator=torch.Generator().manual_seed(3))
-    c = build_model(net, generator=torch.Generator().manual_seed(4))
+    a = build_model(net, device="cpu", generator=torch.Generator().manual_seed(3))
+    b = build_model(net, device="cpu", generator=torch.Generator().manual_seed(3))
+    c = build_model(net, device="cpu", generator=torch.Generator().manual_seed(4))
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert a.family == family and sa.keys() == sb.keys()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)

@@ -125,3 +125,56 @@ def test_cpu_tensors_take_the_plain_version():
     assert tdc.conv3x3_dilated_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         tdc.conv3x3_dilated_cuda(tx, tw, 3)
+
+
+def _per_tap_gemms(x: torch.Tensor, packed: torch.Tensor, d: int) -> torch.Tensor:
+    """The conv as the kernel computes it: per tap 3i+j, the (Cout x Cin)
+    slab of the packed weights times x shifted by ((i-1)d, (j-1)d) with
+    zeros outside the image, summed over the nine taps."""
+    N, Cin, H, W = x.shape
+    xp = torch.nn.functional.pad(x, (d, d, d, d))
+    out = 0
+    for tap in range(9):
+        i, j = divmod(tap, 3)
+        shifted = xp[:, :, i * d:i * d + H, j * d:j * d + W].reshape(N, Cin, H * W)
+        out = out + packed[tap] @ shifted
+    return out.reshape(N, -1, H, W)
+
+
+@pytest.mark.parametrize("b,h,w_,ci,co,d", [
+    (1, 16, 32, 128, 128, 2),
+    (1, 24, 32, 128, 256, 6),
+])
+def test_pack_dilated_weight_layout(b, h, w_, ci, co, d):
+    """pack_dilated_weight's (9, Cout, Cin) slabs in nine shifted GEMMs
+    are the conv: against the plain version and the Pallas kernel."""
+    x, k = _conv_case((b, h, w_, ci), co, seed=20 + d)
+    packed = tdc.pack_dilated_weight(_oihw(k))
+    assert packed.shape == (9, co, ci) and packed.is_contiguous()
+    got = nhwc(_per_tap_gemms(nchw(x), packed, d))
+    np.testing.assert_allclose(got, nhwc(tdc.conv3x3_dilated_plain(nchw(x), _oihw(k), d)),
+                               atol=2e-4, rtol=2e-4)
+    want = np.asarray(pallas_conv_general_dilated(
+        jnp.asarray(x), jnp.asarray(k), (1, 1), [(d, d), (d, d)], rhs_dilation=(d, d),
+        dimension_numbers=("NHWC", "HWIO", "NHWC"), interpret=True))
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-4)
+
+
+def test_packed_weight_follows_the_weight():
+    """DilatedConv3x3 packs its weights once per weight version: the same
+    tensor while the weight is unchanged, a fresh packing after an
+    in-place copy_ or a load_state_dict."""
+    conv = DilatedConv3x3(16, 8, 2, **F32)
+    first = conv.packed_weight()
+    torch.testing.assert_close(first, tdc.pack_dilated_weight(conv.weight.detach()))
+    assert conv.packed_weight() is first
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=torch.Generator().manual_seed(1)))
+    second = conv.packed_weight()
+    assert second is not first
+    torch.testing.assert_close(second, tdc.pack_dilated_weight(conv.weight.detach()))
+    state = {"weight": torch.randn(conv.weight.shape, generator=torch.Generator().manual_seed(2))}
+    conv.load_state_dict(state)
+    torch.testing.assert_close(conv.packed_weight(), tdc.pack_dilated_weight(state["weight"]))
+    assert set(conv.state_dict()) == {"weight"}
+

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import assert_argmax_agrees, nchw, nhwc
+from torch_parity import assert_argmax_agrees, assert_close, nchw, nhwc
 
 from accel_tpu.ops import fused_stem as jfs
 from accel_tpu.ops.upsample import resize_bilinear as j_resize
@@ -16,6 +16,7 @@ from accel_tpu.ops.upsample_argmax import resize_matrix as j_resize_matrix
 from accel_tpu.ops.upsample_argmax import upsample_argmax as j_upsample_argmax
 from accel_tpu.ops.warp import bilinear_warp_xla, flow_to_feature_res as j_flow_to_feature_res
 from accel_tpu.ops.warp_pallas import warp_pallas_fwd
+from accel_tpu_torch.models.resnet import DilatedResNet
 from accel_tpu_torch.ops import fused_stem as tfs
 from accel_tpu_torch.ops import upsample_argmax as tua
 from accel_tpu_torch.ops import warp_cuda as twc
@@ -150,6 +151,75 @@ def test_fused_stem_plain_matches_pallas_kernel(shape):
     kern = np.asarray(jfs.fused_stem_fwd(*jargs, row_block=4, interpret=True))
     np.testing.assert_allclose(ours, kern, atol=1e-4)
     np.testing.assert_allclose(ours, np.asarray(jfs._oracle(*jargs)), atol=1e-4)
+
+
+def test_fused_stem_rounds_weights_to_input_dtype():
+    """bf16 x with f32 weights: the reference kernel rounds the weights to
+    x's dtype before the conv, and so does the plain version. The outputs
+    then differ only by the f32 sum order: >= 99.9% equal, none by more
+    than one bf16 ulp at max|ref|."""
+    x, k, inv, shift = _stem_case(10, (1, 32, 32, 3))
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    want = np.asarray(jfs.fused_stem_fwd(jnp.asarray(xb.float().numpy(), jnp.bfloat16),
+                                         jnp.asarray(k), jnp.asarray(inv), jnp.asarray(shift),
+                                         row_block=4, interpret=True).astype(jnp.float32))
+    got = nhwc(tfs.fused_stem_plain(xb.movedim(-1, 1), torch.from_numpy(k).permute(3, 2, 0, 1),
+                                    torch.from_numpy(inv), torch.from_numpy(shift)).float())
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    assert (got == want).mean() >= 0.999
+    assert np.abs(got - want).max() <= ulp
+
+
+def _stem_im2col(x: torch.Tensor) -> torch.Tensor:
+    """(N,3,H,W) -> (N*Ho*Wo, STEM_K) patches in the bf16 kernel's K order:
+    column (c*7 + ky)*8 + kx' holds x[c, 2oy - 3 + ky, 2ox - 4 + kx'] (the
+    kernel's staged input columns), zero outside the image; the last 8
+    columns are zero."""
+    N, _, H, W = x.shape
+    Ho, Wo = (H - 1) // 2 + 1, (W - 1) // 2 + 1
+    xp = torch.nn.functional.pad(x, (4, 4, 3, 3))
+    cols = [xp[:, c, ky:ky + 2 * Ho:2, kx:kx + 2 * Wo:2]
+            for c in range(3) for ky in range(7) for kx in range(8)]
+    cols += [torch.zeros_like(cols[0])] * (tfs.STEM_K - len(cols))
+    return torch.stack(cols, dim=-1).reshape(N * Ho * Wo, tfs.STEM_K), (N, Ho, Wo)
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 64, 3), (1, 30, 34, 3), (1, 17, 23, 3)])
+def test_pack_stem_weight_order(shape):
+    """The packed (K, 64) operand times the kernel's im2col is the stem:
+    pins the K order (c, ky, kx + 1), the zero tap kx' = 0 and the zero
+    pad rows the tensor-core kernel relies on."""
+    x, k, inv, shift = _stem_case(11, shape)
+    w = torch.from_numpy(k).permute(3, 2, 0, 1)
+    packed = tfs.pack_stem_weight(w)
+    assert packed.shape == (tfs.STEM_K, 64) and packed.is_contiguous()
+    rows = packed.view(-1, 64)[:168].view(3, 7, 8, 64)
+    assert not rows[:, :, 0].any() and not packed[168:].any()
+    patches, (N, Ho, Wo) = _stem_im2col(nchw(x))
+    y = (patches @ packed).view(N, Ho, Wo, 64) * torch.from_numpy(inv) + torch.from_numpy(shift)
+    got = torch.relu(y).numpy()
+    ref = nhwc(tfs.fused_stem_plain(nchw(x), w, torch.from_numpy(inv), torch.from_numpy(shift)))
+    assert_close(got, ref, rel=1e-5)
+    if shape[1] % 2 == 0 and shape[2] % 2 == 0:  # the Pallas kernel takes even H, W
+        jargs = [jnp.asarray(a) for a in (x, k, inv, shift)]
+        assert_close(got, np.asarray(jfs.fused_stem_fwd(*jargs, row_block=4, interpret=True)),
+                     rel=1e-5)
+
+
+def test_stem_kernel_weight_is_packed_once_per_version():
+    """The model keeps the stem kernel's packed weights and packs again
+    only after the weight is written in place (or for another dtype)."""
+    net = DilatedResNet(18, stem="fused7", device="cpu", dtype=torch.float32)
+    w = net.conv1.weight
+    first = net._stem_packed(w, torch.bfloat16)
+    assert first.dtype == torch.bfloat16 and first.shape == (tfs.STEM_K, 64)
+    torch.testing.assert_close(first, tfs.pack_stem_weight(w.detach().to(torch.bfloat16)))
+    assert net._stem_packed(w, torch.bfloat16) is first
+    with torch.no_grad():
+        w.mul_(2.0)
+    torch.testing.assert_close(net._stem_packed(w, torch.bfloat16),
+                               tfs.pack_stem_weight(w.detach().to(torch.bfloat16)))
+    torch.testing.assert_close(net._stem_packed(w, torch.float32), w.detach().permute(1, 2, 3, 0))
 
 
 def test_cpu_tensors_take_the_plain_versions():

@@ -114,9 +114,9 @@ def test_chunked_apply(n, chunk):
 
 def test_build_model_is_seeded():
     cfg = dict(TINY, flow_width_mult=0.25, dtype="float32", stem="fused7")
-    a = build_model(cfg, generator=torch.Generator().manual_seed(3))
-    b = build_model(cfg, generator=torch.Generator().manual_seed(3))
-    c = build_model(cfg, generator=torch.Generator().manual_seed(4))
+    a = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    b = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    c = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(4))
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["ref_net.backbone.conv1.weight"],
@@ -125,3 +125,15 @@ def test_build_model_is_seeded():
     assert not a.flownet.predict_flow2.weight.any()
     assert torch.equal(a.flownet.scale_field.bias, torch.ones(19))
     assert torch.equal(a.fusion.weight[:, :19, 0, 0], 0.5 * torch.eye(19))
+
+
+def test_build_model_defaults_to_the_card():
+    """Without ``device`` the model is built on the card; where there is
+    none, build_model raises rather than fall back to the CPU."""
+    cfg = dict(TINY, dtype="float32")
+    if torch.cuda.is_available():
+        model = build_model(cfg, generator=torch.Generator().manual_seed(3))
+        assert all(p.device.type == "cuda" for p in model.parameters())
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(cfg, generator=torch.Generator().manual_seed(3))
