@@ -304,13 +304,8 @@ EncodeTiled encode_tiled() {
     if (fn == nullptr) {
         void* p = nullptr;
         cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
         const cudaError_t err = cudaGetDriverEntryPointByVersion(
             "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-        const cudaError_t err =
-            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
         if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
             fn = reinterpret_cast<EncodeTiled>(p);
     }

@@ -12,18 +12,22 @@ card. Configurations, at 1024x2048, B=1, k=5, bf16, random weights from
 Accel-18 (chip_smoke's ``BENCH_NET``) one incremental + 'last' group and
 one direct group, and per-frame DeepLab-101 with ``dilated_conv: pallas``
 on 5 frames. For each, the kernel path (``use_kernels=True``) and the
-plain path alternate ``--repeat`` times; every turn serves one group
-untimed (warm-up), one group on the host clock (``push_group`` ending in
-``torch.cuda.synchronize()``) and one group under the profiler. One JSON
-line per turn: host ms, device ms (the time of every device event in the
-trace, summed), the device ms of each of the port's kernels and the eight
-largest device events by name. The card's name and power limit come last.
+plain path alternate ``--repeat`` times; every turn serves two groups
+untimed (warm-up) and a third under the profiler (device activity only)
+and on the host clock (``push_group`` ending in
+``torch.cuda.synchronize()``). One JSON line per turn, all from that one
+group: host ms, device ms (the time in which at least one device event
+ran), idle share 1 - device/host, the device ms of each of the port's
+kernels and the eight largest device events by name (summed per name).
+The profiler's own host overhead is inside host ms. The card's name and
+power limit come last.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -43,6 +47,17 @@ def port_kernel(event_name: str) -> str | None:
         if f"(anonymous namespace)::{fn}" in event_name or f"_{name}_cu_" in event_name:
             return name
     return None
+
+
+def busy_ms(events) -> float:
+    """The time in which at least one of the device events ran: the union
+    of their intervals, so events that overlap count once."""
+    total, end = 0.0, -math.inf
+    for s, e in sorted((ev.time_range.start, ev.time_range.end) for ev in events):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total / 1e3
 
 
 def main() -> int:
@@ -84,23 +99,24 @@ def main() -> int:
 
     def turn(model, propagate, clip):
         seg = VideoSegmenter(model, K, propagate=propagate)
-        seg.push_group(clip[:, :K])  # warm-up; an incremental group then has a key
+        for g in range(2):  # warm-up; an incremental group then has a key
+            seg.push_group(clip[:, g * K:(g + 1) * K])
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        seg.push_group(clip[:, K:2 * K])
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             seg.push_group(clip[:, 2 * K:])
             torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if not events:
+            raise RuntimeError("the profiler recorded no device events")
         by_name: dict[str, float] = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        for e in events:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
         by_kernel = {k: sum(ms for name, ms in by_name.items() if port_kernel(name) == k)
                      for k in KERNELS}
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        return (host_ms, sum(by_name.values()), {k: v for k, v in by_kernel.items() if v},
+        return (host_ms, busy_ms(events), {k: v for k, v in by_kernel.items() if v},
                 {name[:80]: ms for name, ms in top})
 
     configs = (("accel18", cs.BENCH_NET, ("incremental", "direct")),
@@ -114,7 +130,7 @@ def main() -> int:
                     host_ms, device_ms, by_kernel, top = turn(pair[path], propagate, clip)
                     print(json.dumps(dict(tree=args.tree or ".", config=name, propagate=propagate,
                                           path=path, turn=i, host_ms=host_ms, device_ms=device_ms,
-                                          idle_share=max(0.0, 1 - device_ms / host_ms),
+                                          idle_share=1 - device_ms / host_ms,
                                           kernels_ms=by_kernel, top_ms=top)), flush=True)
         del pair
         torch.cuda.empty_cache()
