@@ -121,3 +121,22 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a launcher."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def launch(name: str, device, *args) -> None:
+    """Call the launcher of library ``name`` with ``args`` and the raw
+    stream PyTorch currently uses on ``device`` (a CUDA ``torch.device``),
+    and raise on a launch error. For a kernel that takes microseconds the
+    host work around the launch is most of its cost, so the device guard is
+    entered only when ``device`` is not the current device, and the stream
+    is read as a raw handle (no ``torch.cuda.Stream`` object is made)."""
+    import torch
+
+    fn = load(name)
+    index = device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    check(err, name)

@@ -67,11 +67,8 @@ def conv3x3_dilated_cuda(x: torch.Tensor, weight: torch.Tensor, dilation: int,
     # bf16: NHWC (a free view when x is already channels-last); f32: NCHW
     xk = x.permute(0, 2, 3, 1).contiguous() if bf16 else x.contiguous()
     out = torch.empty((N, Cout, H, W), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        launch = kernels.load("dilated_conv")
-        err = launch(xk.data_ptr(), packed.data_ptr(), out.data_ptr(), N, Cin, Cout, H, W, d,
-                     int(bf16), torch.cuda.current_stream().cuda_stream)
-    kernels.check(err, "conv3x3_dilated_cuda")
+    kernels.launch("dilated_conv", x.device, xk.data_ptr(), packed.data_ptr(), out.data_ptr(),
+                   N, Cin, Cout, H, W, d, int(bf16))
     conv3x3_dilated_cuda.launches += 1
     return out
 

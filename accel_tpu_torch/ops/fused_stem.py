@@ -79,12 +79,9 @@ def fused_stem_cuda(x: torch.Tensor, weight: torch.Tensor, inv: torch.Tensor,
     inv = inv.to(device=x.device, dtype=torch.float32).contiguous()
     shift = shift.to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty((N, 64, Ho, Wo), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        launch = kernels.load("fused_stem")
-        err = launch(x.data_ptr(), packed.data_ptr(), inv.data_ptr(), shift.data_ptr(),
-                     out.data_ptr(), N, H, W, Ho, Wo, int(x.dtype == torch.bfloat16),
-                     torch.cuda.current_stream().cuda_stream)
-    kernels.check(err, "fused_stem_cuda")
+    kernels.launch("fused_stem", x.device, x.data_ptr(), packed.data_ptr(), inv.data_ptr(),
+                   shift.data_ptr(), out.data_ptr(), N, H, W, Ho, Wo,
+                   int(x.dtype == torch.bfloat16))
     fused_stem_cuda.launches += 1
     return out
 

@@ -48,24 +48,23 @@ def upsample_argmax_plain(logits: torch.Tensor, out_hw: tuple[int, int]) -> torc
 def upsample_argmax_cuda(logits: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Launch ``kernels/upsample_argmax.cu``. logits (N,C,h,w) f32 on CUDA
     -> (N,H,W) uint8. Any H >= h, W >= w; a downscale raises."""
-    if logits.device.type != "cuda" or logits.dtype != torch.float32:
+    device = logits.device
+    if device.type != "cuda" or logits.dtype != torch.float32:
         raise ValueError(f"upsample_argmax_cuda takes f32 CUDA logits, got "
-                         f"{logits.dtype} on {logits.device}")
+                         f"{logits.dtype} on {device}")
     N, C, h, w = logits.shape
     H, W = int(out_hw[0]), int(out_hw[1])
     if H < h or W < w:
         raise ValueError(f"upsample_argmax_cuda upscales only: ({h},{w}) -> ({H},{W})")
     if C > 256:
         raise ValueError(f"class index {C - 1} does not fit uint8")
-    if H > 65535 or N > 65535:
-        raise ValueError(f"upsample_argmax_cuda grid limit: H={H}, N={N} (max 65535)")
-    logits = logits.contiguous()
-    out = torch.empty((N, H, W), dtype=torch.uint8, device=logits.device)
-    with torch.cuda.device(logits.device):
-        launch = kernels.load("upsample_argmax")
-        err = launch(logits.data_ptr(), out.data_ptr(), N, C, h, w, H, W,
-                     torch.cuda.current_stream().cuda_stream)
-    kernels.check(err, "upsample_argmax_cuda")
+    if N > 65535:
+        raise ValueError(f"upsample_argmax_cuda grid limit: N={N} (max 65535)")
+    if not logits.is_contiguous():
+        logits = logits.contiguous()
+    out = torch.empty((N, H, W), dtype=torch.uint8, device=device)
+    kernels.launch("upsample_argmax", device, logits.data_ptr(), out.data_ptr(),
+                   N, C, h, w, H, W)
     upsample_argmax_cuda.launches += 1
     return out
 

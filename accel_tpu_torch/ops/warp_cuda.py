@@ -24,25 +24,29 @@ def warp_cuda(feat: torch.Tensor, flow: torch.Tensor, max_disp: float) -> torch.
     """Launch ``kernels/warp.cu``. feat (N,C,H,W) f32 or bf16 on CUDA, flow
     (N,2,H,W) -> warped (N,C,H,W) in feat's dtype. Raises on anything the
     kernel does not take."""
-    if feat.device.type != "cuda" or flow.device != feat.device:
+    device = feat.device
+    if device.type != "cuda" or flow.device != device:
         raise ValueError(f"warp_cuda needs CUDA tensors on one device, got "
-                         f"{feat.device} and {flow.device}")
+                         f"{device} and {flow.device}")
     if feat.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"warp_cuda takes f32 or bf16 feat, got {feat.dtype}")
     N, C, H, W = feat.shape
-    if tuple(flow.shape) != (N, 2, H, W):
+    if flow.shape != (N, 2, H, W):
         raise ValueError(f"flow {tuple(flow.shape)} does not match feat {tuple(feat.shape)}")
-    if H > 65535 or N > 65535:
-        raise ValueError(f"warp_cuda grid limit: H={H}, N={N} (max 65535)")
-    feat = feat.contiguous()
-    flow = flow.to(torch.float32).contiguous()
+    # the kernel's grid: a row per image row, a z index per image and chunk
+    # of 4 channels
+    if H > 65535 or N * ((C + 3) // 4) > 65535:
+        raise ValueError(f"warp_cuda grid limit: H={H}, N*ceil(C/4)={N * ((C + 3) // 4)} "
+                         "(max 65535)")
+    # the host work around a launch-sized kernel is most of its cost: copy
+    # only what needs copying
+    if not feat.is_contiguous():
+        feat = feat.contiguous()
+    if flow.dtype != torch.float32 or not flow.is_contiguous():
+        flow = flow.to(torch.float32).contiguous()
     out = torch.empty_like(feat)
-    with torch.cuda.device(feat.device):
-        launch = kernels.load("warp")
-        err = launch(feat.data_ptr(), flow.data_ptr(), out.data_ptr(), N, C, H, W,
-                     float(max_disp), int(feat.dtype == torch.bfloat16),
-                     torch.cuda.current_stream().cuda_stream)
-    kernels.check(err, "warp_cuda")
+    kernels.launch("warp", device, feat.data_ptr(), flow.data_ptr(), out.data_ptr(), N, C, H, W,
+                   float(max_disp), int(feat.dtype == torch.bfloat16))
     warp_cuda.launches += 1
     return out
 

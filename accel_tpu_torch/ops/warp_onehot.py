@@ -106,16 +106,12 @@ def warp_onehot_cuda(feat: torch.Tensor, flow: torch.Tensor, scale: torch.Tensor
     if gain is not None:
         gain = gain.to(device=feat.device, dtype=torch.float32).contiguous()
     out = torch.empty_like(feat)
-    with torch.cuda.device(feat.device):
-        launch = kernels.load("warp_onehot")
-        err = launch(feat.data_ptr(), flow.data_ptr(),
-                     None if scale is None else scale.data_ptr(),
-                     None if gain is None else gain.data_ptr(), out.data_ptr(),
-                     N, C, H, W, float(max_disp), int(feat.dtype == torch.bfloat16),
-                     int(scale is not None and scale.dtype == torch.bfloat16),
-                     int(weights_dtype == torch.bfloat16),
-                     torch.cuda.current_stream().cuda_stream)
-    kernels.check(err, "warp_onehot_cuda")
+    kernels.launch("warp_onehot", feat.device, feat.data_ptr(), flow.data_ptr(),
+                   None if scale is None else scale.data_ptr(),
+                   None if gain is None else gain.data_ptr(), out.data_ptr(),
+                   N, C, H, W, float(max_disp), int(feat.dtype == torch.bfloat16),
+                   int(scale is not None and scale.dtype == torch.bfloat16),
+                   int(weights_dtype == torch.bfloat16))
     warp_onehot_cuda.launches += 1
     return out
 

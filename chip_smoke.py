@@ -6,13 +6,19 @@
 Phases, one JSON line each:
 
 1. build: compile the CUDA kernels from ``accel_tpu_torch/kernels/*.cu``.
-2. kernel: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes, with the max error (or the class-map agreement
-   and the logit margins at disagreements), median CUDA-event times of the
+2. kernel: first the launch floor (a 1-element ``fill_``); then each
+   kernel against its plain PyTorch version on the card, at the shapes the
+   main path launches it with, with the max error (or the class-map
+   agreement and the logit margins at disagreements), the times of the
    kernel, its plain version and the one PyTorch call that computes the
-   same function where there is one (``library_ms``, a yardstick the port
+   same function where there is one (``library_*``, a yardstick the port
    never calls), and the least time the card could take for the row
    (``bound_ms``: bytes at the HBM rate or operations at the peak rate).
+   ``ms`` is a median CUDA-event time of one call that includes the
+   wrapper's host work; ``device_ms`` the device's time per call in a run
+   of back-to-back calls queued behind a spin kernel, and ``host_ms`` the
+   host's time to enqueue one (``device_ms``). A launch-sized kernel is
+   read by ``device_ms`` against the launch floor.
 3. small_reference: a tiny f32 Accel model on the card (kernels) against
    the same model on the CPU (plain versions): logits and class maps.
 4. e2e: Accel-18 (R101 keyframe branch, R18 update branch, FlowNet-S at
@@ -48,6 +54,7 @@ it is 0).
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -112,7 +119,10 @@ def check(cond: bool, what: str) -> None:
 
 
 def median_ms(fn, iters: int = 10) -> float:
-    """Median CUDA-event time of ``fn`` over ``iters`` calls, after 2 warm-ups."""
+    """Median CUDA-event time of ``fn`` over ``iters`` calls, after 2
+    warm-ups. The first event is recorded on an idle stream, so the time
+    includes the host's work in ``fn`` up to the launch (for a kernel, its
+    Python wrapper)."""
     for _ in range(2):
         fn()
     times = []
@@ -124,6 +134,79 @@ def median_ms(fn, iters: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+@functools.cache
+def spin_cycles_per_ms() -> float:
+    """Clock cycles per ms of ``torch.cuda._sleep``'s spin kernel."""
+    torch.cuda._sleep(1000)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(10_000_000)
+    b.record()
+    b.synchronize()
+    return 10_000_000 / a.elapsed_time(b)
+
+
+def device_ms(fn, launches: int = 50, turns: int = 3) -> dict:
+    """Device and host time per call of ``fn``, the median of ``turns``
+    runs of ``launches`` back-to-back calls. Before each run a spin kernel
+    keeps the card busy for twice the host's enqueue time of the previous
+    run, so every call is queued before the first event starts the clock:
+    ``device_ms`` is the device's time per call with the host's work kept
+    out (back to back, so a launch-sized kernel reads as the launch
+    interval), ``host_ms`` the host's time to enqueue one call."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    dev, host = [], []
+    spin_ms = 2e3 * host_s + 1.0
+    while len(dev) < turns:
+        torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms()))
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            fn()
+        host_s = time.perf_counter() - t0
+        b.record()
+        b.synchronize()
+        if host_s * 1e3 >= spin_ms:
+            # the host stalled (its CPU is shared) and the card ran dry
+            # before every call was queued: that run does not count
+            check(spin_ms < 1e3, f"enqueue of {launches} calls took {host_s * 1e3} ms")
+            spin_ms = 2e3 * host_s + 1.0
+            continue
+        dev.append(a.elapsed_time(b) / launches)
+        host.append(host_s * 1e3 / launches)
+    return dict(device_ms=statistics.median(dev), host_ms=statistics.median(host))
+
+
+def launch_floor() -> dict:
+    """The floor a launch-sized kernel is read against: a 1-element
+    ``fill_``, timed as ``device_ms`` times a kernel."""
+    z = torch.empty(1, device="cuda")
+    row = dict(phase="launch_floor", op="torch.empty(1).fill_(0)",
+               ms=median_ms(lambda: z.fill_(0)), **device_ms(lambda: z.fill_(0)))
+    emit(row)
+    return row
+
+
+def timed(fn, library=None) -> dict:
+    """A kernel row's times: ``ms`` (host-inclusive, ``median_ms``),
+    ``device_ms`` and ``host_ms`` (``device_ms``); with ``library``, the
+    same for the library call."""
+    out = dict(ms=median_ms(fn), **device_ms(fn))
+    if library is not None:
+        lib = device_ms(library)
+        out.update(library_ms=median_ms(library), library_device_ms=lib["device_ms"],
+                   library_host_ms=lib["host_ms"])
+    return out
 
 
 # the card's peaks (H100 SXM data sheet, dense): HBM bytes and operations per ms
@@ -174,27 +257,34 @@ def _gen(seed: int) -> torch.Generator:
 
 
 def kernel_warp(results: dict) -> None:
+    """Accel-18's score-map warp at the shapes it launches: (1,19,64,128)
+    f32 four times per incremental + 'last' group (one frame a step),
+    (4,19,64,128) once per direct group (k-1 frames at once), that shape in
+    bf16 (``warp_dtype: native``), and CamVid's ragged stride-16 map."""
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for shape, dtype in (((1, 19, 64, 128), torch.float32), ((4, 19, 64, 128), torch.float32),
+                         ((4, 19, 64, 128), torch.bfloat16), ((1, 19, 45, 60), torch.float32)):
         g = _gen(SEED + 1)
-        feat = torch.randn((4, 19, 64, 128), generator=g, device="cuda").to(dtype)
-        flow = (torch.rand((4, 2, 64, 128), generator=g, device="cuda") * 2 - 1) * 12.0
+        N, _, h, w = shape
+        feat = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        flow = (torch.rand((N, 2, h, w), generator=g, device="cuda") * 2 - 1) * 12.0
         got = warp_ops.warp_cuda(feat, flow, 8)
         ref = warp_ops.warp_plain(feat, flow, 8)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         tol = 1e-5 if dtype == torch.float32 else 1e-2 * ref.float().abs().max().item()
-        check(got.dtype == dtype and err <= tol, f"warp {dtype}: max err {err} > {tol}")
+        check(got.dtype == dtype and got.shape == ref.shape and err <= tol,
+              f"warp {shape} {dtype}: max err {err} > {tol}")
         grid = sample_grid(flow.clamp(-8, 8), dtype)
         # four taps (4 multiplies, 3 adds) per output element, in f32
-        row = dict(kernel="warp", dtype=str(dtype), shape=list(feat.shape), max_abs_flow=12.0,
+        row = dict(kernel="warp", dtype=str(dtype), shape=list(shape), max_abs_flow=12.0,
                    max_disp=8, max_abs_err=err, tol=tol,
-                   ms=median_ms(lambda: warp_ops.warp_cuda(feat, flow, 8)),
+                   **timed(lambda: warp_ops.warp_cuda(feat, flow, 8),
+                           lambda: F.grid_sample(feat, grid, align_corners=True,
+                                                 padding_mode="zeros")),
                    plain_ms=median_ms(lambda: warp_ops.warp_plain(feat, flow, 8)),
                    library_call="F.grid_sample(bilinear, zeros, align_corners=True) on the "
                                 "clamped flow's grid",
-                   library_ms=median_ms(lambda: F.grid_sample(feat, grid, align_corners=True,
-                                                              padding_mode="zeros")),
                    **bound(nbytes(feat, flow, got), 7 * got.numel(), "f32"))
         emit(dict(phase="kernel", **row))
         rows.append(row)
@@ -211,8 +301,14 @@ def upsample_argmax_ops(shape: tuple, out_hw: tuple) -> int:
 
 
 def kernel_upsample_argmax(results: dict) -> None:
+    """The serving tail at the shapes it launches: one group's 5 frames at
+    B=1 (once per group), the bench's B=4 group of 20, CamVid's 45x60 ->
+    720x960, and a non-integer ratio whose bands change inside a thread's
+    run of rows. Each row's class map agrees with the plain version's on
+    >= 0.9999 of the pixels, every disagreement at a near-tie."""
     rows = []
-    for shape, out_hw in (((20, 19, 64, 128), (H, W)), ((2, 19, 45, 60), (720, 960))):
+    for shape, out_hw in (((5, 19, 64, 128), (H, W)), ((20, 19, 64, 128), (H, W)),
+                          ((2, 19, 45, 60), (720, 960)), ((3, 11, 12, 20), (128, 256))):
         logits = torch.randn(shape, generator=_gen(SEED + 2), device="cuda")
         got = ua_ops.upsample_argmax_cuda(logits, out_hw)
         ref = ua_ops.upsample_argmax_plain(logits, out_hw)
@@ -230,9 +326,9 @@ def kernel_upsample_argmax(results: dict) -> None:
         row = dict(kernel="upsample_argmax", shape=list(shape), out_hw=list(out_hw),
                    agreement=agree, n_disagree=int(diff.sum().item()),
                    max_abs_err=max_gap, tie_tol=tie,
-                   ms=median_ms(lambda: ua_ops.upsample_argmax_cuda(logits, out_hw)),
+                   **timed(lambda: ua_ops.upsample_argmax_cuda(logits, out_hw)),
                    plain_ms=median_ms(lambda: ua_ops.upsample_argmax_plain(logits, out_hw)),
-                   library_call=None, library_ms=None,
+                   library_call=None, library_ms=None, library_device_ms=None,
                    **bound(nbytes(logits, got), upsample_argmax_ops(shape, out_hw), "f32"))
         del up, gap
         emit(dict(phase="kernel", **row))
@@ -274,12 +370,12 @@ def kernel_fused_stem(results: dict) -> None:
         b_lib = shift.to(dtype)
         row = dict(kernel="fused_stem", dtype=str(dtype), shape=list(shape), max_abs_err=err,
                    tol=tol, differ_share=differ,
-                   ms=median_ms(lambda: stem_ops.fused_stem_cuda(x, w, inv, shift, packed)),
+                   **timed(lambda: stem_ops.fused_stem_cuda(x, w, inv, shift, packed),
+                           lambda: F.conv2d(x, w_lib, b_lib, stride=2, padding=3)),
                    pack_ms=median_ms(lambda: stem_ops.stem_kernel_weight(w, dtype)),
                    plain_ms=median_ms(lambda: stem_ops.fused_stem_plain(x, w, inv, shift)),
                    library_call="F.conv2d(stride 2, pad 3) with inv folded into the weights, "
                                 "shift as bias; no relu",
-                   library_ms=median_ms(lambda: F.conv2d(x, w_lib, b_lib, stride=2, padding=3)),
                    **bound(nbytes(x, got) + 64 * 147 * x.element_size(),
                            2 * 147 * got.numel(), "bf16" if dtype == torch.bfloat16 else "f32"))
         emit(dict(phase="kernel", **row))
@@ -320,12 +416,12 @@ def kernel_warp_onehot(results: dict) -> None:
         row = dict(kernel="warp_onehot", dtype=str(dtype), shape=list(shape), max_disp=4,
                    max_abs_flow_x=12.0, max_abs_flow_y=6.0, scale=with_scale, gain=with_gain,
                    max_abs_err=err, tol=tol,
-                   ms=median_ms(lambda: onehot_ops.warp_onehot_cuda(*args)),
+                   **timed(lambda: onehot_ops.warp_onehot_cuda(*args),
+                           lambda: F.grid_sample(feat, grid, align_corners=True,
+                                                 padding_mode="zeros")),
                    plain_ms=median_ms(lambda: onehot_ops.warp_onehot_plain(*args)),
                    library_call="F.grid_sample(bilinear, zeros, align_corners=True) on the "
                                 "clamped flow's grid; no scale or gain multiply",
-                   library_ms=median_ms(lambda: F.grid_sample(feat, grid, align_corners=True,
-                                                              padding_mode="zeros")),
                    **bound(nbytes(feat, flow, scale, gain, got), ops, "f32"))
         emit(dict(phase="kernel", **row))
         rows.append(row)
@@ -368,13 +464,13 @@ def kernel_dilated_conv(results: dict) -> None:
         ops = 2 * shape[0] * shape[1] * cout * valid_taps(shape[2], shape[3], d)
         row = dict(kernel="dilated_conv", dtype=str(dtype), shape=list(shape), cout=cout,
                    dilation=d, max_abs_err=err, tol=tol,
-                   ms=median_ms(lambda: dilated_ops.conv3x3_dilated_cuda(x, w, d, packed)),
+                   **timed(lambda: dilated_ops.conv3x3_dilated_cuda(x, w, d, packed),
+                           lambda: F.conv2d(x, w, padding=d, dilation=d)),
                    channels_last_ms=median_ms(
                        lambda: dilated_ops.conv3x3_dilated_cuda(x_cl, w, d, packed)),
                    pack_ms=median_ms(lambda: dilated_ops.pack_dilated_weight(w)),
                    plain_ms=median_ms(lambda: dilated_ops.conv3x3_dilated_plain(x, w, d)),
                    library_call="F.conv2d(padding=d, dilation=d) (cuDNN)",
-                   library_ms=median_ms(lambda: F.conv2d(x, w, padding=d, dilation=d)),
                    nominal_ops=2 * shape[0] * shape[1] * cout * 9 * shape[2] * shape[3],
                    **bound(nbytes(x, w, got), ops, "bf16" if dtype == torch.bfloat16 else "f32"))
         row["tflops"] = ops / row["ms"] / 1e9
@@ -537,6 +633,10 @@ def e2e_bench() -> tuple[dict[str, int], int]:
               direct_fps=K / (out[-1][1] / 1e3), launches=launched))
     for name in ("warp", "upsample_argmax", "fused_stem"):
         check(launched[name] > 0, f"kernel {name} was not launched on the main path")
+    # a warp per non-key frame of an incremental group (one frame a step),
+    # one batched warp per direct group; one tail per group
+    check(launched["warp"] == 3 * (K - 1) + 1 and launched["upsample_argmax"] == len(groups),
+          f"main path launches {launched}")
 
     plain = build_model(BENCH_NET, device="cuda", generator=torch.Generator().manual_seed(SEED),
                         use_kernels=False)
@@ -716,6 +816,7 @@ def main() -> int:
     emit(dict(phase="build", wall_s=time.perf_counter() - t0, nvcc_s=built, ptxas=ptxas))
 
     results: dict = {}
+    floor = launch_floor()
     kernel_warp(results)
     kernel_upsample_argmax(results)
     kernel_fused_stem(results)
@@ -738,12 +839,13 @@ def main() -> int:
     paths["warp_onehot"] = ("dff", dff_launched["warp_onehot"], dff_groups)
     paths["dilated_conv"] = ("deeplab101 pallas", deeplab_launched["dilated_conv"], 1)
 
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_call")
+    keys = ("max_abs_err", "shape", "ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms", "library_call")
     emit({"kernels": [
         dict(name=name, route="cuda", source=f"accel_tpu_torch/kernels/{name}.cu",
              replaces=REPLACES[name], path=paths[name][0], launches=paths[name][1],
              launches_per_group=paths[name][1] / paths[name][2],
+             launch_floor_device_ms=floor["device_ms"],
              **{k: results[name][k] for k in keys})
         for name in LAUNCHERS]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

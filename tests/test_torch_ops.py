@@ -93,6 +93,19 @@ def test_warp_clamp_matches_pallas_kernel():
     assert np.abs(oracle - want).max() > 0.5
 
 
+@pytest.mark.parametrize("shape", [(1, 15, 19, 9), (2, 7, 33, 19)])
+def test_warp_clamp_matches_pallas_kernel_ragged(shape):
+    """Sizes off every tile (the kernel's 32-wide x strips and 4-channel
+    chunks, the TPU kernel's blocks), |flow| up to 2D on both axes."""
+    rng = np.random.default_rng(13)
+    feat = rng.standard_normal(shape).astype(np.float32)
+    flow = rng.uniform(-16.0, 16.0, (*shape[:3], 2)).astype(np.float32)
+    want = np.asarray(warp_pallas_fwd(jnp.asarray(feat), jnp.asarray(flow), max_disp=8,
+                                      interpret=True))
+    got = nhwc(twc.warp_plain(nchw(feat), nchw(flow), 8))
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
 def test_warp_dispatch_by_width():
     """C <= 64 takes the bounded warp; wider maps the unbounded gather."""
     feat, flow = _warp_case(5, 16.0)
