@@ -29,10 +29,14 @@ class VideoSegmenter:
     def reset(self):
         """Drop the propagation state (e.g. on a scene cut or a new stream)."""
         self._t = 0
+        # the per-frame propagation cache of the reference; push_group's
+        # groups are self-contained, so it stays empty until push_frame is
+        # ported
+        self._prop = None
 
     @property
     def is_keyframe_next(self) -> bool:
-        return self._t % self.interval == 0
+        return self._t % self.interval == 0 or self._prop is None
 
     def push_frame(self, frame):
         raise NotImplementedError(
@@ -48,8 +52,9 @@ class VideoSegmenter:
         """frames (B, k, H, W, 3), keyframe first -> (B, k, H, W) uint8.
 
         One batched pipeline call per keyframe group; the schedule must be
-        at a group boundary (``is_keyframe_next``)."""
-        if frames.shape[1] != self.interval:
+        at a group boundary (``is_keyframe_next``). The ``deeplab`` family
+        runs every frame as a keyframe and takes a group of any length."""
+        if frames.shape[1] != self.interval and self.model.family != "deeplab":
             raise ValueError(f"group length {frames.shape[1]} != interval {self.interval}")
         if not self.is_keyframe_next:
             raise ValueError(
@@ -58,4 +63,5 @@ class VideoSegmenter:
         pred = clip_predictions(self.model, frames, self.interval, self.propagate,
                                 full_res=self._full_res)
         self._t += frames.shape[1]
+        self._prop = None
         return pred

@@ -45,8 +45,9 @@ ARGTYPES = {
     # Wo, is_bf16, stream
     "fused_stem": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # feat, flow, scale, gain, out, N, C, H, W, max_disp, feat_bf16, scale_bf16,
-    # weights_bf16, stream
-    "warp_onehot": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    # weights_bf16, rows, chunk, stages, runs, tma, stream
+    "warp_onehot": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _I,
+                    _P),
     # x (bf16: NHWC; f32: NCHW), packed weights (9, Cout, Cin), out, N, Cin, Cout, H, W,
     # dilation, is_bf16, stream
     "dilated_conv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -7,6 +7,10 @@ is the same resize when ``antialias=True`` is set for a downscale; on an
 upscale the antialias kernel equals plain bilinear, so it is set only where
 some axis shrinks. ``accel_tpu``'s ``DOWNSCALE_METHOD`` defaults to the
 plain resize, which is the one ported here.
+
+PyTorch's CPU antialiased resize has no 16-bit kernels, so a CPU tensor of
+a 16-bit type that is downscaled is resized in f32 and rounded back once;
+a CUDA tensor keeps its own dtype throughout.
 """
 
 from __future__ import annotations
@@ -23,8 +27,12 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     oh, ow = int(out_hw[0]), int(out_hw[1])
     if (h, w) == (oh, ow):
         return x
+    antialias = oh < h or ow < w
+    if antialias and x.device.type == "cpu" and x.dtype in (torch.bfloat16, torch.float16):
+        return F.interpolate(x.to(torch.float32), size=(oh, ow), mode="bilinear",
+                             align_corners=False, antialias=True).to(x.dtype)
     return F.interpolate(x, size=(oh, ow), mode="bilinear", align_corners=False,
-                         antialias=oh < h or ow < w)
+                         antialias=antialias)
 
 
 def bilinear_upsample(x: torch.Tensor, factor: int) -> torch.Tensor:

@@ -8,9 +8,9 @@ full-resolution C-channel logits. The kernel is
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from accel_tpu_torch import kernels
+from accel_tpu_torch.ops.upsample import resize_bilinear
 
 
 def upscale_taps(n_in: int, n_out: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -38,10 +38,10 @@ def resize_matrix(n_in: int, n_out: int) -> torch.Tensor:
 
 
 def upsample_argmax_plain(logits: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """The kernel's plain version: materialize the bilinear upsample, then
-    argmax. logits (N,C,h,w) -> (N,H,W) uint8."""
-    up = F.interpolate(logits.to(torch.float32), size=tuple(out_hw), mode="bilinear",
-                       align_corners=False)
+    """The kernel's plain version: materialize the bilinear resize in f32
+    (``resize_bilinear``, antialiased on a downscale as ``accel_tpu``'s
+    oracle is), then argmax. logits (N,C,h,w) -> (N,H,W) uint8."""
+    up = resize_bilinear(logits.to(torch.float32), tuple(out_hw))
     return up.argmax(dim=1).to(torch.uint8)
 
 

@@ -12,15 +12,99 @@ which both versions here repeat:
 - taps outside the image read 0; the sum is in f32;
 - with ``scale``: ``out * (f32(scale) * gain[n])``, gain only when given;
 - the result is cast to feat's dtype.
+
+The kernel stages each channel chunk's source window (the band's rows and
+the ±ceil(D) rows around them, zero outside the image) in shared memory;
+:func:`plan` sizes the bands, chunks and stages from the shape.
 """
 
 from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
 from accel_tpu_torch import kernels
 
 _WEIGHTS_DTYPES = (torch.bfloat16, torch.float32)
+
+SMEM_PER_SM = 233472        # 228 KB of shared memory per SM (H100)
+SMEM_PER_BLOCK = 232448     # 227 KB, a block's most
+MAX_CONSUMERS = 512         # the kernel's __launch_bounds__, less the producer warp
+SMS = 132                   # an H100 SXM's SMs, when no card is asked
+
+
+class Plan(NamedTuple):
+    """How ``kernels/warp_onehot.cu`` cuts a shape: bands of ``rows`` output
+    rows, windows of ``chunk`` channels, ``stages`` windows in flight (2 or
+    3 under TMA staging, 2 under cp.async), ``runs`` blocks along the
+    channels, each ``run`` chunks long, ``smem`` bytes of shared memory a
+    block. A window is ``win_rows`` (the band and ceil(D) rows above and
+    below it) x ``width`` (the row and 16 bytes of zero columns on each
+    side: TMA starts a box only on a 16-byte boundary)."""
+    tma: bool
+    rows: int
+    chunk: int
+    stages: int
+    runs: int
+    run: int
+    win_rows: int
+    width: int
+    smem: int
+    grid: tuple[int, int, int]
+
+
+@functools.lru_cache(maxsize=256)
+def plan(N: int, C: int, H: int, W: int, max_disp: float, elem: int, aligned: bool = True,
+         sms: int = SMS) -> Plan:
+    """The kernel's cut of an (N,C,H,W) map of ``elem``-byte features.
+
+    TMA staging where a feature row is a multiple of 16 bytes, every pointer
+    is 16-byte aligned (``aligned``) and a window row is at most 256
+    columns; cp.async otherwise. The tallest band (16 rows where that takes
+    at most 256 threads, else 8, 4, 2, 1), then the largest chunk (8, 4, 2,
+    1 channels), whose stages let two blocks share an SM (on an H100 the
+    16-row bands were the faster at the DFF shapes, and one block per SM
+    much the slower). The run length takes the fewest waves of blocks times
+    the chunks a block walks (plus one for its set-up). Raises
+    ``ValueError`` where even one row and one channel do not fit."""
+    halo = math.ceil(max_disp)
+    per_thread = 16 // elem           # pixels a thread, and zero columns a side
+    width = W + 2 * per_thread
+    tpr = -(-W // per_thread)
+    tma = aligned and W * elem % 16 == 0 and width <= 256
+    for stages in ((3, 2) if tma else (2,)):
+        for rows in (16, 8, 4, 2, 1):
+            consumers = -(-tpr * rows // 32) * 32
+            win_rows = rows + 2 * halo + 1
+            # 16-row bands only as far as 256 threads: more would leave
+            # registers for one block per SM
+            if (consumers > (256 if rows > 8 else MAX_CONSUMERS)
+                    or (tma and win_rows > 256)):
+                continue
+            threads = consumers + (32 if tma else 0)
+            for chunk in (8, 4, 2, 1):
+                stage = -(-chunk * win_rows * width * elem // 128) * 128
+                smem = 128 + stages * (stage + 16)
+                if smem > SMEM_PER_BLOCK or 2 * (smem + 1024) > SMEM_PER_SM:
+                    continue
+                per_sm = min(32, 2048 // threads, SMEM_PER_SM // (smem + 1024))
+                bands, nchunks = -(-H // rows), -(-C // chunk)
+                cost = lambda run: (-(-N * bands * -(-nchunks // run) // (sms * per_sm))
+                                    * (run + 1))
+                run = min(range(nchunks, 0, -1), key=cost)
+                runs = -(-nchunks // run)
+                return Plan(tma, rows, chunk, stages, runs, run, win_rows, width, smem,
+                            (bands, runs, N))
+    raise ValueError(f"warp_onehot_cuda: no staging of ({N},{C},{H},{W}) with max_disp "
+                     f"{max_disp} fits {SMEM_PER_BLOCK} bytes of shared memory")
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_args(feat, flow, scale, gain, weights_dtype) -> None:
@@ -96,9 +180,9 @@ def warp_onehot_cuda(feat: torch.Tensor, flow: torch.Tensor, scale: torch.Tensor
     for name, t in (("feat", feat), ("scale", scale)):
         if t is not None and t.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"warp_onehot_cuda takes f32 or bf16 {name}, got {t.dtype}")
+    if max_disp < 0:
+        raise ValueError(f"max_disp must be >= 0, got {max_disp}")
     N, C, H, W = feat.shape
-    if H > 65535 or N * -(-C // 64) > 65535:
-        raise ValueError(f"warp_onehot_cuda grid limit: H={H}, N={N}, C={C}")
     feat = feat.contiguous()
     flow = flow.to(torch.float32).contiguous()
     if scale is not None:
@@ -106,12 +190,18 @@ def warp_onehot_cuda(feat: torch.Tensor, flow: torch.Tensor, scale: torch.Tensor
     if gain is not None:
         gain = gain.to(device=feat.device, dtype=torch.float32).contiguous()
     out = torch.empty_like(feat)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (feat, scale, out) if t is not None)
+    p = plan(N, C, H, W, float(max_disp), feat.element_size(), aligned,
+             _sm_count(feat.device.index))
+    if p.grid[1] > 65535 or p.grid[2] > 65535:
+        raise ValueError(f"warp_onehot_cuda grid limit: {p.grid} (runs and N at most 65535)")
     kernels.launch("warp_onehot", feat.device, feat.data_ptr(), flow.data_ptr(),
                    None if scale is None else scale.data_ptr(),
                    None if gain is None else gain.data_ptr(), out.data_ptr(),
                    N, C, H, W, float(max_disp), int(feat.dtype == torch.bfloat16),
                    int(scale is not None and scale.dtype == torch.bfloat16),
-                   int(weights_dtype == torch.bfloat16))
+                   int(weights_dtype == torch.bfloat16), p.rows, p.chunk, p.stages, p.runs,
+                   int(p.tma))
     warp_onehot_cuda.launches += 1
     return out
 

@@ -36,7 +36,8 @@ Phases, one JSON line each:
    one-hot warp with the scale field fused in, D=4, native dtype, FlowNet
    at 1/4 input and half width) at 1024x2048, B=1, k=5: two direct groups
    and one incremental + 'last' group, kernels and plain versions, held as
-   in phase 4.
+   in phase 4; the one-hot warp launches exactly once per direct group and
+   k-1 times per incremental group.
 7. e2e_dff_fc6: one direct group of that model with fc6 through the
    dilated kernel (``dilated_conv: pallas_fc6``) against cuDNN's fc6.
 8. e2e_deeplab: the per-frame DeepLab-101 baseline on 5 frames with every
@@ -384,11 +385,17 @@ def kernel_fused_stem(results: dict) -> None:
 
 
 def kernel_warp_onehot(results: dict) -> None:
-    """DFF's feature warp: |flow_y| up to 6 > D=4 (clamped), |flow_x| up to
-    12 (not clamped). At most 1e-5 * max|ref| for f32 outputs, one bf16 ulp
-    at max|ref| for bf16 outputs."""
+    """DFF's feature warp at the shapes it launches: (4,1024,64,128) bf16
+    with the scale fused, once per direct group (k-1 frames at once), and
+    (1,1024,64,128) bf16 without a scale, four times per incremental +
+    'last' group; then f32 features, a gain, and CamVid's 45x60 map (staged
+    without TMA). |flow_y| up to 6 > D=4 (clamped), |flow_x| up to 12 (not
+    clamped), uniform per pixel; the bf16 DFF rows also time a smooth flow
+    of that range (``smooth_flow_device_ms``). At most 1e-5 * max|ref| for
+    f32 outputs, one bf16 ulp at max|ref| for bf16 outputs."""
     rows = []
     for shape, dtype, with_scale, with_gain in (((4, 1024, 64, 128), torch.bfloat16, True, False),
+                                                ((1, 1024, 64, 128), torch.bfloat16, False, False),
                                                 ((4, 1024, 64, 128), torch.float32, False, False),
                                                 ((4, 1024, 64, 128), torch.bfloat16, True, True),
                                                 ((2, 1024, 45, 60), torch.bfloat16, True, False)):
@@ -413,7 +420,11 @@ def kernel_warp_onehot(results: dict) -> None:
         grid = sample_grid(clamped, dtype)
         # four taps per output element, plus the scale and gain multiplies
         ops = (7 + int(with_scale) + int(with_gain)) * got.numel()
+        p = onehot_ops.plan(N, C, h, w, 4.0, feat.element_size(), True,
+                            torch.cuda.get_device_properties(0).multi_processor_count)
         row = dict(kernel="warp_onehot", dtype=str(dtype), shape=list(shape), max_disp=4,
+                   staging="tma" if p.tma else "cp.async", band_rows=p.rows, chunk=p.chunk,
+                   stages=p.stages, grid=list(p.grid),
                    max_abs_flow_x=12.0, max_abs_flow_y=6.0, scale=with_scale, gain=with_gain,
                    max_abs_err=err, tol=tol,
                    **timed(lambda: onehot_ops.warp_onehot_cuda(*args),
@@ -423,6 +434,20 @@ def kernel_warp_onehot(results: dict) -> None:
                    library_call="F.grid_sample(bilinear, zeros, align_corners=True) on the "
                                 "clamped flow's grid; no scale or gain multiply",
                    **bound(nbytes(feat, flow, scale, gain, got), ops, "f32"))
+        if shape[1:] == (1024, 64, 128) and dtype == torch.bfloat16:
+            # the same call on a smooth flow of the same range (neighbouring
+            # pixels move alike, as FlowNet's do): the taps of a warp then
+            # fall on neighbouring window columns, not scattered ones
+            coarse = torch.rand((N, 2, h // 16, w // 16), generator=g, device="cuda") * 2 - 1
+            smooth = F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
+            smooth = smooth / smooth.abs().amax(dim=(2, 3), keepdim=True)
+            smooth = smooth * torch.tensor([12.0, 6.0], device="cuda").view(1, 2, 1, 1)
+            s_args = (feat, smooth, scale, 4, gain)
+            s_err = (onehot_ops.warp_onehot_cuda(*s_args).float()
+                     - onehot_ops.warp_onehot_plain(*s_args).float()).abs().max().item()
+            check(s_err <= tol, f"warp_onehot {shape} smooth flow: max err {s_err} > {tol}")
+            row.update(smooth_flow_max_abs_err=s_err, smooth_flow_device_ms=device_ms(
+                lambda: onehot_ops.warp_onehot_cuda(*s_args))["device_ms"])
         emit(dict(phase="kernel", **row))
         rows.append(row)
     results["warp_onehot"] = rows[0]
@@ -725,6 +750,10 @@ def e2e_dff() -> tuple[dict[str, int], int, dict]:
         check(launched[name] > 0, f"kernel {name} was not launched on the dff path")
     check(launched["warp"] == 0 and launched["dilated_conv"] == 0,
           "the dff path launched the score-map warp or the dilated conv")
+    # one batched warp per direct group, one per non-key frame of an
+    # incremental group
+    check(launched["warp_onehot"] == 2 + (K - 1),
+          f"dff warp_onehot launches {launched['warp_onehot']} != {2 + (K - 1)}")
     # DFF scores warped fc6 features: ~1% of its pixels sit at bf16 near-ties
     # (0.9897-0.9907 overall on an H100, >= 0.99997 on the clear pixels)
     for key, c in vs_plain.items():

@@ -9,10 +9,10 @@ settings) from another checkout, e.g. an older commit unpacked with
 ``git archive``, so two versions are profiled by this one script on one
 card. Configurations, at 1024x2048, B=1, k=5, bf16, random weights from
 ``chip_smoke.py``'s seed (flow heads re-drawn so the flow moves content):
-Accel-18 (chip_smoke's ``BENCH_NET``) one incremental + 'last' group and
-one direct group, and per-frame DeepLab-101 with ``dilated_conv: pallas``
-on 5 frames. For each, the kernel path (``use_kernels=True``) and the
-plain path alternate ``--repeat`` times; every turn serves two groups
+Accel-18 (chip_smoke's ``BENCH_NET``) and the DFF row (``DFF_NET``), each
+one incremental + 'last' group and one direct group, and per-frame
+DeepLab-101 with ``dilated_conv: pallas`` on 5 frames. For each, the
+kernel path (``use_kernels=True``) and the plain path alternate ``--repeat`` times; every turn serves two groups
 untimed (warm-up) and a third under the profiler (device activity only)
 and on the host clock (``push_group`` ending in
 ``torch.cuda.synchronize()``). One JSON line per turn, all from that one
@@ -120,6 +120,7 @@ def main() -> int:
                 {name[:80]: ms for name, ms in top})
 
     configs = (("accel18", cs.BENCH_NET, ("incremental", "direct")),
+               ("dff", cs.DFF_NET, ("incremental", "direct")),
                ("deeplab101 pallas", dict(cs.DEEPLAB_NET, dilated_conv="pallas"), ("direct",)))
     for name, net, propagates in configs:
         pair, clip = models(net, cs.SEED + 6)

@@ -14,6 +14,7 @@ import torch
 from torch_parity import assert_argmax_agrees, assert_close, nchw, nhwc, seeded_variables
 
 from accel_tpu.core import pipeline as jpipe
+from accel_tpu.core.serving import VideoSegmenter as JVideoSegmenter
 from accel_tpu.models.accel import AccelNet as JAccelNet
 from accel_tpu.ops.upsample import resize_bilinear as j_resize
 from accel_tpu.ops.upsample_argmax import upsample_argmax_or_oracle
@@ -73,3 +74,38 @@ def test_deeplab_has_only_its_modules(deeplab):
     _, _, tm, _ = deeplab
     assert [name for name, _ in tm.named_children()] == ["ref_net"]
     assert tm.warp_tensor == "scores"
+
+
+@pytest.fixture(scope="module")
+def short_groups():
+    """A tiny deeplab model (R18, head 32, 64x64, f32) and 6 frames."""
+    knobs = dict(ref_depth=18, num_classes=19, feat_stride=16, head_channels=32)
+    jm = JAccelNet(family="deeplab", dtype=jnp.float32, **knobs)
+    cur = jnp.zeros((1, 64, 64, 3))
+    v = seeded_variables(jm, cur, cur, jnp.ones((1,)), train=False, seed=43)
+    tm = AccelNet(family="deeplab", **knobs, device="cpu", dtype=torch.float32)
+    load_flax_variables(tm, v)
+    clip = (np.random.default_rng(44).standard_normal((1, 6, 64, 64, 3)) * 0.5
+            ).astype(np.float32)
+    return jm, v, tm, clip
+
+
+def test_push_group_serves_short_deeplab_groups(short_groups):
+    """The family's k is 1, so a group of 3 at interval 5 is served, as by
+    ``accel_tpu``'s ``VideoSegmenter``, and the next group is too: every
+    group leaves the schedule at a keyframe."""
+    jm, v, tm, clip = short_groups
+    seg = VideoSegmenter(tm, interval=5)
+    jseg = JVideoSegmenter(jm, v, interval=5)
+    for g in range(2):
+        assert seg.is_keyframe_next and jseg.is_keyframe_next
+        frames = clip[:, 3 * g:3 * g + 3]
+        got = seg.push_group(torch.from_numpy(frames))
+        want = np.asarray(jseg.push_group(jnp.asarray(frames)))
+        assert got.dtype == torch.uint8 and tuple(got.shape) == (1, 3, 64, 64)
+        logits = np.asarray(jpipe.clip_logits(jm, v, jnp.asarray(frames), 5))[0]
+        full = np.asarray(j_resize(jnp.asarray(logits), (64, 64)))[None]
+        assert_argmax_agrees(got.numpy(), want, full, min_agree=0.999)
+    assert seg.is_keyframe_next
+    seg.reset()
+    assert seg.is_keyframe_next

@@ -141,3 +141,28 @@ def test_dff_has_only_its_modules(dff):
     assert not hasattr(tm, "update_net") and not hasattr(tm, "fusion")
     assert tm.flownet.scale_field.out_channels == 128
     assert tm.warp_tensor == "features"
+
+
+@pytest.mark.parametrize("propagate,knobs", [
+    ("direct", dict(SERVING)),
+    ("incremental", dict(SERVING, scale_cascade="last")),
+], ids=["direct-onehot", "incremental-last"])
+def test_dff_serving_recipe_in_bf16(dff, propagate, knobs):
+    """The bench's DFF recipe as served: a bf16 model, the one-hot warp in
+    the native dtype (bf16 features, bf16 scale field resized on the CPU).
+    The two packages' bf16 runs round at other points and differ about as
+    much as JAX bf16 differs from JAX f32 (~1.5e-2 * max|logits|), so the
+    logits are held within 2e-2 * (1 + max|ref|) and the class maps to
+    >= 0.98; a misplaced cast moves either far past that."""
+    jm, v, clip = dff
+    jm = jm.clone(dtype=jnp.bfloat16, **knobs)
+    tm = AccelNet(family="dff", **TINY, **knobs, device="cpu", dtype=torch.bfloat16)
+    load_flax_variables(tm, v)
+    want = np.asarray(jpipe.clip_logits(jm, v, jnp.asarray(clip), 5, propagate), np.float32)
+    got = tpipe.clip_logits(tm, nchw(clip), 5, propagate)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (1, 10, 19, 16, 16)
+    assert_close(nhwc(got), want, rel=2e-2)
+    pred = tpipe.clip_predictions(tm, torch.from_numpy(clip), 5, propagate)
+    jpred = np.asarray(upsample_argmax_or_oracle(jnp.asarray(want[0]), (HW, HW)))[None]
+    agree = float((pred.numpy() == jpred).mean())
+    assert agree >= 0.98, agree

@@ -4,6 +4,8 @@ holds each against its plain version there); here the plain versions are
 held against the JAX functions, and the Pallas kernels run in interpret
 mode as the JAX package's own tests run them."""
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,6 +40,22 @@ def test_resize_bilinear_matches_jax(in_hw, out_hw):
     want = np.asarray(j_resize(jnp.asarray(x), out_hw))
     got = nhwc(resize_bilinear(nchw(x), out_hw))
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+@pytest.mark.parametrize("out_hw", [(16, 32), (13, 27)], ids=["half", "non-integer"])
+def test_resize_bilinear_downscales_bf16_on_the_cpu(out_hw):
+    """A bf16 CPU downscale (the DFF scale field under ``warp_dtype:
+    native``) resizes in f32 and rounds once, within one bf16 ulp at max|ref|
+    of the JAX resize of the same bf16 input (which rounds at other points
+    inside the resize)."""
+    x = np.random.default_rng(5).standard_normal((1, 32, 64, 32)).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want = np.asarray(j_resize(xb, out_hw).astype(jnp.float32))
+    got = resize_bilinear(nchw(np.asarray(xb.astype(jnp.float32))).to(torch.bfloat16), out_hw)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (1, 32, *out_hw)
+    peak = float(np.abs(want).max())
+    err = float(np.abs(nhwc(got.float()) - want).max())
+    assert err <= 2.0 ** (math.floor(math.log2(peak)) - 7), (err, peak)
 
 
 def test_flow_to_feature_res_matches_jax():

@@ -20,6 +20,7 @@ from torch_parity import assert_argmax_agrees, nchw
 
 from accel_tpu.ops.upsample import resize_bilinear as j_resize
 from accel_tpu.ops.upsample_argmax import upsample_argmax as j_upsample_argmax
+from accel_tpu.ops.upsample_argmax import upsample_argmax_or_oracle
 from accel_tpu_torch.ops import upsample_argmax as tua
 
 torch.set_num_threads(2)
@@ -90,3 +91,25 @@ def test_two_pass_shares_rows_within_a_band():
     assert runs[0] == 24 and runs[-1] == 8 and (runs[1:-1] == 16).all()
     # each band's i0 is the previous band's i1: one new input row per band
     assert (bands[1:, 0] == bands[:-1, 1]).all()
+
+
+@pytest.mark.parametrize("out_hw", [(16, 24), (20, 30)], ids=["half", "non-integer"])
+def test_plain_downscale_matches_the_oracle(out_hw):
+    """On a downscale the plain version resizes as ``resize_bilinear`` does
+    (antialiased, like ``jax.image.resize``), so its class map is the JAX
+    oracle's but at near-ties."""
+    logits = np.random.default_rng(13).standard_normal((2, 32, 48, 19)).astype(np.float32)
+    want = np.asarray(upsample_argmax_or_oracle(jnp.asarray(logits), out_hw))
+    got = tua.upsample_argmax_plain(nchw(logits), out_hw)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (2, *out_hw)
+    full = np.asarray(j_resize(jnp.asarray(logits), out_hw))
+    assert_argmax_agrees(got.numpy(), want, full, min_agree=0.999)
+
+
+@pytest.mark.parametrize("shape,out_hw", [((2, 19, 8, 16), (128, 256)),
+                                          ((1, 19, 45, 60), (720, 960))])
+def test_plain_upscale_is_interpolate_then_argmax(shape, out_hw):
+    """Upscales are unchanged: exactly F.interpolate's bilinear + argmax."""
+    x = torch.from_numpy(np.random.default_rng(14).standard_normal(shape).astype(np.float32))
+    up = torch.nn.functional.interpolate(x, size=out_hw, mode="bilinear", align_corners=False)
+    assert torch.equal(tua.upsample_argmax_plain(x, out_hw), up.argmax(dim=1).to(torch.uint8))

@@ -111,3 +111,102 @@ def test_cpu_tensors_take_the_plain_version():
         two.warp_onehot_cuda(x, f, s, D, g)
     with pytest.raises(ValueError, match="gain requires scale"):
         two.warp_onehot_plain(x, f, None, D, g)
+
+
+def staged_warp(feat, flow, scale, max_disp, gain, weights_dtype, rows, chunk):
+    """``kernels/warp_onehot.cu``'s computation, in its order: per frame, a
+    band of ``rows`` output rows and a chunk of ``chunk`` channels at a
+    time, the source window (the band's rows and ``halo`` rows on each side,
+    16 bytes of zero columns on each side, zero rows outside the image) is
+    staged; each pixel's tap column is clamped into [-2, W], where only zero
+    columns are read, and its four taps are summed in f32 in the order 00,
+    01, 10, 11, then scaled by ``f32(scale) * gain[n]``."""
+    N, C, H, W = feat.shape
+    f32 = torch.float32
+    d = float(max_disp)
+    halo, pad = math.ceil(d), 16 // feat.element_size()
+    width, win_rows = W + 2 * pad, rows + 2 * halo + 1
+    src = feat.to(weights_dtype).to(f32)
+    out = torch.empty_like(feat)
+    for n in range(N):
+        for r0 in range(0, H, rows):
+            ys = torch.arange(r0, min(r0 + rows, H))
+            sy = ys.to(f32)[:, None] + flow[n, 1, ys].to(f32).clamp(-d, d)
+            sx = torch.arange(W, dtype=f32)[None] + flow[n, 0, ys].to(f32)
+            y0, x0 = torch.floor(sy), torch.floor(sx)
+            wy, wx = sy - y0, sx - x0
+            off = ((y0.to(torch.int64) - (r0 - halo)) * width
+                   + x0.clamp(-2, W).to(torch.int64) + pad).flatten()
+            taps = [(0, (1 - wy) * (1 - wx)), (1, (1 - wy) * wx),
+                    (width, wy * (1 - wx)), (width + 1, wy * wx)]
+            lo, hi = max(0, r0 - halo), min(H, r0 - halo + win_rows)
+            for c0 in range(0, C, chunk):
+                cn = min(chunk, C - c0)
+                window = torch.zeros((chunk, win_rows, width), dtype=f32)
+                window[:cn, lo - (r0 - halo):hi - (r0 - halo), pad:pad + W] = \
+                    src[n, c0:c0 + cn, lo:hi]
+                flat = window.reshape(chunk, -1)[:cn]
+                acc = torch.zeros((cn, off.numel()), dtype=f32)
+                for dt, w in taps:
+                    acc = acc + flat[:, off + dt] * w.to(weights_dtype).to(f32).flatten()
+                acc = acc.reshape(cn, len(ys), W)
+                if scale is not None:
+                    s = scale[n, c0:c0 + cn, ys].to(f32)
+                    if gain is not None:
+                        s = s * gain[n].to(f32)
+                    acc = acc * s
+                out[n, c0:c0 + cn, ys] = acc.to(feat.dtype)
+    return out
+
+
+@pytest.mark.parametrize("shape,feat_dt,w_dt,with_scale,with_gain,cut", [
+    ((2, 13, 20, 11), "bf16", "bf16", True, False, None),   # plain-load staging
+    ((2, 13, 32, 11), "bf16", "bf16", True, True, None),    # TMA staging
+    ((1, 13, 20, 11), "f32", "bf16", True, True, (4, 4)),
+    ((2, 9, 17, 5), "f32", "f32", False, False, (2, 2)),
+    ((1, 13, 20, 11), "bf16", "f32", False, False, (1, 8)),
+])
+def test_staged_window_matches_plain_and_pallas_kernel(shape, feat_dt, w_dt, with_scale,
+                                                       with_gain, cut):
+    """Ragged sizes (H off the band, W off the 8-pixel vectors, C off the
+    chunk), |flow_y| up to 6 > D and |flow_x| up to 12, past the edge: the
+    staged formulation equals the plain version bit for bit and matches the
+    Pallas kernel at this file's tolerance."""
+    feat, flow, scale, gain = _case(shape, seed=sum(shape) + 7)
+    (jf, tf), (jw, tw) = DTYPES[feat_dt], DTYPES[w_dt]
+    x, f = nchw(feat).to(tf), nchw(flow)
+    s = nchw(scale).to(tf) if with_scale else None
+    g = torch.from_numpy(gain) if with_gain else None
+    N, H, W, C = shape
+    if cut is None:
+        p = two.plan(N, C, H, W, float(D), x.element_size())
+        assert p.tma == (W * x.element_size() % 16 == 0)
+        cut = (p.rows, p.chunk)
+    assert (H % cut[0] or cut[0] == 1) and C % cut[1]
+    got = staged_warp(x, f, s, D, g, tw, *cut)
+    plain = two.warp_onehot_plain(x, f, s, D, g, tw)
+    assert got.dtype == plain.dtype and torch.equal(got, plain)
+    want = warp_onehot_fwd(jnp.asarray(feat, jf), jnp.asarray(flow),
+                           None if s is None else jnp.asarray(scale, jf), max_disp=D,
+                           weights_dtype=jw, interpret=True,
+                           gain=None if g is None else jnp.asarray(gain))
+    _assert_matches(got, want, feat_dt)
+
+
+def test_plan_fits_the_card():
+    """The DFF shapes get 16-row bands of 4 channels in three TMA stages,
+    with two blocks to an SM and the card filled at N=1 too;
+    CamVid's 45x60 takes the plain-load staging; a window that cannot fit
+    raises."""
+    for N in (4, 1):
+        p = two.plan(N, 1024, 64, 128, 4.0, 2)
+        assert (p.tma, p.rows, p.chunk, p.stages, p.win_rows, p.width) == (
+            True, 16, 4, 3, 25, 144)
+        assert 2 * (p.smem + 1024) <= two.SMEM_PER_SM
+        assert 2 * two.SMS >= p.grid[0] * p.grid[1] * p.grid[2] >= 2 * two.SMS * 0.9
+        assert p.runs * p.run >= 1024 // 4 > (p.runs - 1) * p.run
+    assert two.plan(4, 1024, 64, 128, 4.0, 4)[:4] == (True, 8, 4, 3)  # 256 threads a band
+    assert not two.plan(4, 1024, 64, 128, 4.0, 2, aligned=False).tma
+    assert not two.plan(2, 1024, 45, 60, 4.0, 2).tma
+    with pytest.raises(ValueError, match="fits"):
+        two.plan(1, 8, 64, 20000, 4.0, 4)
