@@ -1,10 +1,16 @@
 """Streaming video-segmentation API (counterpart of
 ``accel_tpu/core/serving.py``).
 
-``push_group`` serves one keyframe group per call through the batched clip
-pipeline. The per-frame interface (``push_frame``, ``push_clip``) needs the
-key/cur predictors of ``accel_tpu/core/predictor.py``, which are not ported
-yet.
+``VideoSegmenter`` owns the keyframe schedule and the propagation cache
+(the propagated tensor and the FlowNet anchor, on the model's device):
+
+    seg = VideoSegmenter(model, interval=5)
+    for frame in camera:                # (1, H, W, 3) normalized
+        pred = seg.push_frame(frame)    # (1, H, W) uint8 class map
+
+``push_frame`` runs the key or the cur predictor of
+``core/predictor.py`` on each frame; ``push_group`` serves a whole
+keyframe group per call through the batched clip pipeline.
 """
 
 from __future__ import annotations
@@ -12,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from accel_tpu_torch.core.pipeline import clip_predictions
+from accel_tpu_torch.core.predictor import DataBatch, make_key_cur_predictors
 
 
 class VideoSegmenter:
@@ -19,34 +26,43 @@ class VideoSegmenter:
                  propagate: str = "direct"):
         """``propagate`` must match the training objective: 'direct'
         anchors every non-key frame at the keyframe; 'incremental' cascades
-        frame to frame."""
+        frame to frame. Raises ``ValueError`` where the key/cur protocol
+        cannot serve the model (``make_key_cur_predictors``)."""
         self.interval = int(interval)
         self.model = model
         self.propagate = propagate
         self._full_res = full_res
+        self._key_p, self._cur_p = make_key_cur_predictors(
+            model, full_res_pred=full_res, propagate=propagate)
         self.reset()
 
     def reset(self):
         """Drop the propagation state (e.g. on a scene cut or a new stream)."""
         self._t = 0
-        # the per-frame propagation cache of the reference; push_group's
-        # groups are self-contained, so it stays empty until push_frame is
-        # ported
         self._prop = None
+        self._anchor_small = None
 
     @property
     def is_keyframe_next(self) -> bool:
         return self._t % self.interval == 0 or self._prop is None
 
-    def push_frame(self, frame):
-        raise NotImplementedError(
-            "push_frame needs make_key_cur_predictors (accel_tpu/core/predictor.py), "
-            "which is not ported yet; use push_group")
+    def push_frame(self, frame) -> torch.Tensor:
+        """frame (1, H, W, 3) normalized -> (1, H, W) uint8 prediction on
+        the model's device. The ``deeplab`` family runs every frame as a
+        keyframe."""
+        if self.is_keyframe_next or self.model.family == "deeplab":
+            out = self._key_p.predict(DataBatch([frame]))[0]
+        else:
+            out = self._cur_p.predict(DataBatch([frame, self._anchor_small, self._prop]))[0]
+        self._prop = out["prop"]
+        self._anchor_small = out["anchor_small"]
+        self._t += 1
+        return out["pred"]
 
-    def push_clip(self, clip):
-        raise NotImplementedError(
-            "push_clip needs make_key_cur_predictors (accel_tpu/core/predictor.py), "
-            "which is not ported yet; use push_group")
+    def push_clip(self, clip) -> torch.Tensor:
+        """clip (1, F, H, W, 3) -> (1, F, H, W) uint8, one ``push_frame``
+        per frame (``push_group`` batches a group's frames)."""
+        return torch.stack([self.push_frame(clip[:, i]) for i in range(clip.shape[1])], dim=1)
 
     def push_group(self, frames: torch.Tensor) -> torch.Tensor:
         """frames (B, k, H, W, 3), keyframe first -> (B, k, H, W) uint8.
@@ -59,9 +75,12 @@ class VideoSegmenter:
         if not self.is_keyframe_next:
             raise ValueError(
                 "push_group mid-group: schedule is not at a keyframe "
-                f"(t={self._t}, interval={self.interval}); call reset()")
+                f"(t={self._t}, interval={self.interval}); reset() or finish the group "
+                "with push_frame")
         pred = clip_predictions(self.model, frames, self.interval, self.propagate,
                                 full_res=self._full_res)
+        # groups are self-contained: the per-frame cache is dropped
         self._t += frames.shape[1]
         self._prop = None
+        self._anchor_small = None
         return pred

@@ -26,6 +26,7 @@ from accel_tpu_torch.ops.warp import bilinear_warp, flow_to_feature_res
 from accel_tpu_torch.ops.warp_onehot import warp_onehot
 
 FAMILIES = ("deeplab", "dff", "accel")
+SCALE_CASCADES = ("last", "product", "mean1", "clamp")
 
 
 class AccelNet(nn.Module):
@@ -34,19 +35,27 @@ class AccelNet(nn.Module):
     ``flownet`` for dff/accel, ``update_net`` and ``fusion`` for accel.
 
     ``warp_dtype``: 'f32' (warp and modulation in f32) or 'native' (the
-    propagated tensor's dtype). ``warp_gather``: 'taps' or 'onehot' (the
-    wide-feature warp, with the scale modulation fused into it).
+    propagated tensor's dtype). ``warp_gather``: 'taps', 'stacked' (one
+    gather of all four taps) or 'onehot' (the wide-feature warp, with the
+    scale modulation fused into it).
     ``warp_gain_fold`` folds mean1's per-sample gain into that fused
-    epilogue. ``use_kernels=False`` runs every kernel's plain PyTorch
-    version even on CUDA tensors (for comparing the two); on CPU tensors
-    the plain versions always run."""
+    epilogue. ``scale_cascade`` ('last', 'product', 'mean1', 'clamp') is
+    what incremental and composed propagation do with the per-step scale
+    fields (``core/pipeline.py``). The update branch may run at its own
+    output stride (``update_feat_stride``) and fc6 width
+    (``update_head_channels``), 0 meaning the reference branch's, on frames
+    downscaled by ``update_input_downscale``. ``use_kernels=False`` runs
+    every kernel's plain PyTorch version even on CUDA tensors (for
+    comparing the two); on CPU tensors the plain versions always run."""
 
     def __init__(self, ref_depth=101, update_depth=18, num_classes=19, feat_stride=16,
                  head_channels=1024, head_dilation=6, flow_input_downscale=2,
                  norm="frozenbn", stem="conv7", use_pallas_warp=True, warp_max_disp=8,
                  flow_width_mult=1.0, scale_field_norm="none", scale_cascade="last",
                  family="accel", warp_dtype="f32", warp_gather="taps", warp_gain_fold=False,
-                 dilated_conv="auto", *, use_kernels=True, device=None, dtype=torch.bfloat16):
+                 dilated_conv="auto", update_feat_stride=0, update_head_channels=0,
+                 update_input_downscale=1, *, use_kernels=True, device=None,
+                 dtype=torch.bfloat16):
         super().__init__()
         if scale_field_norm not in ("none", "mean1"):
             raise ValueError(f"unsupported scale_field_norm {scale_field_norm!r}")
@@ -54,6 +63,8 @@ class AccelNet(nn.Module):
             raise ValueError(f"unknown family {family!r} {FAMILIES}")
         if warp_dtype not in ("f32", "native"):
             raise ValueError(f"unsupported warp_dtype {warp_dtype!r} (f32 | native)")
+        if scale_cascade not in SCALE_CASCADES:
+            raise ValueError(f"unknown scale_cascade {scale_cascade!r} {SCALE_CASCADES}")
         self.family = family
         self.num_classes = num_classes
         self.feat_stride = feat_stride
@@ -65,6 +76,7 @@ class AccelNet(nn.Module):
         self.warp_dtype = warp_dtype
         self.warp_gather = warp_gather
         self.warp_gain_fold = warp_gain_fold
+        self.update_input_downscale = update_input_downscale
         self.dtype = dtype
         self.use_kernels = use_kernels
         branch = dict(num_classes=num_classes, output_stride=feat_stride,
@@ -73,7 +85,9 @@ class AccelNet(nn.Module):
                       device=device, dtype=dtype)
         self.ref_net = DeepLab(ref_depth, **branch)
         if family == "accel":
-            self.update_net = DeepLab(update_depth, **branch)
+            self.update_net = DeepLab(update_depth, **dict(
+                branch, output_stride=update_feat_stride or feat_stride,
+                head_channels=update_head_channels or head_channels))
             self.fusion = nn.Conv2d(2 * num_classes, num_classes, 1, device=device,
                                     dtype=torch.float32)
         if family in ("dff", "accel"):
@@ -99,7 +113,13 @@ class AccelNet(nn.Module):
         return prop
 
     def update_scores(self, image):
+        """Update-branch scores on the feature grid: the branch runs on the
+        frame downscaled by ``update_input_downscale``, and its scores are
+        resized onto the grid where its stride or input size differ."""
         feat_hw = (image.shape[-2] // self.feat_stride, image.shape[-1] // self.feat_stride)
+        ds = self.update_input_downscale
+        if ds > 1:
+            image = resize_bilinear(image, (image.shape[-2] // ds, image.shape[-1] // ds))
         s = self.update_net(image)
         if tuple(s.shape[-2:]) != feat_hw:
             s = resize_bilinear(s, feat_hw)
@@ -222,15 +242,14 @@ _ONLY = {
     "name": FAMILIES,
     "use_scale_field": (True,),
     "warp_dtype": ("f32", "native"),
-    "warp_gather": ("taps", "onehot"),
+    "warp_gather": ("taps", "stacked", "onehot"),
     "warp_gain_fold": (False, True),
-    "update_input_downscale": (1,),
     "fold_update_downscale": (False,),
     "fold_flow_downscale": (False,),
     "quantize_ref": (False,),
     "quantize_update": (False,),
     "dilated_conv": ("auto", "direct", "pallas", "pallas_fc6"),
-    "scale_cascade": ("last", "product"),
+    "scale_cascade": SCALE_CASCADES,
 }
 
 
@@ -249,17 +268,14 @@ def build_model(network: Mapping | None = None, *, num_classes: int = 19,
         if key in net and net[key] not in allowed:
             raise NotImplementedError(
                 f"network.{key}={net[key]!r} is not ported yet (supported: {allowed})")
-    for key, inherit, default in (("update_feat_stride", "feat_stride", 16),
-                                  ("update_head_channels", "head_channels", 1024)):
-        if net.get(key) and net[key] != net.get(inherit, default):
-            raise NotImplementedError(f"network.{key} != {inherit} is not ported yet")
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
         net.get("dtype", "bfloat16")]
     kwargs = {k: net[k] for k in (
         "ref_depth", "update_depth", "feat_stride", "head_channels", "head_dilation",
         "flow_input_downscale", "norm", "stem", "use_pallas_warp", "warp_max_disp",
         "flow_width_mult", "scale_field_norm", "scale_cascade", "warp_dtype", "warp_gather",
-        "warp_gain_fold", "dilated_conv") if k in net}
+        "warp_gain_fold", "dilated_conv", "update_feat_stride", "update_head_channels",
+        "update_input_downscale") if k in net}
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA device; pass device='cpu' to build on the CPU")

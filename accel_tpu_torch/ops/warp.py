@@ -6,12 +6,14 @@ and zero padding outside the image (MXNet ``BilinearSampler`` semantics).
 dy (along H), in feature-resolution pixels.
 
 :func:`bilinear_warp_plain` is the exact, unbounded 4-gather form of
-``bilinear_warp_xla``. :func:`bilinear_warp` dispatches as the JAX package
-does on a TPU: ``gather='onehot'`` first, at any width, to the wide-feature
-warp (``ops/warp_onehot.py``: flow_y clamped to ``±max_disp``, bf16 tap
-weights); then narrow maps (C <= 64) to the displacement-bounded kernel
-(``ops/warp_cuda.py``), whose flow is clamped to ``±max_disp`` on both
-axes; wider maps, or ``use_pallas=False``, take the unbounded plain form.
+``bilinear_warp_xla``, :func:`bilinear_warp_stacked` the one-gather form
+of ``bilinear_warp_xla_stacked``. :func:`bilinear_warp` dispatches as the
+JAX package does on a TPU: ``gather='onehot'`` first, at any width, to the
+wide-feature warp (``ops/warp_onehot.py``: flow_y clamped to
+``±max_disp``, bf16 tap weights); then narrow maps (C <= 64) to the
+displacement-bounded kernel (``ops/warp_cuda.py``), whose flow is clamped
+to ``±max_disp`` on both axes; wider maps, or ``use_pallas=False``, take
+the unbounded plain form that ``gather`` names.
 """
 
 from __future__ import annotations
@@ -58,6 +60,39 @@ def bilinear_warp_plain(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return out.reshape(N, C, H, W).to(feat.dtype)
 
 
+def bilinear_warp_stacked(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """The warp as one gather of all four taps (``bilinear_warp_xla_stacked``).
+
+    The taps are gathered in feat's own dtype (half the bytes for bf16) and
+    summed in f32, so for f32 feat this equals :func:`bilinear_warp_plain`
+    to rounding. feat (N,C,H,W), flow (N,2,H,W) -> feat's dtype."""
+    N, C, H, W = feat.shape
+    f32 = torch.float32
+    yy = torch.arange(H, device=feat.device, dtype=f32).view(1, H, 1)
+    xx = torch.arange(W, device=feat.device, dtype=f32).view(1, 1, W)
+    sy = yy + flow[:, 1].to(f32)
+    sx = xx + flow[:, 0].to(f32)
+    y0 = torch.floor(sy)
+    x0 = torch.floor(sx)
+    wy = sy - y0
+    wx = sx - x0
+    y0i = y0.to(torch.int64)
+    x0i = x0.to(torch.int64)
+    # (N, 4, H, W) tap coordinates and weights, in the order 00, 01, 10, 11
+    ys = torch.stack([y0i, y0i, y0i + 1, y0i + 1], dim=1)
+    xs = torch.stack([x0i, x0i + 1, x0i, x0i + 1], dim=1)
+    w = torch.stack([(1 - wy) * (1 - wx), (1 - wy) * wx, wy * (1 - wx), wy * wx], dim=1)
+    valid = (ys >= 0) & (ys < H) & (xs >= 0) & (xs < W)
+    idx = (ys.clamp(0, H - 1) * W + xs.clamp(0, W - 1)).reshape(N, 1, 4 * H * W)
+    g = torch.gather(feat.reshape(N, C, H * W), 2, idx.expand(N, C, 4 * H * W))
+    g = g.reshape(N, C, 4, H * W).to(f32)
+    w = torch.where(valid, w, 0.0).reshape(N, 1, 4, H * W)
+    return (g * w).sum(dim=2).reshape(N, C, H, W).to(feat.dtype)
+
+
+GATHERS = ("taps", "stacked", "onehot")
+
+
 def bilinear_warp(
     feat: torch.Tensor,
     flow: torch.Tensor,
@@ -69,16 +104,17 @@ def bilinear_warp(
     """Dispatching entry point (``accel_tpu.ops.warp.bilinear_warp``).
 
     ``use_pallas`` keeps the JAX package's name for the kernel switch;
-    ``gather`` is 'taps' or 'onehot' ('stacked' is not ported).
-    ``plain=True`` runs the kernel's plain version even on a CUDA tensor
-    (for comparing the two)."""
+    ``gather`` is 'taps', 'stacked' (:func:`bilinear_warp_stacked` where
+    the plain form runs) or 'onehot'. ``plain=True`` runs the kernel's
+    plain version even on a CUDA tensor (for comparing the two)."""
+    if gather not in GATHERS:
+        raise ValueError(f"unknown warp gather {gather!r} {GATHERS}")
     if gather == "onehot":
         return warp_onehot(feat, flow, None, max_disp, plain=plain)
-    if gather != "taps":
-        raise NotImplementedError(f"warp gather {gather!r} is not ported yet "
-                                  "(supported: 'taps', 'onehot')")
     if use_pallas and feat.shape[1] <= 64:
         return warp(feat, flow, max_disp, plain=plain)
+    if gather == "stacked":
+        return bilinear_warp_stacked(feat, flow)
     return bilinear_warp_plain(feat, flow)
 
 

@@ -43,9 +43,24 @@ Phases, one JSON line each:
 8. e2e_deeplab: the per-frame DeepLab-101 baseline on 5 frames with every
    dilated conv through the dilated kernel (``pallas``) against cuDNN
    (``auto``), in bf16 and, for the class-map check, in f32.
+9. e2e_stream, e2e_dff_stream: per-frame serving of Accel-18 and of the
+   DFF row through ``VideoSegmenter.push_frame``, one direct and one
+   incremental + 'last' group each, with the exact launches (Accel: both
+   stems on the key frame, the update stem and a warp on each other frame,
+   a tail on every frame; DFF: one stem, one one-hot warp per non-key
+   frame, a tail per frame), held against ``push_group`` on the same frames
+   (``compare_paths``), then both protocols timed on the host clock in
+   alternating turns.
+10. e2e_fast, e2e_os8mixed: one direct group of the bench's accel18_fast
+    and accel18_os8mixed models through ``clip_predictions``, kernels
+    against plain as in phase 4, with the exact launches.
+11. e2e_composed, e2e_dff_composed: one ``propagate: composed`` group of
+    Accel-18 and of the DFF row, held the same way (the flow fields warped
+    at D, the features once at D*(k-1)).
 
 Then the ``{"kernels": [...]}`` line (each kernel's first row, with its
-launches on one path it serves and per group there), the card's name and
+launches on one path it serves and per group there, and its launches on
+every path above), the card's name and
 power limit from nvidia-smi, and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero and prints no result
 line. Without a CUDA device it exits with code 2. Weights are random, drawn
@@ -67,7 +82,7 @@ import torch
 import torch.nn.functional as F
 
 from accel_tpu_torch import kernels
-from accel_tpu_torch.core.pipeline import clip_logits
+from accel_tpu_torch.core.pipeline import clip_logits, clip_predictions
 from accel_tpu_torch.core.serving import VideoSegmenter
 from accel_tpu_torch.models.accel import build_model
 from accel_tpu_torch.models.resnet import DilatedResNet
@@ -86,6 +101,13 @@ BENCH_NET = dict(ref_depth=101, update_depth=18, feat_stride=16, head_channels=1
                  warp_gather="taps", scale_field_norm="none", scale_cascade="last",
                  flow_width_mult=1.0)
 FLAGSHIP_NET = dict(BENCH_NET, norm="groupnorm", stem="conv7", scale_field_norm="mean1")
+# bench.py's accel18_fast row (:493-501): the update branch on half-resolution
+# frames with a 256-wide fc6, FlowNet at 1/4 input and half width
+FAST_NET = dict(BENCH_NET, update_head_channels=256, update_input_downscale=2,
+                flow_input_downscale=4, flow_width_mult=0.5)
+# bench.py's accel18_os8mixed row (:518-525): the reference branch at stride 8,
+# the update branch at stride 16
+OS8MIXED_NET = dict(BENCH_NET, feat_stride=8, update_feat_stride=16)
 # bench.py's dff row: R101 keyframe branch, fc6 features warped forward
 DFF_NET = dict(name="dff", ref_depth=101, feat_stride=16, head_channels=1024, head_dilation=6,
                norm="frozenbn", stem="fused7", dtype="bfloat16", use_pallas_warp=True,
@@ -259,31 +281,42 @@ def _gen(seed: int) -> torch.Generator:
 
 def kernel_warp(results: dict) -> None:
     """Accel-18's score-map warp at the shapes it launches: (1,19,64,128)
-    f32 four times per incremental + 'last' group (one frame a step),
-    (4,19,64,128) once per direct group (k-1 frames at once), that shape in
-    bf16 (``warp_dtype: native``), and CamVid's ragged stride-16 map."""
+    f32 four times per incremental + 'last' group (one frame a step) and
+    once per non-key frame of ``push_frame``, (4,19,64,128) once per direct
+    group (k-1 frames at once), that shape in bf16 (``warp_dtype:
+    native``), CamVid's ragged stride-16 map, os8-mixed's stride-8 map
+    ((1,19,128,256) per frame, (4,...) per direct group), and composed
+    propagation's final warp at D=8*(k-1)=32 and its 2-channel flow fields
+    at D=8. |flow| up to 1.5 D, uniform per pixel."""
     rows = []
-    for shape, dtype in (((1, 19, 64, 128), torch.float32), ((4, 19, 64, 128), torch.float32),
-                         ((4, 19, 64, 128), torch.bfloat16), ((1, 19, 45, 60), torch.float32)):
+    for shape, dtype, d in (((1, 19, 64, 128), torch.float32, 8),
+                            ((4, 19, 64, 128), torch.float32, 8),
+                            ((4, 19, 64, 128), torch.bfloat16, 8),
+                            ((1, 19, 45, 60), torch.float32, 8),
+                            ((1, 19, 128, 256), torch.float32, 8),
+                            ((4, 19, 128, 256), torch.float32, 8),
+                            ((4, 19, 64, 128), torch.float32, 8 * (K - 1)),
+                            ((1, 2, 64, 128), torch.float32, 8)):
         g = _gen(SEED + 1)
         N, _, h, w = shape
+        max_flow = 1.5 * d
         feat = torch.randn(shape, generator=g, device="cuda").to(dtype)
-        flow = (torch.rand((N, 2, h, w), generator=g, device="cuda") * 2 - 1) * 12.0
-        got = warp_ops.warp_cuda(feat, flow, 8)
-        ref = warp_ops.warp_plain(feat, flow, 8)
+        flow = (torch.rand((N, 2, h, w), generator=g, device="cuda") * 2 - 1) * max_flow
+        got = warp_ops.warp_cuda(feat, flow, d)
+        ref = warp_ops.warp_plain(feat, flow, d)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         tol = 1e-5 if dtype == torch.float32 else 1e-2 * ref.float().abs().max().item()
         check(got.dtype == dtype and got.shape == ref.shape and err <= tol,
-              f"warp {shape} {dtype}: max err {err} > {tol}")
-        grid = sample_grid(flow.clamp(-8, 8), dtype)
+              f"warp {shape} {dtype} D={d}: max err {err} > {tol}")
+        grid = sample_grid(flow.clamp(-d, d), dtype)
         # four taps (4 multiplies, 3 adds) per output element, in f32
-        row = dict(kernel="warp", dtype=str(dtype), shape=list(shape), max_abs_flow=12.0,
-                   max_disp=8, max_abs_err=err, tol=tol,
-                   **timed(lambda: warp_ops.warp_cuda(feat, flow, 8),
+        row = dict(kernel="warp", dtype=str(dtype), shape=list(shape), max_abs_flow=max_flow,
+                   max_disp=d, max_abs_err=err, tol=tol,
+                   **timed(lambda: warp_ops.warp_cuda(feat, flow, d),
                            lambda: F.grid_sample(feat, grid, align_corners=True,
                                                  padding_mode="zeros")),
-                   plain_ms=median_ms(lambda: warp_ops.warp_plain(feat, flow, 8)),
+                   plain_ms=median_ms(lambda: warp_ops.warp_plain(feat, flow, d)),
                    library_call="F.grid_sample(bilinear, zeros, align_corners=True) on the "
                                 "clamped flow's grid",
                    **bound(nbytes(feat, flow, got), 7 * got.numel(), "f32"))
@@ -303,12 +336,14 @@ def upsample_argmax_ops(shape: tuple, out_hw: tuple) -> int:
 
 def kernel_upsample_argmax(results: dict) -> None:
     """The serving tail at the shapes it launches: one group's 5 frames at
-    B=1 (once per group), the bench's B=4 group of 20, CamVid's 45x60 ->
+    B=1 (once per group), the bench's B=4 group of 20, one frame (once per
+    ``push_frame``), os8-mixed's stride-8 group, CamVid's 45x60 ->
     720x960, and a non-integer ratio whose bands change inside a thread's
     run of rows. Each row's class map agrees with the plain version's on
     >= 0.9999 of the pixels, every disagreement at a near-tie."""
     rows = []
     for shape, out_hw in (((5, 19, 64, 128), (H, W)), ((20, 19, 64, 128), (H, W)),
+                          ((1, 19, 64, 128), (H, W)), ((5, 19, 128, 256), (H, W)),
                           ((2, 19, 45, 60), (720, 960)), ((3, 11, 12, 20), (128, 256))):
         logits = torch.randn(shape, generator=_gen(SEED + 2), device="cuda")
         got = ua_ops.upsample_argmax_cuda(logits, out_hw)
@@ -345,9 +380,14 @@ def kernel_fused_stem(results: dict) -> None:
     other than the plain version's. ``ms`` times
     the kernel on weights packed beforehand (as the model keeps them),
     ``pack_ms`` the packing. The library yardstick is cuDNN's conv with inv
-    folded into the weights and shift as the bias, without the relu."""
+    folded into the weights and shift as the bias, without the relu. The
+    bf16 rows: the bench's B=4 keyframes, one frame (every keyframe at B=1
+    and every ``push_frame``), the fast row's update branch on a group's 5
+    half-resolution frames, CamVid's frame and an unaligned one."""
     rows = []
-    for shape, dtype in (((4, 3, H, W), torch.bfloat16), ((1, 3, 720, 960), torch.bfloat16),
+    for shape, dtype in (((4, 3, H, W), torch.bfloat16), ((1, 3, H, W), torch.bfloat16),
+                         ((5, 3, H // 2, W // 2), torch.bfloat16),
+                         ((1, 3, 720, 960), torch.bfloat16),
                          ((1, 3, 30, 34), torch.bfloat16), ((1, 3, H, W), torch.float32)):
         g = _gen(SEED + 3)
         x = torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -386,28 +426,38 @@ def kernel_fused_stem(results: dict) -> None:
 
 def kernel_warp_onehot(results: dict) -> None:
     """DFF's feature warp at the shapes it launches: (4,1024,64,128) bf16
-    with the scale fused, once per direct group (k-1 frames at once), and
+    with the scale fused, once per direct group (k-1 frames at once),
     (1,1024,64,128) bf16 without a scale, four times per incremental +
-    'last' group; then f32 features, a gain, and CamVid's 45x60 map (staged
-    without TMA). |flow_y| up to 6 > D=4 (clamped), |flow_x| up to 12 (not
+    'last' group, and with the scale, once per non-key frame of a direct
+    ``push_frame`` stream; then f32 features, a gain, and CamVid's 45x60
+    map (staged without TMA); then composed propagation's final feature
+    warp at D=4*(k-1)=16 and the f32 fields it composes at D=4 (the
+    2-channel flow, and the 1024-channel scale product of the mean1/clamp
+    cascades). |flow_y| up to 1.5 D (clamped), |flow_x| up to 3 D (not
     clamped), uniform per pixel; the bf16 DFF rows also time a smooth flow
     of that range (``smooth_flow_device_ms``). At most 1e-5 * max|ref| for
     f32 outputs, one bf16 ulp at max|ref| for bf16 outputs."""
     rows = []
-    for shape, dtype, with_scale, with_gain in (((4, 1024, 64, 128), torch.bfloat16, True, False),
-                                                ((1, 1024, 64, 128), torch.bfloat16, False, False),
-                                                ((4, 1024, 64, 128), torch.float32, False, False),
-                                                ((4, 1024, 64, 128), torch.bfloat16, True, True),
-                                                ((2, 1024, 45, 60), torch.bfloat16, True, False)):
+    for shape, dtype, with_scale, with_gain, d in (
+            ((4, 1024, 64, 128), torch.bfloat16, True, False, 4),
+            ((1, 1024, 64, 128), torch.bfloat16, False, False, 4),
+            ((1, 1024, 64, 128), torch.bfloat16, True, False, 4),
+            ((4, 1024, 64, 128), torch.float32, False, False, 4),
+            ((4, 1024, 64, 128), torch.bfloat16, True, True, 4),
+            ((2, 1024, 45, 60), torch.bfloat16, True, False, 4),
+            ((4, 1024, 64, 128), torch.bfloat16, True, False, 4 * (K - 1)),
+            ((1, 2, 64, 128), torch.float32, False, False, 4),
+            ((1, 1024, 64, 128), torch.float32, False, False, 4)):
         g = _gen(SEED + 10)
         N, C, h, w = shape
+        fx, fy = 3.0 * d, 1.5 * d
         feat = torch.randn(shape, generator=g, device="cuda").to(dtype)
         flow = torch.rand((N, 2, h, w), generator=g, device="cuda") * 2 - 1
-        flow[:, 0] *= 12.0
-        flow[:, 1] *= 6.0
+        flow[:, 0] *= fx
+        flow[:, 1] *= fy
         scale = (torch.rand(shape, generator=g, device="cuda") + 0.5).to(dtype) if with_scale else None
         gain = torch.rand((N,), generator=g, device="cuda") + 0.5 if with_gain else None
-        args = (feat, flow, scale, 4, gain)
+        args = (feat, flow, scale, d, gain)
         got = onehot_ops.warp_onehot_cuda(*args)
         ref = onehot_ops.warp_onehot_plain(*args)
         torch.cuda.synchronize()
@@ -415,17 +465,17 @@ def kernel_warp_onehot(results: dict) -> None:
         peak = ref.float().abs().max().item()
         tol = 1e-5 * peak if dtype == torch.float32 else 2.0 ** (math.floor(math.log2(peak)) - 7)
         check(got.dtype == dtype and got.shape == ref.shape and err <= tol,
-              f"warp_onehot {shape} {dtype}: max err {err} > {tol}")
-        clamped = torch.stack([flow[:, 0], flow[:, 1].clamp(-4, 4)], dim=1)
+              f"warp_onehot {shape} {dtype} D={d}: max err {err} > {tol}")
+        clamped = torch.stack([flow[:, 0], flow[:, 1].clamp(-d, d)], dim=1)
         grid = sample_grid(clamped, dtype)
         # four taps per output element, plus the scale and gain multiplies
         ops = (7 + int(with_scale) + int(with_gain)) * got.numel()
-        p = onehot_ops.plan(N, C, h, w, 4.0, feat.element_size(), True,
+        p = onehot_ops.plan(N, C, h, w, float(d), feat.element_size(), True,
                             torch.cuda.get_device_properties(0).multi_processor_count)
-        row = dict(kernel="warp_onehot", dtype=str(dtype), shape=list(shape), max_disp=4,
+        row = dict(kernel="warp_onehot", dtype=str(dtype), shape=list(shape), max_disp=d,
                    staging="tma" if p.tma else "cp.async", band_rows=p.rows, chunk=p.chunk,
                    stages=p.stages, grid=list(p.grid),
-                   max_abs_flow_x=12.0, max_abs_flow_y=6.0, scale=with_scale, gain=with_gain,
+                   max_abs_flow_x=fx, max_abs_flow_y=fy, scale=with_scale, gain=with_gain,
                    max_abs_err=err, tol=tol,
                    **timed(lambda: onehot_ops.warp_onehot_cuda(*args),
                            lambda: F.grid_sample(feat, grid, align_corners=True,
@@ -441,11 +491,11 @@ def kernel_warp_onehot(results: dict) -> None:
             coarse = torch.rand((N, 2, h // 16, w // 16), generator=g, device="cuda") * 2 - 1
             smooth = F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
             smooth = smooth / smooth.abs().amax(dim=(2, 3), keepdim=True)
-            smooth = smooth * torch.tensor([12.0, 6.0], device="cuda").view(1, 2, 1, 1)
-            s_args = (feat, smooth, scale, 4, gain)
+            smooth = smooth * torch.tensor([fx, fy], device="cuda").view(1, 2, 1, 1)
+            s_args = (feat, smooth, scale, d, gain)
             s_err = (onehot_ops.warp_onehot_cuda(*s_args).float()
                      - onehot_ops.warp_onehot_plain(*s_args).float()).abs().max().item()
-            check(s_err <= tol, f"warp_onehot {shape} smooth flow: max err {s_err} > {tol}")
+            check(s_err <= tol, f"warp_onehot {shape} D={d} smooth flow: max err {s_err} > {tol}")
             row.update(smooth_flow_max_abs_err=s_err, smooth_flow_device_ms=device_ms(
                 lambda: onehot_ops.warp_onehot_cuda(*s_args))["device_ms"])
         emit(dict(phase="kernel", **row))
@@ -827,6 +877,135 @@ def e2e_deeplab() -> dict[str, int]:
     return launched["pallas"]
 
 
+def launches_of(**per_kernel) -> dict[str, int]:
+    """Expected launch counts: every kernel 0 unless named."""
+    return {name: per_kernel.get(name, 0) for name in LAUNCHERS}
+
+
+def one_group(model, clip: torch.Tensor, propagate: str):
+    """One group through ``clip_predictions`` after a warm-up call: the
+    class maps, the host ms (ending in a synchronize) and the launches."""
+    clip_predictions(model, clip, K, propagate)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = clip_predictions(model, clip, K, propagate)
+    torch.cuda.synchronize()
+    return pred, (time.perf_counter() - t0) * 1e3, counts()
+
+
+def e2e_variant(phase: str, config: str, net: dict, propagate: str, seed: int,
+                expected: dict, overall: float = 0.99) -> dict[str, int]:
+    """One B=1 group of ``net`` at 1024x2048 through ``clip_predictions``:
+    the kernel path with its exact launches, against the plain path
+    (``compare_paths``) and, on >= 0.999 of the class map, against the
+    plain path with the stem kernel's output. Returns the launches."""
+    model = build_model(net, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    clip = moving_clip(K, (H, W), seed, "cuda")
+    max_flow = live_flow_heads(model, clip, seed + 1)
+    check(max_flow > 0.5, f"{phase}: flow {max_flow} too small to exercise the warp")
+    pred, ms, launched = one_group(model, clip, propagate)
+    check_pred(pred, (1, K, H, W))
+    plain = build_model(net, device="cuda", generator=torch.Generator().manual_seed(SEED),
+                        use_kernels=False)
+    plain.load_state_dict(model.state_dict())
+    ref, plain_ms, plain_launched = one_group(plain, clip, propagate)
+    check(not any(plain_launched.values()), f"{phase}: the plain path launched {plain_launched}")
+    vs_plain = compare_paths(pred, ref, model, plain, clip, propagate)
+    del plain
+    same_stem, _, _ = one_group(plain_with_kernel_stem(net, model.state_dict()), clip, propagate)
+    vs_same_stem = (pred == same_stem).float().mean().item()
+    emit(dict(phase=phase, config=config, propagate=propagate, hw=[H, W], B=1, k=K,
+              max_abs_flow=max_flow, group_ms=ms, plain_group_ms=plain_ms,
+              kernels_vs_plain=vs_plain, class_agreement_vs_plain_same_stem=vs_same_stem,
+              launches=launched))
+    check(launched == expected, f"{phase} launches {launched} != {expected}")
+    check_bf16_paths(f"{phase} kernel vs plain", vs_plain, overall)
+    check(vs_same_stem >= 0.999, f"{phase} kernel vs plain with the kernel stem: {vs_same_stem}")
+    return launched
+
+
+def stream_group(seg: VideoSegmenter, frames: torch.Tensor) -> tuple[torch.Tensor, list[float]]:
+    """``push_frame`` on each frame of a group, each ending in a
+    synchronize (the frame's class map is ready to send): the class maps
+    (1, k, H, W) and the host ms of each frame."""
+    preds, ms = [], []
+    for i in range(frames.shape[1]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds.append(seg.push_frame(frames[:, i]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return torch.stack(preds, dim=1), ms
+
+
+def e2e_stream(phase: str, config: str, net: dict, seed: int, per_group: dict,
+               overall: float, turns: int = 4) -> dict[str, int]:
+    """Per-frame serving: a direct and an incremental + 'last' group of
+    ``net`` at 1024x2048 through ``VideoSegmenter.push_frame``, with the
+    exact launches of the two groups (``per_group`` each), held against
+    ``push_group`` on the same frames and weights (``compare_paths``;
+    ``push_group`` batches the non-key frames, where cuDNN may choose other
+    algorithms than at batch 1). Then ``turns`` alternating turns of both
+    protocols on the host clock. Returns the launches."""
+    model = build_model(net, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    clip = moving_clip(2 * K, (H, W), seed, "cuda")
+    live_flow_heads(model, clip, seed + 1)
+    groups = [("direct", clip[:, :K]), ("incremental", clip[:, K:])]
+    segs = {p: VideoSegmenter(model, K, propagate=p) for p, _ in groups}
+
+    def streamed():
+        out = {}
+        for p, frames in groups:
+            segs[p].reset()
+            out[p] = stream_group(segs[p], frames)
+        return out
+
+    def grouped():
+        out = {}
+        for p, frames in groups:
+            segs[p].reset()
+            out[p] = timed_group(segs[p], frames)
+        return out
+
+    streamed()  # warm-up: cuDNN algorithm choice at batch 1, allocator
+    grouped()
+    reset_counts()
+    stream_out = streamed()
+    launched = counts()
+    group_out = grouped()
+    for p, _ in groups:
+        check_pred(stream_out[p][0], (1, K, H, W))
+    vs_group = {p: compare_paths(stream_out[p][0], group_out[p][0], model, model, frames, p)
+                for p, frames in groups}
+    frame_ms = {p: {"key": [], "non_key": []} for p, _ in groups}
+    stream_ms = {p: [] for p, _ in groups}
+    group_ms = {p: [] for p, _ in groups}
+    for turn in range(turns):
+        for protocol in (("stream", "group") if turn % 2 == 0 else ("group", "stream")):
+            if protocol == "group":
+                for p, (_, ms) in grouped().items():
+                    group_ms[p].append(ms)
+                continue
+            for p, (_, ms) in streamed().items():
+                frame_ms[p]["key"].append(ms[0])
+                frame_ms[p]["non_key"].extend(ms[1:])
+                stream_ms[p].append(sum(ms))
+    med = statistics.median
+    emit(dict(phase=phase, config=config, hw=[H, W], B=1, k=K, turns=turns,
+              push_frame_ms={p: {kind: med(v) for kind, v in d.items()}
+                             for p, d in frame_ms.items()},
+              push_frame_group_ms={p: med(v) for p, v in stream_ms.items()},
+              push_group_ms={p: med(v) for p, v in group_ms.items()},
+              push_frame_group_ms_all=stream_ms, push_group_ms_all=group_ms,
+              push_frame_vs_push_group=vs_group, launches=launched))
+    expected = {name: len(groups) * n for name, n in per_group.items()}
+    check(launched == expected, f"{phase} launches {launched} != {expected}")
+    for p, c in vs_group.items():
+        check_bf16_paths(f"{phase} push_frame vs push_group, {p}", c, overall)
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -862,11 +1041,46 @@ def main() -> int:
     del dff_state
     torch.cuda.empty_cache()
     deeplab_launched = e2e_deeplab()
+    torch.cuda.empty_cache()
+    # per-frame serving: a key frame runs both stems, a non-key frame the
+    # update branch's stem and one warp; every frame one tail
+    stream_launched = e2e_stream(
+        "e2e_stream", "accel18 frozenbn fused7 bf16 push_frame", BENCH_NET, SEED + 16,
+        launches_of(fused_stem=2 + (K - 1), warp=K - 1, upsample_argmax=K), overall=0.99)
+    torch.cuda.empty_cache()
+    dff_stream_launched = e2e_stream(
+        "e2e_dff_stream", "dff101 frozenbn fused7 bf16 onehot native D=4 push_frame", DFF_NET,
+        SEED + 18, launches_of(fused_stem=1, warp_onehot=K - 1, upsample_argmax=K),
+        overall=0.98)
+    torch.cuda.empty_cache()
+    # a direct group: both stems, one batched warp, one tail
+    direct_group = launches_of(fused_stem=2, warp=1, upsample_argmax=1)
+    fast_launched = e2e_variant("e2e_fast", "accel18_fast bf16", FAST_NET, "direct",
+                                SEED + 20, direct_group)
+    torch.cuda.empty_cache()
+    os8_launched = e2e_variant("e2e_os8mixed", "accel18_os8mixed bf16", OS8MIXED_NET, "direct",
+                               SEED + 22, direct_group)
+    torch.cuda.empty_cache()
+    # composed: k-2 flow-field warps and one feature warp (scale_cascade
+    # 'last' warps no scale field)
+    composed_launched = e2e_variant(
+        "e2e_composed", "accel18 frozenbn fused7 bf16 composed", BENCH_NET, "composed",
+        SEED + 24, launches_of(fused_stem=2, warp=(K - 2) + 1, upsample_argmax=1))
+    torch.cuda.empty_cache()
+    dff_composed_launched = e2e_variant(
+        "e2e_dff_composed", "dff101 frozenbn fused7 bf16 onehot native composed", DFF_NET,
+        "composed", SEED + 26, launches_of(fused_stem=1, warp_onehot=(K - 2) + 1,
+                                           upsample_argmax=1), overall=0.98)
     # each kernel with the launches of one path it serves: (path, launches, groups)
     paths = {name: ("accel18", accel_launched[name], accel_groups)
              for name in ("warp", "upsample_argmax", "fused_stem")}
     paths["warp_onehot"] = ("dff", dff_launched["warp_onehot"], dff_groups)
     paths["dilated_conv"] = ("deeplab101 pallas", deeplab_launched["dilated_conv"], 1)
+    by_path = {"accel18": accel_launched, "dff": dff_launched,
+               "deeplab101 pallas": deeplab_launched, "accel18 push_frame": stream_launched,
+               "dff push_frame": dff_stream_launched, "accel18_fast": fast_launched,
+               "accel18_os8mixed": os8_launched, "accel18 composed": composed_launched,
+               "dff composed": dff_composed_launched}
 
     keys = ("max_abs_err", "shape", "ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "library_call")
@@ -874,6 +1088,7 @@ def main() -> int:
         dict(name=name, route="cuda", source=f"accel_tpu_torch/kernels/{name}.cu",
              replaces=REPLACES[name], path=paths[name][0], launches=paths[name][1],
              launches_per_group=paths[name][1] / paths[name][2],
+             launches_by_path={path: n[name] for path, n in by_path.items()},
              launch_floor_device_ms=floor["device_ms"],
              **{k: results[name][k] for k in keys})
         for name in LAUNCHERS]})

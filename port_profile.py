@@ -11,16 +11,19 @@ card. Configurations, at 1024x2048, B=1, k=5, bf16, random weights from
 ``chip_smoke.py``'s seed (flow heads re-drawn so the flow moves content):
 Accel-18 (chip_smoke's ``BENCH_NET``) and the DFF row (``DFF_NET``), each
 one incremental + 'last' group and one direct group, and per-frame
-DeepLab-101 with ``dilated_conv: pallas`` on 5 frames. For each, the
-kernel path (``use_kernels=True``) and the plain path alternate ``--repeat`` times; every turn serves two groups
+DeepLab-101 with ``dilated_conv: pallas`` on 5 frames: the kernel path
+(``use_kernels=True``) against the plain path, both through
+``push_group``. Then Accel-18's kernel path served frame by frame
+(``push_frame``, each frame ending in ``torch.cuda.synchronize()``, as a
+server sends each frame's class map) against ``push_group``. The two paths
+of a row alternate ``--repeat`` times; every turn serves two groups
 untimed (warm-up) and a third under the profiler (device activity only)
-and on the host clock (``push_group`` ending in
-``torch.cuda.synchronize()``). One JSON line per turn, all from that one
-group: host ms, device ms (the time in which at least one device event
-ran), idle share 1 - device/host, the device ms of each of the port's
-kernels and the eight largest device events by name (summed per name).
-The profiler's own host overhead is inside host ms. The card's name and
-power limit come last.
+and on the host clock (ending in ``torch.cuda.synchronize()``). One JSON
+line per turn, all from that one group: host ms, device ms (the time in
+which at least one device event ran), idle share 1 - device/host, the
+device ms of each of the port's kernels and the eight largest device
+events by name (summed per name). The profiler's own host overhead is
+inside host ms. The card's name and power limit come last.
 """
 
 from __future__ import annotations
@@ -83,11 +86,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     K, hw = cs.K, (cs.H, cs.W)
 
-    def models(net, seed_clip):
+    def models(net, seed_clip, paths):
         clip = cs.moving_clip(3 * K, hw, seed_clip, "cuda")
         out = {}
-        for path, use_kernels in (("kernels", True), ("plain", False)):
-            m = build_model(net, device="cuda", use_kernels=use_kernels,
+        for path in ("kernels", "plain"):
+            if path not in {model for model, _ in paths.values()}:
+                continue
+            m = build_model(net, device="cuda", use_kernels=path == "kernels",
                             generator=torch.Generator().manual_seed(cs.SEED))
             if hasattr(m, "flownet"):
                 if path == "kernels":
@@ -97,14 +102,23 @@ def main() -> int:
             out[path] = m
         return out, clip
 
-    def turn(model, propagate, clip):
+    def push_group(seg, frames):
+        seg.push_group(frames)
+
+    def push_frames(seg, frames):
+        for i in range(frames.shape[1]):
+            seg.push_frame(frames[:, i])
+            torch.cuda.synchronize()
+
+    def turn(model, propagate, clip, serve):
         seg = VideoSegmenter(model, K, propagate=propagate)
+        push = push_frames if serve == "frame" else push_group
         for g in range(2):  # warm-up; an incremental group then has a key
-            seg.push_group(clip[:, g * K:(g + 1) * K])
+            push(seg, clip[:, g * K:(g + 1) * K])
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            seg.push_group(clip[:, 2 * K:])
+            push(seg, clip[:, 2 * K:])
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - t0) * 1e3
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -119,21 +133,27 @@ def main() -> int:
         return (host_ms, busy_ms(events), {k: v for k, v in by_kernel.items() if v},
                 {name[:80]: ms for name, ms in top})
 
-    configs = (("accel18", cs.BENCH_NET, ("incremental", "direct")),
-               ("dff", cs.DFF_NET, ("incremental", "direct")),
-               ("deeplab101 pallas", dict(cs.DEEPLAB_NET, dilated_conv="pallas"), ("direct",)))
-    for name, net, propagates in configs:
-        pair, clip = models(net, cs.SEED + 6)
+    # each row: its paths, label -> (model, serving protocol)
+    kernel_vs_plain = {"kernels": ("kernels", "group"), "plain": ("plain", "group")}
+    configs = (("accel18", cs.BENCH_NET, ("incremental", "direct"), kernel_vs_plain),
+               ("dff", cs.DFF_NET, ("incremental", "direct"), kernel_vs_plain),
+               ("deeplab101 pallas", dict(cs.DEEPLAB_NET, dilated_conv="pallas"), ("direct",),
+                kernel_vs_plain),
+               ("accel18 per frame", cs.BENCH_NET, ("incremental", "direct"),
+                {"push_frame": ("kernels", "frame"), "push_group": ("kernels", "group")}))
+    for name, net, propagates, paths in configs:
+        built, clip = models(net, cs.SEED + 6, paths)
+        labels = list(paths)
         for propagate in propagates:
             for i in range(args.repeat):
-                order = ("kernels", "plain") if i % 2 == 0 else ("plain", "kernels")
-                for path in order:
-                    host_ms, device_ms, by_kernel, top = turn(pair[path], propagate, clip)
+                for path in (labels if i % 2 == 0 else labels[::-1]):
+                    model, serve = paths[path]
+                    host_ms, device_ms, by_kernel, top = turn(built[model], propagate, clip, serve)
                     print(json.dumps(dict(tree=args.tree or ".", config=name, propagate=propagate,
                                           path=path, turn=i, host_ms=host_ms, device_ms=device_ms,
                                           idle_share=1 - device_ms / host_ms,
                                           kernels_ms=by_kernel, top_ms=top)), flush=True)
-        del pair
+        del built
         torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)

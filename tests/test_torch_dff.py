@@ -19,17 +19,13 @@ the bf16 rounding itself is pinned at identical inputs in
 ``test_torch_warp_onehot.py``; and the bf16 path end to end is held to one
 bf16 ulp, 2^-8 * (1 + max|ref|), with its class maps agreeing."""
 
-import functools
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import assert_argmax_agrees, assert_close, nchw, nhwc, seeded_variables
+from torch_parity import (assert_argmax_agrees, assert_close, f32_tap_weights, nchw, nhwc,  # noqa: F401
+                          seeded_variables)
 
-import accel_tpu.ops.warp_onehot as jwo
-import accel_tpu_torch.models.accel as taccel
-import accel_tpu_torch.ops.warp as twarp
 from accel_tpu.core import pipeline as jpipe
 from accel_tpu.models.accel import AccelNet as JAccelNet
 from accel_tpu.ops.upsample import resize_bilinear as j_resize
@@ -38,7 +34,6 @@ from accel_tpu_torch.convert import load_flax_variables
 from accel_tpu_torch.core import pipeline as tpipe
 from accel_tpu_torch.core.serving import VideoSegmenter
 from accel_tpu_torch.models.accel import AccelNet
-from accel_tpu_torch.ops import warp_onehot as two
 
 torch.set_num_threads(2)
 HW = 256
@@ -56,16 +51,6 @@ def dff():
     clip = (np.random.default_rng(32).standard_normal((1, 10, HW, HW, 3)) * 0.5
             ).astype(np.float32)
     return jm, v, clip
-
-
-@pytest.fixture
-def f32_tap_weights(monkeypatch):
-    """Both packages' one-hot warps with ``weights_dtype`` f32."""
-    monkeypatch.setattr(jwo, "warp_onehot_fwd",
-                        functools.partial(jwo.warp_onehot_fwd, weights_dtype=jnp.float32))
-    tw = functools.partial(two.warp_onehot, weights_dtype=torch.float32)
-    for module in (taccel, twarp):
-        monkeypatch.setattr(module, "warp_onehot", tw)
 
 
 def _torch_model(v, **knobs):

@@ -31,5 +31,5 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # ops (7), models (4), core (2), kernels, convert and three package inits
-    assert int(out.stdout.strip()) == 18
+    # ops (7), models (4), core (3), kernels, convert and three package inits
+    assert int(out.stdout.strip()) == 19

@@ -83,20 +83,22 @@ def test_push_group_serves_clip_predictions(tiny):
         assert torch.equal(got, want)
     with pytest.raises(ValueError, match="interval"):
         seg.push_group(frames[:, :4])
-    with pytest.raises(NotImplementedError, match="make_key_cur_predictors"):
-        seg.push_frame(frames[:, 0])
+    # a frame pushed on its own leaves the schedule mid-group
+    seg.push_frame(frames[:, 0])
+    with pytest.raises(ValueError, match="mid-group"):
+        seg.push_group(frames[:, 5:])
 
 
 def test_unported_modes_raise(tiny):
     _, _, tm, clip = tiny
-    with pytest.raises(NotImplementedError, match="composed"):
-        tpipe.clip_logits(tm, nchw(clip), 5, "composed")
+    with pytest.raises(ValueError, match="propagate"):
+        tpipe.clip_logits(tm, nchw(clip), 5, "sideways")
     with pytest.raises(ValueError, match="divisible"):
         tpipe.clip_logits(tm, nchw(clip), 3)
     with pytest.raises(NotImplementedError, match="dilated_conv"):
         build_model({"dilated_conv": "s2b"}, generator=torch.Generator())
-    with pytest.raises(NotImplementedError, match="scale_cascade"):
-        build_model({"scale_cascade": "mean1"}, generator=torch.Generator())
+    with pytest.raises(NotImplementedError, match="fold_update_downscale"):
+        build_model({"fold_update_downscale": True}, generator=torch.Generator())
 
 
 @pytest.mark.parametrize("n,chunk", [(5, 5), (20, 20), (25, 5), (40, 20)])

@@ -96,8 +96,12 @@ def test_dispatch_takes_onehot_before_width():
     taps = bilinear_warp(x, f, max_disp=D)
     torch.testing.assert_close(taps, twc.warp_plain(x, f, D), rtol=0, atol=0)
     assert (got - taps).abs().max() > 0.5
-    with pytest.raises(NotImplementedError, match="stacked"):
-        bilinear_warp(x, f, max_disp=D, gather="stacked")
+    # 'stacked' names the unbounded form only: a narrow map still takes the
+    # bounded warp, as on a TPU
+    stacked = bilinear_warp(x, f, max_disp=D, gather="stacked")
+    torch.testing.assert_close(stacked, taps, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="gather"):
+        bilinear_warp(x, f, max_disp=D, gather="scattered")
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -210,3 +214,35 @@ def test_plan_fits_the_card():
     assert not two.plan(2, 1024, 45, 60, 4.0, 2).tma
     with pytest.raises(ValueError, match="fits"):
         two.plan(1, 8, 64, 20000, 4.0, 4)
+
+
+def test_plan_cuts_the_new_shapes():
+    """The shapes composed propagation adds: DFF's final feature warp at
+    D=4*(k-1)=16 (a 49-row window for a 16-row band) and the 2-channel f32
+    flow fields it composes, at D=4 (DFF) and D=8."""
+    p = two.plan(4, 1024, 64, 128, 16.0, 2)
+    assert (p.tma, p.rows, p.win_rows) == (True, 16, 49) and p.chunk < 4
+    assert 2 * (p.smem + 1024) <= two.SMEM_PER_SM
+    assert p.runs * p.run * p.chunk >= 1024
+    for d in (4.0, 8.0):
+        q = two.plan(1, 2, 64, 128, d, 4)
+        assert q.tma and q.win_rows == q.rows + 2 * int(d) + 1
+        assert q.runs * q.run * q.chunk >= 2
+
+
+@pytest.mark.parametrize("shape,feat_dt,with_scale", [
+    ((1, 21, 32, 6), "bf16", True),    # the composed feature warp's bound
+    ((2, 13, 20, 2), "f32", False),    # a composed flow field
+])
+def test_staged_window_at_the_composed_bound(shape, feat_dt, with_scale):
+    """D=16 with |flow_y| up to 20 (clamped) and |flow_x| up to 24: the
+    staged formulation equals the plain version bit for bit."""
+    d = 16
+    feat, flow, scale, _ = _case(shape, seed=sum(shape) + 11, flow_x=24.0, flow_y=20.0)
+    tf = DTYPES[feat_dt][1]
+    x, f = nchw(feat).to(tf), nchw(flow)
+    s = nchw(scale).to(tf) if with_scale else None
+    N, H, W, C = shape
+    p = two.plan(N, C, H, W, float(d), x.element_size())
+    got = staged_warp(x, f, s, d, None, torch.bfloat16, p.rows, p.chunk)
+    assert torch.equal(got, two.warp_onehot_plain(x, f, s, d))

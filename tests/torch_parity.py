@@ -8,9 +8,21 @@ get the same numbers.
 
 from __future__ import annotations
 
+import functools
+
 import jax
+import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
+
+import accel_tpu.ops.warp_onehot as jwo
+import accel_tpu_torch.models.accel as taccel
+import accel_tpu_torch.ops.warp as twarp
+from accel_tpu.models.accel import AccelNet as JAccelNet
+from accel_tpu_torch.convert import load_flax_variables
+from accel_tpu_torch.models.accel import AccelNet
+from accel_tpu_torch.ops import warp_onehot as two
 
 # flow head gain: makes the predicted flow move content by a few feature
 # pixels at the tiny test sizes (asserted by the pipeline tests)
@@ -47,6 +59,30 @@ def seeded_variables(module, *init_args, seed: int = 0, **init_kwargs) -> dict:
         path = tuple(k.key for k in keypath)
         leaves.append(np.asarray(_leaf_value(path, leaf.shape, rng), np.float32))
     return jax.tree_util.tree_unflatten(treedef, leaves)
+
+
+def bridged_models(knobs: dict, hw: int, seed: int):
+    """An f32 ``AccelNet`` of each package with ``knobs`` and the same
+    seeded weights (made for an ``hw`` x ``hw`` frame): (jax model, its
+    variables, torch model on the CPU)."""
+    jm = JAccelNet(dtype=jnp.float32, **knobs)
+    cur = jnp.zeros((1, hw, hw, 3))
+    v = seeded_variables(jm, cur, cur, jnp.ones((1,)), train=False, seed=seed)
+    tm = AccelNet(**knobs, device="cpu", dtype=torch.float32)
+    load_flax_variables(tm, v)
+    return jm, v, tm
+
+
+@pytest.fixture
+def f32_tap_weights(monkeypatch):
+    """Both packages' one-hot warps with ``weights_dtype`` f32 (the bf16
+    tap weights round near-midpoint values to neighbouring bf16 values on
+    the two sides; ``test_torch_dff.py`` explains)."""
+    monkeypatch.setattr(jwo, "warp_onehot_fwd",
+                        functools.partial(jwo.warp_onehot_fwd, weights_dtype=jnp.float32))
+    tw = functools.partial(two.warp_onehot, weights_dtype=torch.float32)
+    for module in (taccel, twarp):
+        monkeypatch.setattr(module, "warp_onehot", tw)
 
 
 def nchw(a) -> torch.Tensor:
