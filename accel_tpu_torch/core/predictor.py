@@ -22,27 +22,21 @@ from accel_tpu_torch.ops.upsample_argmax import upsample_argmax
 class DataBatch:
     """The ``mx.io.DataBatch`` shape: input arrays in ``data_names`` order."""
 
-    def __init__(self, data: Sequence[Any], provide_data=None, provide_label=None):
+    def __init__(self, data: Sequence[Any]):
         self.data = list(data)
-        self.provide_data = provide_data
-        self.provide_label = provide_label
 
 
 class Predictor:
-    """``Predictor(symbol, data_names, ...)`` with the reference's argument
-    names. ``symbol(*data) -> dict`` runs on ``context`` (a torch device;
-    each input is moved there, a tensor already on it is passed as it is).
-    ``max_data_shapes``, ``provide_data`` and ``provide_label`` are the
-    reference's shape-binding arguments, which eager PyTorch does not need;
-    ``arg_params``/``aux_params`` too, since the weights live in the module
-    that ``symbol`` calls."""
+    """``Predictor(symbol, data_names, context)`` with the reference's
+    argument names. ``symbol(*data) -> dict`` runs on ``context`` (a torch
+    device; each input is moved there, a tensor already on it is passed as
+    it is). The reference's shape-binding and weight arguments have no
+    counterpart: eager PyTorch binds no shapes, and the weights live in the
+    module that ``symbol`` calls."""
 
-    def __init__(self, symbol: Callable[..., Any], data_names: Sequence[str],
-                 label_names: Sequence[str] = (), context=None, max_data_shapes=None,
-                 provide_data=None, provide_label=None, arg_params=None, aux_params=None):
+    def __init__(self, symbol: Callable[..., Any], data_names: Sequence[str], context=None):
         self._apply = symbol
         self.data_names = tuple(data_names)
-        self.label_names = tuple(label_names or ())
         self.context = None if context is None else torch.device(context)
 
     def predict(self, data_batch: DataBatch) -> list[dict]:

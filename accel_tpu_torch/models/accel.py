@@ -35,9 +35,10 @@ class AccelNet(nn.Module):
     ``flownet`` for dff/accel, ``update_net`` and ``fusion`` for accel.
 
     ``warp_dtype``: 'f32' (warp and modulation in f32) or 'native' (the
-    propagated tensor's dtype). ``warp_gather``: 'taps', 'stacked' (one
-    gather of all four taps) or 'onehot' (the wide-feature warp, with the
-    scale modulation fused into it).
+    propagated tensor's dtype). ``warp_gather``: 'taps' or 'stacked'
+    (the same plain warp here, where the kernel does not take the map) or
+    'onehot' (the wide-feature warp, with the scale modulation fused into
+    it).
     ``warp_gain_fold`` folds mean1's per-sample gain into that fused
     epilogue. ``scale_cascade`` ('last', 'product', 'mean1', 'clamp') is
     what incremental and composed propagation do with the per-step scale

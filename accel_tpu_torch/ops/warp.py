@@ -5,15 +5,16 @@ and zero padding outside the image (MXNet ``BilinearSampler`` semantics).
 ``flow`` is ``(N, 2, h, w)`` with channel 0 = dx (along W) and channel 1 =
 dy (along H), in feature-resolution pixels.
 
-:func:`bilinear_warp_plain` is the exact, unbounded 4-gather form of
-``bilinear_warp_xla``, :func:`bilinear_warp_stacked` the one-gather form
-of ``bilinear_warp_xla_stacked``. :func:`bilinear_warp` dispatches as the
+:func:`bilinear_warp_plain` is the exact, unbounded warp, one gather of
+all four taps as ``bilinear_warp_xla_stacked`` does it; the reference's
+4-gather ``bilinear_warp_xla`` computes the same function, so 'taps' and
+'stacked' both name it. :func:`bilinear_warp` dispatches as the
 JAX package does on a TPU: ``gather='onehot'`` first, at any width, to the
 wide-feature warp (``ops/warp_onehot.py``: flow_y clamped to
 ``±max_disp``, bf16 tap weights); then narrow maps (C <= 64) to the
 displacement-bounded kernel (``ops/warp_cuda.py``), whose flow is clamped
 to ``±max_disp`` on both axes; wider maps, or ``use_pallas=False``, take
-the unbounded plain form that ``gather`` names.
+the unbounded plain form.
 """
 
 from __future__ import annotations
@@ -26,46 +27,11 @@ from accel_tpu_torch.ops.warp_onehot import warp_onehot
 
 
 def bilinear_warp_plain(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Exact bilinear warp via 4 gathers. feat (N,C,H,W), flow (N,2,H,W).
+    """Exact bilinear warp as one gather of all four taps
+    (``bilinear_warp_xla_stacked``). feat (N,C,H,W), flow (N,2,H,W).
 
-    Accumulates in f32 and returns feat's dtype."""
-    N, C, H, W = feat.shape
-    f32 = torch.float32
-    dx = flow[:, 0].to(f32)
-    dy = flow[:, 1].to(f32)
-    yy = torch.arange(H, device=feat.device, dtype=f32).view(1, H, 1)
-    xx = torch.arange(W, device=feat.device, dtype=f32).view(1, 1, W)
-    sy = yy + dy
-    sx = xx + dx
-    y0 = torch.floor(sy)
-    x0 = torch.floor(sx)
-    wy = sy - y0
-    wx = sx - x0
-    y0i = y0.to(torch.int64)
-    x0i = x0.to(torch.int64)
-
-    flat = feat.to(f32).reshape(N, C, H * W)
-    out = torch.zeros((N, C, H * W), dtype=f32, device=feat.device)
-    for oy, ox, w in (
-        (0, 0, (1 - wy) * (1 - wx)),
-        (0, 1, (1 - wy) * wx),
-        (1, 0, wy * (1 - wx)),
-        (1, 1, wy * wx),
-    ):
-        yi, xi = y0i + oy, x0i + ox
-        valid = ((yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)).reshape(N, 1, H * W)
-        idx = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).reshape(N, 1, H * W)
-        g = torch.gather(flat, 2, idx.expand(N, C, H * W))
-        out = out + torch.where(valid, g, 0.0) * w.reshape(N, 1, H * W)
-    return out.reshape(N, C, H, W).to(feat.dtype)
-
-
-def bilinear_warp_stacked(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """The warp as one gather of all four taps (``bilinear_warp_xla_stacked``).
-
-    The taps are gathered in feat's own dtype (half the bytes for bf16) and
-    summed in f32, so for f32 feat this equals :func:`bilinear_warp_plain`
-    to rounding. feat (N,C,H,W), flow (N,2,H,W) -> feat's dtype."""
+    The taps are gathered in feat's own dtype and summed in f32; returns
+    feat's dtype."""
     N, C, H, W = feat.shape
     f32 = torch.float32
     yy = torch.arange(H, device=feat.device, dtype=f32).view(1, H, 1)
@@ -104,8 +70,8 @@ def bilinear_warp(
     """Dispatching entry point (``accel_tpu.ops.warp.bilinear_warp``).
 
     ``use_pallas`` keeps the JAX package's name for the kernel switch;
-    ``gather`` is 'taps', 'stacked' (:func:`bilinear_warp_stacked` where
-    the plain form runs) or 'onehot'. ``plain=True`` runs the kernel's
+    ``gather`` is 'taps', 'stacked' (both name the plain form where it
+    runs) or 'onehot'. ``plain=True`` runs the kernel's
     plain version even on a CUDA tensor (for comparing the two)."""
     if gather not in GATHERS:
         raise ValueError(f"unknown warp gather {gather!r} {GATHERS}")
@@ -113,8 +79,6 @@ def bilinear_warp(
         return warp_onehot(feat, flow, None, max_disp, plain=plain)
     if use_pallas and feat.shape[1] <= 64:
         return warp(feat, flow, max_disp, plain=plain)
-    if gather == "stacked":
-        return bilinear_warp_stacked(feat, flow)
     return bilinear_warp_plain(feat, flow)
 
 

@@ -48,9 +48,10 @@ Phases, one JSON line each:
    incremental + 'last' group each, with the exact launches (Accel: both
    stems on the key frame, the update stem and a warp on each other frame,
    a tail on every frame; DFF: one stem, one one-hot warp per non-key
-   frame, a tail per frame), held against ``push_group`` on the same frames
-   (``compare_paths``), then both protocols timed on the host clock in
-   alternating turns.
+   frame, a tail per frame), their class maps held against ``push_group``
+   on the same frames, of the kernel model and of the plain model
+   (``compare_class_maps``), then both protocols timed on the host clock
+   in alternating turns.
 10. e2e_fast, e2e_os8mixed: one direct group of the bench's accel18_fast
     and accel18_os8mixed models through ``clip_predictions``, kernels
     against plain as in phase 4, with the exact launches.
@@ -585,13 +586,12 @@ def moving_clip(n_frames: int, hw: tuple[int, int], seed: int, device) -> torch.
 
 
 @torch.inference_mode()
-def compare_paths(pred: torch.Tensor, ref: torch.Tensor, model, ref_model, frames: torch.Tensor,
-                  propagate: str) -> dict:
-    """Two bf16 paths on one group: their class maps ``pred`` and ``ref``
-    (1, F, H, W), and their stride-level logits, as push_group makes them.
-    Agreement is taken overall and on the clear pixels: those whose top-2
-    margin in the reference path's logits (upsampled as the tail does)
-    exceeds 1e-2 * max|logits|.
+def compare_class_maps(pred: torch.Tensor, ref: torch.Tensor, ref_model, frames: torch.Tensor,
+                       propagate: str) -> tuple[dict, torch.Tensor]:
+    """Agreement of two class maps ``pred`` and ``ref`` (1, F, H, W) of
+    one group, overall and on the clear pixels: those whose top-2 margin in
+    ``ref_model``'s stride-level logits (upsampled as the tail does)
+    exceeds 1e-2 * max|logits|. Returns the agreements and those logits.
 
     With random weights a bf16 model puts ~0.6% of its pixels at top-2
     margins within bf16 rounding noise. Two paths whose bf16 values differ
@@ -599,7 +599,6 @@ def compare_paths(pred: torch.Tensor, ref: torch.Tensor, model, ref_model, frame
     tensor-core stem against the f32 conv, which differ on ~0.004% of the
     stem's outputs) flip those pixels: agreement ~0.994 overall, >= 0.9999
     on the clear pixels."""
-    logits = clip_logits(model, frames.permute(0, 1, 4, 2, 3), K, propagate)[0]
     ref_logits = clip_logits(ref_model, frames.permute(0, 1, 4, 2, 3), K, propagate)[0]
     peak = ref_logits.abs().max().item()
     up = F.interpolate(ref_logits, size=pred.shape[-2:], mode="bilinear", align_corners=False)
@@ -607,17 +606,33 @@ def compare_paths(pred: torch.Tensor, ref: torch.Tensor, model, ref_model, frame
     clear = (top2[:, 0] - top2[:, 1]) > 1e-2 * peak
     eq = pred[0] == ref[0]
     return dict(agreement=eq.float().mean().item(), clear_share=clear.float().mean().item(),
-                clear_agreement=eq[clear].float().mean().item(),
-                logits_max_abs_err=(logits - ref_logits).abs().max().item(), logits_max_abs=peak)
+                clear_agreement=eq[clear].float().mean().item(), logits_max_abs=peak), ref_logits
+
+
+@torch.inference_mode()
+def compare_paths(pred: torch.Tensor, ref: torch.Tensor, model, ref_model, frames: torch.Tensor,
+                  propagate: str) -> dict:
+    """Two bf16 paths on one group: their class maps ``pred`` and ``ref``
+    (``compare_class_maps``) and their stride-level logits, as push_group
+    makes them."""
+    c, ref_logits = compare_class_maps(pred, ref, ref_model, frames, propagate)
+    logits = clip_logits(model, frames.permute(0, 1, 4, 2, 3), K, propagate)[0]
+    return dict(c, logits_max_abs_err=(logits - ref_logits).abs().max().item())
+
+
+def check_class_maps(phase: str, c: dict, overall: float = 0.99) -> None:
+    """Two bf16 paths' class maps agree on >= 0.9999 of the clear pixels
+    and on ``overall`` of all of them."""
+    check(c["agreement"] >= overall and c["clear_agreement"] >= 0.9999,
+          f"{phase} class maps: {c['agreement']}, {c['clear_agreement']} off near-ties")
 
 
 def check_bf16_paths(phase: str, c: dict, overall: float = 0.99) -> None:
-    """Two bf16 paths agree: logits within 2e-2 * max|logits|, class maps
-    on >= 0.9999 of the clear pixels and on ``overall`` of all of them."""
+    """Two bf16 paths agree: logits within 2e-2 * max|logits| and class
+    maps as ``check_class_maps`` holds them."""
     check(c["logits_max_abs_err"] <= 2e-2 * c["logits_max_abs"],
           f"{phase} logits: {c['logits_max_abs_err']} of {c['logits_max_abs']}")
-    check(c["agreement"] >= overall and c["clear_agreement"] >= 0.9999,
-          f"{phase} class maps: {c['agreement']}, {c['clear_agreement']} off near-ties")
+    check_class_maps(phase, c, overall)
 
 
 def plain_with_kernel_stem(net: dict, state: dict):
@@ -943,14 +958,17 @@ def e2e_stream(phase: str, config: str, net: dict, seed: int, per_group: dict,
                overall: float, turns: int = 4) -> dict[str, int]:
     """Per-frame serving: a direct and an incremental + 'last' group of
     ``net`` at 1024x2048 through ``VideoSegmenter.push_frame``, with the
-    exact launches of the two groups (``per_group`` each), held against
-    ``push_group`` on the same frames and weights (``compare_paths``;
-    ``push_group`` batches the non-key frames, where cuDNN may choose other
-    algorithms than at batch 1). Then ``turns`` alternating turns of both
-    protocols on the host clock. Returns the launches."""
+    exact launches of the two groups (``per_group`` each). Its class maps
+    are held (``compare_class_maps``; push_frame returns no logits) against
+    ``push_group`` on the same frames and weights, of the kernel model
+    (``push_group`` batches the non-key frames, where cuDNN may choose
+    other algorithms than at batch 1) and of the plain model. Then
+    ``turns`` alternating turns of both protocols on the host clock.
+    Returns the launches."""
     model = build_model(net, device="cuda", generator=torch.Generator().manual_seed(SEED))
     clip = moving_clip(2 * K, (H, W), seed, "cuda")
-    live_flow_heads(model, clip, seed + 1)
+    max_flow = live_flow_heads(model, clip, seed + 1)
+    check(max_flow > 0.5, f"{phase}: flow {max_flow} too small to exercise the warp")
     groups = [("direct", clip[:, :K]), ("incremental", clip[:, K:])]
     segs = {p: VideoSegmenter(model, K, propagate=p) for p, _ in groups}
 
@@ -976,8 +994,18 @@ def e2e_stream(phase: str, config: str, net: dict, seed: int, per_group: dict,
     group_out = grouped()
     for p, _ in groups:
         check_pred(stream_out[p][0], (1, K, H, W))
-    vs_group = {p: compare_paths(stream_out[p][0], group_out[p][0], model, model, frames, p)
+    vs_group = {p: compare_class_maps(stream_out[p][0], group_out[p][0], model, frames, p)[0]
                 for p, frames in groups}
+    plain = build_model(net, device="cuda", generator=torch.Generator().manual_seed(SEED),
+                        use_kernels=False)
+    plain.load_state_dict(model.state_dict())
+    reset_counts()
+    vs_plain = {p: compare_class_maps(stream_out[p][0],
+                                      VideoSegmenter(plain, K, propagate=p).push_group(frames),
+                                      plain, frames, p)[0]
+                for p, frames in groups}
+    check(not any(counts().values()), f"{phase}: the plain path launched {counts()}")
+    del plain
     frame_ms = {p: {"key": [], "non_key": []} for p, _ in groups}
     stream_ms = {p: [] for p, _ in groups}
     group_ms = {p: [] for p, _ in groups}
@@ -992,17 +1020,20 @@ def e2e_stream(phase: str, config: str, net: dict, seed: int, per_group: dict,
                 frame_ms[p]["non_key"].extend(ms[1:])
                 stream_ms[p].append(sum(ms))
     med = statistics.median
-    emit(dict(phase=phase, config=config, hw=[H, W], B=1, k=K, turns=turns,
+    emit(dict(phase=phase, config=config, hw=[H, W], B=1, k=K, turns=turns, max_abs_flow=max_flow,
               push_frame_ms={p: {kind: med(v) for kind, v in d.items()}
                              for p, d in frame_ms.items()},
               push_frame_group_ms={p: med(v) for p, v in stream_ms.items()},
               push_group_ms={p: med(v) for p, v in group_ms.items()},
               push_frame_group_ms_all=stream_ms, push_group_ms_all=group_ms,
-              push_frame_vs_push_group=vs_group, launches=launched))
+              push_frame_vs_push_group=vs_group, push_frame_vs_plain_push_group=vs_plain,
+              launches=launched))
     expected = {name: len(groups) * n for name, n in per_group.items()}
     check(launched == expected, f"{phase} launches {launched} != {expected}")
-    for p, c in vs_group.items():
-        check_bf16_paths(f"{phase} push_frame vs push_group, {p}", c, overall)
+    for p in vs_group:
+        check_class_maps(f"{phase} push_frame vs push_group, {p}", vs_group[p], overall)
+        check_class_maps(f"{phase} push_frame vs the plain push_group, {p}", vs_plain[p],
+                         overall)
     return launched
 
 

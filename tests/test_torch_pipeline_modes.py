@@ -20,10 +20,10 @@ from torch_parity import (assert_argmax_agrees, assert_close, bridged_models,  #
 
 from accel_tpu.core import pipeline as jpipe
 from accel_tpu.ops.upsample import resize_bilinear as j_resize
-from accel_tpu.ops.warp import bilinear_warp_xla_stacked
+from accel_tpu.ops.warp import bilinear_warp_xla, bilinear_warp_xla_stacked
 from accel_tpu_torch.core import pipeline as tpipe
 from accel_tpu_torch.models.accel import build_model
-from accel_tpu_torch.ops.warp import bilinear_warp, bilinear_warp_plain, bilinear_warp_stacked
+from accel_tpu_torch.ops.warp import bilinear_warp, bilinear_warp_plain
 
 torch.set_num_threads(2)
 HW, K = 128, 4
@@ -248,19 +248,20 @@ def _warp_case(shape, seed):
 
 def test_stacked_gather_matches_jax():
     """Mirrors ``tests/test_warp.py::test_stacked_gather_matches_oracle``:
-    f32 within 1e-6 of the JAX stacked gather and of the port's 4-gather
-    warp, taps past the image read 0; bf16 keeps its dtype and is within
-    one bf16 ulp of the JAX bf16 gather."""
+    the port's plain warp, one gather of all four taps, is f32 within 1e-6
+    of the JAX stacked gather and of the JAX 4-gather oracle, taps past the
+    image read 0; bf16 keeps its dtype and is within one bf16 ulp of the
+    JAX bf16 gather."""
     feat, flow = _warp_case((2, 12, 20, 5), seed=7)
-    got = bilinear_warp_stacked(nchw(feat), nchw(flow))
+    got = bilinear_warp_plain(nchw(feat), nchw(flow))
     want = np.asarray(bilinear_warp_xla_stacked(jnp.asarray(feat), jnp.asarray(flow)))
     np.testing.assert_allclose(nhwc(got), want, rtol=0, atol=1e-6)
-    torch.testing.assert_close(got, bilinear_warp_plain(nchw(feat), nchw(flow)), rtol=0,
-                               atol=1e-6)
+    oracle = np.asarray(bilinear_warp_xla(jnp.asarray(feat), jnp.asarray(flow)))
+    np.testing.assert_allclose(nhwc(got), oracle, rtol=0, atol=1e-6)
     big = torch.full((2, 2, 12, 20), 1e4)
-    assert not bilinear_warp_stacked(nchw(feat), big).any()
+    assert not bilinear_warp_plain(nchw(feat), big).any()
 
-    got16 = bilinear_warp_stacked(nchw(feat).to(torch.bfloat16), nchw(flow))
+    got16 = bilinear_warp_plain(nchw(feat).to(torch.bfloat16), nchw(flow))
     assert got16.dtype == torch.bfloat16
     want16 = np.asarray(bilinear_warp_xla_stacked(jnp.asarray(feat, jnp.bfloat16),
                                                   jnp.asarray(flow)), np.float32)
@@ -268,14 +269,15 @@ def test_stacked_gather_matches_jax():
 
 
 def test_stacked_dispatch():
-    """``gather='stacked'`` names the unbounded form: it runs where the
-    plain form would (``use_pallas=False``, or C > 64)."""
+    """``gather='stacked'`` names the unbounded plain form, as 'taps' does:
+    it runs where the plain form would (``use_pallas=False``, or C > 64)."""
     feat, flow = _warp_case((1, 8, 16, 70), seed=9)
     x, f = nchw(feat), nchw(flow)
-    stacked = bilinear_warp_stacked(x, f)
-    assert torch.equal(bilinear_warp(x, f, gather="stacked"), stacked)
+    plain = bilinear_warp_plain(x, f)
+    assert torch.equal(bilinear_warp(x, f, gather="stacked"), plain)
+    assert torch.equal(bilinear_warp(x, f, gather="taps"), plain)
     assert torch.equal(bilinear_warp(x[:, :19], f, use_pallas=False, gather="stacked"),
-                       bilinear_warp_stacked(x[:, :19], f))
+                       bilinear_warp_plain(x[:, :19], f))
 
 
 def test_stacked_model_matches_jax():

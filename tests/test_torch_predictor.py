@@ -125,8 +125,9 @@ def test_streaming_rejects_unrepresentable_cascade():
 
 
 def test_predictor_signature_and_predict():
-    """The reference's constructor arguments; predict returns one dict and
-    moves inputs to the predictor's device (mirrors
+    """The reference's argument names (symbol, data_names, context);
+    predict returns one dict and moves inputs to the predictor's device
+    (mirrors
     ``tests/test_predictor.py::test_predictor_signature_and_predict``)."""
     _, _, tm, _ = _pair(FAMILIES["accel"], seed=81)
 
@@ -134,10 +135,7 @@ def test_predictor_signature_and_predict():
         prop = tm.ref_propagated(image.permute(0, 3, 1, 2))
         return {"prop": prop, "pred": prop.argmax(dim=1).to(torch.uint8)}
 
-    pred = Predictor(apply_fn, data_names=("data",), label_names=(), context="cpu",
-                     max_data_shapes=[("data", (1, HW, HW, 3))],
-                     provide_data=[[("data", (1, HW, HW, 3))]], provide_label=[None],
-                     arg_params={}, aux_params={})
+    pred = Predictor(apply_fn, data_names=("data",), context="cpu")
     out = pred.predict(DataBatch([np.zeros((1, HW, HW, 3), np.float32)]))
     assert isinstance(out, list) and len(out) == 1
     assert tuple(out[0]["prop"].shape) == (1, 19, 8, 8)
