@@ -1,6 +1,7 @@
-"""The reference's per-frame inference API (counterpart of
-``accel_tpu/core/predictor.py``: ``DataBatch``, ``Predictor``,
-``make_key_cur_predictors``).
+"""The reference's per-frame inference API and its eval loops
+(counterpart of ``accel_tpu/core/predictor.py``: ``DataBatch``,
+``Predictor``, ``make_key_cur_predictors``, ``pred_eval``,
+``pred_eval_clips``).
 
 A keyframe runs the key predictor, which returns the tensor to propagate;
 every other frame runs the cur predictor with that cached tensor fed back
@@ -11,11 +12,15 @@ the ``nn.Module``; a predictor runs its function under
 
 from __future__ import annotations
 
+import time
 from collections.abc import Callable, Sequence
 from typing import Any
 
 import torch
 
+from accel_tpu_torch.core.metrics import SegConfusionAccumulator
+from accel_tpu_torch.core.pipeline import clip_predictions
+from accel_tpu_torch.data.image import resize_to
 from accel_tpu_torch.ops.upsample_argmax import upsample_argmax
 
 
@@ -111,3 +116,115 @@ def make_key_cur_predictors(model, full_res_pred: bool = True,
     device = next(model.parameters()).device
     return (Predictor(key_fn, ("data",), context=device),
             Predictor(cur_fn, ("data", "anchor_small", "prop"), context=device))
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the card's queued work: a timing's end on CUDA."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def pred_eval(key_predictor: Predictor, cur_predictor: Predictor, test_iter, num_classes: int,
+              key_interval: int, logger=None):
+    """The reference's per-frame eval loop.
+
+    ``test_iter`` yields one dict per frame: {'data': (1,H,W,3) normalized
+    frame, 'label': (1,H,W) or None, 'is_key': bool}. A keyframe (or the
+    first frame) runs the key predictor; every other frame the cur
+    predictor, with the cached 'prop' and 'anchor_small' fed back as
+    inputs (the reference's feat_key protocol). ``key_interval`` is the
+    schedule ``test_iter`` follows (its 'is_key' flags), kept for the
+    reference's signature. Net time waits for the card after each frame.
+    Returns (mIoU, per-class IoU, {'t_data', 't_net', 'frames', 'fps'})."""
+    log = logger.info if logger else print
+    acc = SegConfusionAccumulator(num_classes)
+    device = key_predictor.context or torch.device("cpu")
+    t_data = t_net = 0.0
+    n_frames = 0
+    prop = anchor_small = None
+    t0 = time.perf_counter()
+    for frame in test_iter:
+        t_data += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        if frame["is_key"] or prop is None:
+            out = key_predictor.predict(DataBatch([frame["data"]]))[0]
+        else:
+            out = cur_predictor.predict(DataBatch([frame["data"], anchor_small, prop]))[0]
+        prop, anchor_small, pred = out["prop"], out["anchor_small"], out["pred"]
+        _sync(device)
+        t_net += time.perf_counter() - t1
+        if frame.get("label") is not None:
+            acc.update(pred, torch.as_tensor(frame["label"], device=pred.device))
+        n_frames += 1
+        if n_frames % 100 == 0:
+            log(f"testing {n_frames} frames data {t_data / n_frames:.4f}s "
+                f"net {t_net / n_frames:.4f}s")
+        t0 = time.perf_counter()
+    miou, iou = acc.result()
+    fps = n_frames / max(t_net, 1e-9)
+    log(f"frames {n_frames}  net fps {fps:.2f}  mIoU {miou * 100:.2f}")
+    return miou, iou, {"t_data": t_data, "t_net": t_net, "frames": n_frames, "fps": fps}
+
+
+def pred_eval_clips(model, clip_iter, num_classes: int, interval: int,
+                    propagate: str = "incremental", logger=None,
+                    upsample: str = "bilinear_logits"):
+    """Clip eval: each batch of clips through ``core.pipeline.clip_predictions``.
+
+    ``clip_iter`` yields {'clip': (B,F,H,W,3) normalized, 'label': (B,F,H,W)
+    int with 255 everywhere but the annotated frames (or None)}, numpy or
+    tensors; a batch goes to the model's device where it is not there
+    already. Where the batch holds 'label_native' (SCALES resized the
+    frames), each clip's annotated frame is scored at its annotation's own
+    resolution: the padding cropped, the class map nearest-resized to the
+    annotation (the reference protocol). The weights live in ``model``;
+    the reference's ``variables``, ``mesh`` and ``shard_spatial`` have no
+    counterpart on one card.
+
+    Net time runs from the batch in hand to its class maps on the card
+    (synchronized); the first batch, which pays the allocator's and
+    cuDNN's first calls, is left out of fps. Data time is the wait for the
+    iterator. Returns (mIoU, per-class IoU, {'t_net', 't_data', 'frames',
+    'fps', 'confusion'}), 'confusion' the (C, C) float64 matrix."""
+    log = logger.info if logger else print
+    acc = SegConfusionAccumulator(num_classes)
+    device = next(model.parameters()).device
+    t_net = t_data = 0.0
+    n_frames = n_timed = 0
+    first = True
+    t0 = time.perf_counter()
+    for item in clip_iter:
+        t_data += time.perf_counter() - t0
+        clip = torch.as_tensor(item["clip"], device=device)
+        t1 = time.perf_counter()
+        preds = clip_predictions(model, clip, interval, propagate, upsample=upsample)
+        _sync(device)
+        if first:
+            first = False
+        else:
+            t_net += time.perf_counter() - t1
+            n_timed += clip.shape[0] * clip.shape[1]
+        n_frames += clip.shape[0] * clip.shape[1]
+        label = item.get("label")
+        natives = item.get("label_native")
+        if natives is not None:
+            ann_pos = int(item["ann_pos"])
+            preds_host = preds.cpu().numpy()
+            for b, nat in enumerate(natives):
+                if nat is None:
+                    # this clip's annotation had the frames' size already
+                    if label is not None:
+                        acc.update(preds[b:b + 1], torch.as_tensor(label[b:b + 1], device=device))
+                    continue
+                ann, scaled_hw = nat
+                p = preds_host[b, ann_pos, : scaled_hw[0], : scaled_hw[1]]
+                p = resize_to(p, *ann.shape[:2], interp="nearest")
+                acc.update(torch.from_numpy(p)[None], torch.from_numpy(ann)[None])
+        elif label is not None:
+            acc.update(preds, torch.as_tensor(label, device=device))
+        t0 = time.perf_counter()
+    miou, iou = acc.result()
+    fps = n_timed / max(t_net, 1e-9)
+    log(f"frames {n_frames}  net fps {fps:.2f}  mIoU {miou * 100:.2f}")
+    return miou, iou, {"t_net": t_net, "t_data": t_data, "frames": n_frames, "fps": fps,
+                       "confusion": acc.cm.copy()}

@@ -18,6 +18,7 @@ from collections.abc import Mapping
 import torch
 from torch import nn
 
+from accel_tpu_torch.config.loader import Config
 from accel_tpu_torch.models.deeplab import DeepLab
 from accel_tpu_torch.models.flownet import FlowNetS
 from accel_tpu_torch.models.resnet import FrozenBatchNorm
@@ -241,6 +242,8 @@ def init_weights(model: AccelNet, generator: torch.Generator) -> None:
 # cfg.network keys whose other values need code that a later port slice adds
 _ONLY = {
     "name": FAMILIES,
+    "norm": ("frozenbn", "groupnorm"),
+    "stem": ("conv7", "fused7"),
     "use_scale_field": (True,),
     "warp_dtype": ("f32", "native"),
     "warp_gather": ("taps", "stacked", "onehot"),
@@ -254,17 +257,29 @@ _ONLY = {
 }
 
 
-def build_model(network: Mapping | None = None, *, num_classes: int = 19,
+def build_model(network: Config | Mapping | None = None, *, num_classes: int | None = None,
                 device=None, generator: torch.Generator, use_kernels: bool = True) -> AccelNet:
-    """Build and seed-initialise an ``AccelNet`` from ``cfg.network``-style
-    keys (a plain mapping; missing keys take ``AccelNet``'s defaults).
+    """Build and seed-initialise an ``AccelNet``.
+
+    ``network`` is a whole ``Config`` (``config.load_config``): the model
+    takes ``cfg.network`` and ``cfg.dataset.NUM_CLASSES``, so every key the
+    cfg does not set takes the cfg defaults (``groupnorm``, ``conv7``,
+    ``scale_field_norm: mean1``, ...), as ``accel_tpu``'s
+    ``build_model(cfg)`` does. Or it is a plain mapping of
+    ``cfg.network``-style keys, where a missing key takes ``AccelNet``'s
+    defaults and ``num_classes`` defaults to 19.
 
     Values this port does not run yet raise ``NotImplementedError``. The
     model lives on ``device``, by default the card ("cuda"); without one
     it raises rather than build on the CPU, which takes ``device="cpu"``.
     The parameters are drawn from ``generator`` on its own device, so one
     seed gives the same weights on every device."""
+    if isinstance(network, Config):
+        if num_classes is None:
+            num_classes = int(network.dataset.NUM_CLASSES)
+        network = network.network
     net = dict(network or {})
+    num_classes = 19 if num_classes is None else num_classes
     for key, allowed in _ONLY.items():
         if key in net and net[key] not in allowed:
             raise NotImplementedError(

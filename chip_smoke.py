@@ -59,6 +59,22 @@ Phases, one JSON line each:
     Accel-18 and of the DFF row, held the same way (the flow fields warped
     at D, the features once at D*(k-1)).
 
+12. e2e_eval, e2e_eval_dff: video eval from a cfg file. A Cityscapes-layout
+    tree at 1024x2048 is written to a temporary directory (2 annotated
+    snippets, frames ANNOTATED_FRAME-4 .. ANNOTATED_FRAME of a panning
+    scene, labelIds PNGs, by this script's own PNG writer); the flagship
+    cfg (``experiments/cfgs/accel18_cityscapes.yaml``: groupnorm, conv7,
+    mean1, incremental + last) and the DFF cfg (``dff_cityscapes.yaml``,
+    whose ``serving_network`` picks the one-hot warp, native, D=4) are
+    overlaid with the tree's paths and run through the port's eval entry
+    point, ``accel_tpu_torch.experiments.test.main(... --random-weights
+    --max-items 2)``, with the exact launches per clip (flagship: 4 warps
+    and 1 tail; DFF: 1 one-hot warp and 1 tail). Then the kernel model and
+    the plain model of the same cfg and seed, with live flow heads, through
+    ``pred_eval_clips`` on the same batches: mIoU within 1 point and
+    confusion matrices within an L1 of 2*(1-0.99) of the valid pixels
+    (0.98 for DFF), the overall class-map limits of ``compare_paths``.
+
 Then the ``{"kernels": [...]}`` line (each kernel's first row, with its
 launches on one path it serves and per group there, and its launches on
 every path above), the card's name and
@@ -73,18 +89,31 @@ from __future__ import annotations
 
 import functools
 import json
+import logging
 import math
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
 from accel_tpu_torch import kernels
+from accel_tpu_torch.config import load_config
 from accel_tpu_torch.core.pipeline import clip_logits, clip_predictions
+from accel_tpu_torch.core.predictor import pred_eval_clips
 from accel_tpu_torch.core.serving import VideoSegmenter
+from accel_tpu_torch.data import png
+from accel_tpu_torch.data.cityscapes import ANNOTATED_FRAME, Cityscape
+from accel_tpu_torch.data.image import transform
+from accel_tpu_torch.data.loader import TestClipLoader
+from accel_tpu_torch.data.prefetch import to_device
+from accel_tpu_torch.experiments import test as eval_entry
 from accel_tpu_torch.models.accel import build_model
 from accel_tpu_torch.models.resnet import DilatedResNet
 from accel_tpu_torch.ops import dilated_cuda as dilated_ops
@@ -1037,6 +1066,177 @@ def e2e_stream(phase: str, config: str, net: dict, seed: int, per_group: dict,
     return launched
 
 
+# ---- phase 12: video eval from a cfg file ---------------------------------------
+
+REPO = Path(__file__).resolve().parent
+EVAL_SNIPPETS = 2
+# labelIds of the tree's annotation bands: sky, road, car (unlabelled corner)
+EVAL_BANDS = (23, 7, 26)
+
+
+def write_png(path: Path, arr: torch.Tensor) -> None:
+    """An 8-bit PNG of a (H, W) gray or (H, W, 3) BGR uint8 tensor (the
+    order cv2 writes), every row with filter 0."""
+    a = arr.cpu().numpy()
+    colour = 0 if a.ndim == 2 else 2
+    if colour == 2:
+        a = a[:, :, ::-1]  # BGR -> RGB
+    h, w = a.shape[:2]
+    rows = a.reshape(h, -1)
+    raw = b"".join(b"\x00" + rows[r].tobytes() for r in range(h))
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (len(body).to_bytes(4, "big") + kind + body
+                + zlib.crc32(kind + body).to_bytes(4, "big"))
+
+    header = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([8, colour, 0, 0, 0])
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+                     + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def write_eval_tree(root: Path) -> tuple[Path, int]:
+    """A Cityscapes-layout val tree at 1024x2048: EVAL_SNIPPETS annotated
+    snippets, frames ANNOTATED_FRAME-K+1 .. ANNOTATED_FRAME of a scene
+    panning 4 px a frame (``moving_clip``, as BGR uint8), and labelIds in
+    three bands with an unlabelled 4x4 corner. Returns the dataset path
+    and the valid (labelled) pixels per annotation."""
+    data = root / "cityscapes"
+    label = torch.empty((H, W), dtype=torch.uint8)
+    for i, label_id in enumerate(EVAL_BANDS):
+        label[i * H // 3:(i + 1) * H // 3 if i < 2 else H] = label_id
+    label[:4, :4] = 0
+    for seq in range(EVAL_SNIPPETS):
+        clip = moving_clip(K, (H, W), SEED + 30 + seq, "cpu")[0]
+        frames = (clip * 40 + 120).round().clamp(0, 255).to(torch.uint8)
+        name = f"evalcity_{seq:06d}"
+        for i in range(K):
+            f = ANNOTATED_FRAME - K + 1 + i
+            split = ("leftImg8bit/val" if f == ANNOTATED_FRAME
+                     else "leftImg8bit_sequence/val")
+            write_png(data / split / "evalcity" / f"{name}_{f:06d}_leftImg8bit.png", frames[i])
+        write_png(data / "gtFine/val/evalcity" / f"{name}_{ANNOTATED_FRAME:06d}_gtFine_labelIds.png",
+                  label)
+    return data, H * W - 16
+
+
+def eval_cfg(name: str, root: Path, data: Path) -> Path:
+    """``experiments/cfgs/<name>.yaml`` with its output and dataset paths
+    pointed at ``root`` and ``data``; every other line as shipped."""
+    text = (REPO / "experiments" / "cfgs" / f"{name}.yaml").read_text()
+    for key, value in (("output_path", root / "out"), ("dataset_path", data),
+                       ("root_path", root)):
+        text, n = re.subn(rf"(?m)^(\s*){key}:.*$", rf"\g<1>{key}: {value}", text)
+        check(n == 1, f"{name}.yaml sets {key} {n} times")
+    path = root / f"{name}.yaml"
+    path.write_text(text)
+    return path
+
+
+def median_host_ms(fn, turns: int = 3) -> float:
+    """Median host-clock ms of ``fn`` over ``turns`` calls."""
+    times = []
+    for _ in range(turns):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def loader_breakdown(imdb, cfg) -> dict:
+    """Host ms of the loader's steps on the tree's first annotated frame:
+    the PNG read (``png.imread``, cv2 where it imports), the zlib decoder
+    on the same bytes (the tree's rows are unfiltered, so its fast path),
+    the normalize, and the annotation (read + label LUT)."""
+    entry = imdb.segdb[0]
+    im = imdb.load_image(entry["image"])
+    data = Path(entry["image"]).read_bytes()
+    means, stds = cfg.network.PIXEL_MEANS, cfg.network.PIXEL_STDS
+    return dict(read=median_host_ms(lambda: imdb.load_image(entry["image"])),
+                zlib_decode=median_host_ms(lambda: png.decode_png(data)),
+                normalize=median_host_ms(lambda: transform(im, means, stds)),
+                annotation=median_host_ms(lambda: imdb.load_annotation(entry)))
+
+
+def e2e_eval(phase: str, cfg_name: str, root: Path, data: Path, valid_per_clip: int,
+             per_clip: dict, overall: float) -> dict[str, int]:
+    """Phase 12 for one cfg. Returns the launches of the entry point's run."""
+    path = eval_cfg(cfg_name, root, data)
+    reset_counts()
+    t0 = time.perf_counter()
+    (result,) = eval_entry.main(["--cfg", str(path), "--random-weights",
+                                 "--max-items", str(EVAL_SNIPPETS)])
+    wall_s = time.perf_counter() - t0
+    launched = counts()
+    stats = result["stats"]
+    valid = EVAL_SNIPPETS * valid_per_clip
+    check(float(stats["confusion"].sum()) == valid,
+          f"{phase}: {stats['confusion'].sum()} pixels scored, expected {valid}")
+    check(0.0 <= result["miou"] <= 1.0 and stats["frames"] == EVAL_SNIPPETS * K,
+          f"{phase}: miou {result['miou']}, {stats['frames']} frames")
+    expected = {name: EVAL_SNIPPETS * n for name, n in per_clip.items()}
+    check(launched == expected, f"{phase} launches {launched} != {expected}")
+
+    # kernels against plain: one cfg, one seed, live flow heads, the same batches
+    cfg = load_config(str(path))
+    eval_entry.apply_serving_network(cfg)
+    imdb = Cityscape(cfg.dataset.test_image_set, str(root / "cache_kvp"), str(data))
+    t0 = time.perf_counter()
+    host_batches = list(TestClipLoader(imdb, cfg, max_items=EVAL_SNIPPETS))
+    loader_ms_per_frame = (time.perf_counter() - t0) * 1e3 / (EVAL_SNIPPETS * K)
+    loader_split_ms = loader_breakdown(imdb, cfg)
+    batches = [to_device(b, "cuda") for b in host_batches]
+    del host_batches
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    max_flow = live_flow_heads(model, batches[0]["clip"], SEED + 40)
+    check(max_flow > 0.5, f"{phase}: flow {max_flow} too small to exercise the warp")
+    plain = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED),
+                        use_kernels=False)
+    plain.load_state_dict(model.state_dict())
+    quiet = logging.getLogger("chip_smoke.eval")
+    propagate, interval = str(cfg.network.propagate), int(cfg.TEST.KEY_FRAME_INTERVAL)
+    runs = {}
+    for name, m in (("kernels", model), ("plain", plain)):
+        reset_counts()
+        miou, _, st = pred_eval_clips(m, batches, int(cfg.dataset.NUM_CLASSES), interval,
+                                      propagate, quiet)
+        runs[name] = dict(miou=miou, stats=st, launches=counts())
+    check(runs["kernels"]["launches"] == expected,
+          f"{phase} kernel model launches {runs['kernels']['launches']} != {expected}")
+    check(not any(runs["plain"]["launches"].values()),
+          f"{phase}: the plain model launched {runs['plain']['launches']}")
+    cm_k, cm_p = runs["kernels"]["stats"]["confusion"], runs["plain"]["stats"]["confusion"]
+    l1 = float(abs(cm_k - cm_p).sum())
+    d_miou = abs(runs["kernels"]["miou"] - runs["plain"]["miou"])
+    emit(dict(phase=phase, cfg=f"experiments/cfgs/{cfg_name}.yaml", hw=[H, W], k=K,
+              clips=EVAL_SNIPPETS, propagate=propagate, png_reader=png.reader(),
+              entry_point=dict(miou=result["miou"], fps=stats["fps"],
+                               net_ms_per_frame=1e3 / stats["fps"],
+                               data_wait_ms_per_frame=stats["t_data"] * 1e3 / stats["frames"],
+                               wall_s=wall_s, launches=launched),
+              loader_ms_per_frame=loader_ms_per_frame, loader_split_ms=loader_split_ms,
+              max_abs_flow=max_flow,
+              kernels_miou=runs["kernels"]["miou"], plain_miou=runs["plain"]["miou"],
+              kernels_fps=runs["kernels"]["stats"]["fps"],
+              plain_fps=runs["plain"]["stats"]["fps"],
+              predicted_classes=int((cm_k.sum(axis=0) > 0).sum()), confusion_l1=l1,
+              valid_pixels=valid,
+              confusion_l1_limit=2 * (1 - overall) * valid, card=card()))
+    check(d_miou <= 0.01, f"{phase}: kernel vs plain mIoU differ by {d_miou}")
+    check(l1 <= 2 * (1 - overall) * valid,
+          f"{phase}: kernel vs plain confusion L1 {l1} > {2 * (1 - overall) * valid}")
+    return launched
+
+
+@functools.cache
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1102,6 +1302,19 @@ def main() -> int:
         "e2e_dff_composed", "dff101 frozenbn fused7 bf16 onehot native composed", DFF_NET,
         "composed", SEED + 26, launches_of(fused_stem=1, warp_onehot=(K - 2) + 1,
                                            upsample_argmax=1), overall=0.98)
+    torch.cuda.empty_cache()
+    # eval from the cfg files: the flagship's 4 step warps and one tail per
+    # clip (groupnorm + conv7, no stem kernel); DFF's one batched one-hot
+    # warp and one tail
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        root = Path(tmp)
+        data, valid_per_clip = write_eval_tree(root)
+        eval_launched = e2e_eval("e2e_eval", "accel18_cityscapes", root, data, valid_per_clip,
+                                 launches_of(warp=K - 1, upsample_argmax=1), overall=0.99)
+        torch.cuda.empty_cache()
+        dff_eval_launched = e2e_eval("e2e_eval_dff", "dff_cityscapes", root, data,
+                                     valid_per_clip, launches_of(warp_onehot=1, upsample_argmax=1),
+                                     overall=0.98)
     # each kernel with the launches of one path it serves: (path, launches, groups)
     paths = {name: ("accel18", accel_launched[name], accel_groups)
              for name in ("warp", "upsample_argmax", "fused_stem")}
@@ -1111,7 +1324,8 @@ def main() -> int:
                "deeplab101 pallas": deeplab_launched, "accel18 push_frame": stream_launched,
                "dff push_frame": dff_stream_launched, "accel18_fast": fast_launched,
                "accel18_os8mixed": os8_launched, "accel18 composed": composed_launched,
-               "dff composed": dff_composed_launched}
+               "dff composed": dff_composed_launched, "accel18 cfg eval": eval_launched,
+               "dff cfg eval": dff_eval_launched}
 
     keys = ("max_abs_err", "shape", "ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "library_call")
@@ -1123,10 +1337,7 @@ def main() -> int:
              launch_floor_device_ms=floor["device_ms"],
              **{k: results[name][k] for k in keys})
         for name in LAUNCHERS]})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

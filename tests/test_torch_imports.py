@@ -1,6 +1,8 @@
 """The port imports neither JAX, PyYAML nor the JAX package: the machine
 with the card has none of them. Every module of ``accel_tpu_torch`` and
-``chip_smoke.py`` must import with those blocked."""
+``chip_smoke.py`` must import with those blocked, and with ``cv2``
+blocked too (the card's machine may lack it: the PNG reader then decodes
+with ``zlib``)."""
 
 import subprocess
 import sys
@@ -13,7 +15,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 PROBE = """
 import importlib, pkgutil, sys
-for blocked in ("jax", "jaxlib", "flax", "yaml", "accel_tpu"):
+BLOCKED = ("jax", "jaxlib", "flax", "yaml", "accel_tpu", "cv2")
+for blocked in BLOCKED:
     sys.modules[blocked] = None
 import accel_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(accel_tpu_torch.__path__, "accel_tpu_torch.")]
@@ -21,8 +24,10 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 loaded = sorted(m for m, v in sys.modules.items()
-                if v is not None and m.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "accel_tpu"))
+                if v is not None and m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
+from accel_tpu_torch.data import png
+assert png.reader() == "zlib"
 print(len(names))
 """
 
@@ -31,5 +36,6 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # ops (7), models (4), core (3), kernels, convert and three package inits
-    assert int(out.stdout.strip()) == 19
+    # ops (7), models (4), core (5), config (2), data (7), utils (1),
+    # experiments (1), kernels, convert and seven package inits
+    assert int(out.stdout.strip()) == 36

@@ -119,3 +119,71 @@ def assert_argmax_agrees(ours: np.ndarray, ref: np.ndarray, logits: np.ndarray,
         top2 = np.sort(np.asarray(logits), axis=-1)[..., -2:]
         margin = (top2[..., 1] - top2[..., 0])[diff]
         assert float(margin.max()) <= margin_rel * float(np.abs(logits).max())
+
+
+# ---- data fixtures and checkpoints for the eval parity tests ------------------
+
+CITYSCAPES_BANDS = ((23, (180, 130, 70)), (7, (90, 90, 90)), (26, (40, 40, 160)))  # sky, road, car
+
+
+def write_png(path, arr: np.ndarray, params=()) -> None:
+    import os
+
+    import cv2
+
+    os.makedirs(os.path.dirname(str(path)), exist_ok=True)
+    assert cv2.imwrite(str(path), arr, list(params))
+
+
+def write_cityscapes_tree(root, h: int, w: int, snippets: int = 2, seed: int = 0,
+                          split: str = "val", cities=("aachen", "bochum")) -> str:
+    """A Cityscapes-layout tree as ``tests/test_data.py``'s fixture writes
+    it: per city ``snippets`` annotated frames with a labelIds PNG of three
+    bands (sky, road, car; an unlabelled corner) and sequence frames
+    ANNOTATED_FRAME-6 .. +1, each band its own colour plus noise, panning
+    2 px a frame. Returns the dataset path (``root``/cityscapes)."""
+    from accel_tpu.data.cityscapes import ANNOTATED_FRAME
+
+    rng = np.random.default_rng(seed)
+    data = f"{root}/cityscapes"
+    lab = np.zeros((h, w), np.uint8)
+    colour = np.zeros((h, w, 3), np.float32)
+    for i, (label_id, bgr) in enumerate(CITYSCAPES_BANDS):
+        rows = slice(i * h // 3, (i + 1) * h // 3 if i < 2 else h)
+        lab[rows] = label_id
+        colour[rows] = bgr
+    lab[:4, :4] = 0
+    for city in cities:
+        for seq in range(snippets):
+            base = np.clip(colour + rng.normal(0, 30, colour.shape), 0, 255).astype(np.uint8)
+            name = f"{city}_{seq:06d}_{ANNOTATED_FRAME:06d}"
+            write_png(f"{data}/leftImg8bit/{split}/{city}/{name}_leftImg8bit.png", base)
+            write_png(f"{data}/gtFine/{split}/{city}/{name}_gtFine_labelIds.png", lab)
+            for f in range(ANNOTATED_FRAME - 6, ANNOTATED_FRAME + 2):
+                write_png(f"{data}/leftImg8bit_sequence/{split}/{city}/"
+                          f"{city}_{seq:06d}_{f:06d}_leftImg8bit.png",
+                          np.roll(base, 2 * (f - ANNOTATED_FRAME), axis=1))
+    return data
+
+
+def write_camvid_tree(root, h: int, w: int, n: int = 3, seed: int = 0,
+                      split: str = "test") -> str:
+    """A CamVid-layout tree: ``split``/*.png images (RGB) and
+    ``split``annot/*.png class-index labels, some >= 11 (ignored). Returns
+    the dataset path."""
+    rng = np.random.default_rng(seed)
+    data = f"{root}/camvid"
+    for i in range(n):
+        write_png(f"{data}/{split}/seq_{i:03d}.png", rng.integers(0, 255, (h, w, 3), np.uint8))
+        write_png(f"{data}/{split}annot/seq_{i:03d}.png", rng.integers(0, 13, (h, w), np.uint8))
+    return data
+
+
+def port_checkpoint_from_jax(variables, prefix_dir: str, epoch: int) -> None:
+    """A port checkpoint (``accel_tpu_torch.core.checkpoint``) holding flax
+    ``variables``, through ``convert.flax_to_torch``: the route from a JAX
+    checkpoint, restored in JAX, to the port."""
+    from accel_tpu_torch.convert import flax_to_torch
+    from accel_tpu_torch.core.checkpoint import save_checkpoint
+
+    save_checkpoint(prefix_dir, epoch, {"model": flax_to_torch(jax.device_get(variables))})
