@@ -1,7 +1,7 @@
 """Config system (counterpart of ``accel_tpu/config/loader.py``): an
 attribute dict of defaults with an experiment YAML merged over it.
 
-The machine with the card has no PyYAML, so the YAML is read by
+The port keeps clear of a PyYAML dependency, so the YAML is read by
 :func:`safe_load`, a reader for the subset the experiment configs use:
 
 - block mappings, nested by indentation (spaces only);

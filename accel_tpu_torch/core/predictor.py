@@ -168,7 +168,7 @@ def pred_eval(key_predictor: Predictor, cur_predictor: Predictor, test_iter, num
 
 def pred_eval_clips(model, clip_iter, num_classes: int, interval: int,
                     propagate: str = "incremental", logger=None,
-                    upsample: str = "bilinear_logits"):
+                    upsample: str = "bilinear_logits", on_preds=None):
     """Clip eval: each batch of clips through ``core.pipeline.clip_predictions``.
 
     ``clip_iter`` yields {'clip': (B,F,H,W,3) normalized, 'label': (B,F,H,W)
@@ -179,10 +179,11 @@ def pred_eval_clips(model, clip_iter, num_classes: int, interval: int,
     resolution: the padding cropped, the class map nearest-resized to the
     annotation (the reference protocol). The weights live in ``model``;
     the reference's ``variables``, ``mesh`` and ``shard_spatial`` have no
-    counterpart on one card.
+    counterpart on one card. ``on_preds(item, preds)``, where given, is
+    called with each batch and its (B, F, H, W) uint8 class maps.
 
-    Net time runs from the batch in hand to its class maps on the card
-    (synchronized); the first batch, which pays the allocator's and
+    Net time runs from the batch in hand, its copy to the card included,
+    to its class maps on the card (synchronized); the first batch, which pays the allocator's and
     cuDNN's first calls, is left out of fps. Data time is the wait for the
     iterator. Returns (mIoU, per-class IoU, {'t_net', 't_data', 'frames',
     'fps', 'confusion'}), 'confusion' the (C, C) float64 matrix."""
@@ -195,8 +196,8 @@ def pred_eval_clips(model, clip_iter, num_classes: int, interval: int,
     t0 = time.perf_counter()
     for item in clip_iter:
         t_data += time.perf_counter() - t0
-        clip = torch.as_tensor(item["clip"], device=device)
         t1 = time.perf_counter()
+        clip = torch.as_tensor(item["clip"], device=device)
         preds = clip_predictions(model, clip, interval, propagate, upsample=upsample)
         _sync(device)
         if first:
@@ -205,6 +206,8 @@ def pred_eval_clips(model, clip_iter, num_classes: int, interval: int,
             t_net += time.perf_counter() - t1
             n_timed += clip.shape[0] * clip.shape[1]
         n_frames += clip.shape[0] * clip.shape[1]
+        if on_preds is not None:
+            on_preds(item, preds)
         label = item.get("label")
         natives = item.get("label_native")
         if natives is not None:

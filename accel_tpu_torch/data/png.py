@@ -1,14 +1,6 @@
-"""PNG reading for the datasets, as ``cv2.imread`` reads them.
-
-The reference reads every frame and label with ``cv2.imread``
-(``accel_tpu/data/cityscapes.py``, ``camvid.py``). :func:`imread` uses
-``cv2`` where it imports; where it does not (the machine with the card is
-not known to have it), :func:`decode_png`, a decoder on the standard
-library's ``zlib`` and numpy, gives the same arrays for the PNGs the
-datasets hold: 8-bit gray, RGB or RGBA, not interlaced, with any of the
-five row filters. Every other PNG (palette, 16-bit, gray + alpha,
-interlaced, with a transparency chunk) raises ``ValueError`` rather than
-decoding otherwise than ``cv2``.
+"""PNG reading for the datasets, through ``cv2.imread`` as the reference
+reads them (``accel_tpu/data/cityscapes.py``, ``camvid.py``). ``cv2`` is
+imported on the first read, not with the module.
 
 Flags follow ``cv2``: ``IMREAD_UNCHANGED`` gives (H, W) for gray, (H, W, 3)
 BGR for RGB and (H, W, 4) BGRA for RGBA; ``IMREAD_COLOR`` gives (H, W, 3)
@@ -17,129 +9,21 @@ BGR always (gray repeated, alpha dropped).
 
 from __future__ import annotations
 
-import functools
-import struct
-import zlib
-
 import numpy as np
 
-IMREAD_UNCHANGED = -1
-IMREAD_COLOR = 1
-
-_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 6: 4}  # PNG colour type -> samples per pixel
-
-
-@functools.cache
-def _cv2():
-    try:
-        import cv2
-    except ImportError:
-        return None
-    return cv2
-
-
-def reader() -> str:
-    """Which reader :func:`imread` uses here: 'cv2' or 'zlib'."""
-    return "zlib" if _cv2() is None else "cv2"
+IMREAD_UNCHANGED = -1  # cv2.IMREAD_UNCHANGED
+IMREAD_COLOR = 1  # cv2.IMREAD_COLOR
 
 
 def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:
     """``cv2.imread(path, flags)`` for ``IMREAD_UNCHANGED`` and
-    ``IMREAD_COLOR``; raises ``FileNotFoundError`` where ``cv2`` would
-    return None (a missing or unreadable file)."""
+    ``IMREAD_COLOR``; raises ``FileNotFoundError`` where ``cv2`` returns
+    None (a missing or unreadable file)."""
+    import cv2
+
     if flags not in (IMREAD_UNCHANGED, IMREAD_COLOR):
         raise ValueError(f"unsupported imread flags {flags}")
-    cv2 = _cv2()
-    if cv2 is not None:
-        im = cv2.imread(path, flags)
-        if im is None:
-            raise FileNotFoundError(path)
-        return im
-    try:
-        with open(path, "rb") as f:
-            data = f.read()
-    except OSError as e:
-        raise FileNotFoundError(path) from e
-    return decode_png(data, flags)
-
-
-def _unfilter(filtered: np.ndarray, types: np.ndarray) -> np.ndarray:
-    """Undo the PNG row filters: ``filtered`` (H, W, bpp) uint8, ``types``
-    (H,) the filter byte of each row -> the samples.
-
-    A sample depends on its left, upper and upper-left neighbours, so every
-    anti-diagonal r + c = d depends only on the two before it. The image is
-    sheared so that each anti-diagonal is one column, and the H + W - 1
-    diagonals are undone in order, each as a handful of numpy operations on
-    a column: about a second of one CPU core for a 1024x2048 RGB frame,
-    where a Python loop over its 6M samples takes tens of seconds."""
-    H, W, bpp = filtered.shape
-    if not types.any():  # every row unfiltered, as simple writers leave them
-        return filtered.copy()
-    rr = np.arange(H)[:, None]
-    cc = np.arange(W)[None, :]
-    # sheared input: row r, column r + c; reconstruction: row r + 1,
-    # column r + c + 2, with zeros for the row above the image and the
-    # two columns left of it
-    fs = np.zeros((H, H + W - 1, bpp), np.int16)
-    fs[rr, rr + cc] = filtered
-    s = np.zeros((H + 1, H + W + 1, bpp), np.int16)
-    ft = types.astype(np.int16)[:, None]
-    for d in range(H + W - 1):
-        r0, r1 = max(0, d - W + 1), min(H - 1, d) + 1
-        a = s[r0 + 1:r1 + 1, d + 1]  # left
-        b = s[r0:r1, d + 1]  # up
-        c = s[r0:r1, d]  # up-left
-        f = ft[r0:r1]
-        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
-        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-        pred = np.where(f == 1, a, np.where(f == 2, b, np.where(
-            f == 3, (a + b) >> 1, np.where(f == 4, paeth, 0))))
-        s[r0 + 1:r1 + 1, d + 2] = (fs[r0:r1, d] + pred) & 255
-    return s[rr + 1, rr + cc + 2].astype(np.uint8)
-
-
-def decode_png(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
-    """A PNG file's bytes -> the array ``cv2.imdecode(data, flags)`` gives
-    (see the module docstring for what is taken)."""
-    if data[:8] != _SIGNATURE:
-        raise ValueError("not a PNG file")
-    pos, header, idat = 8, None, []
-    while pos < len(data):
-        if pos + 8 > len(data):
-            raise ValueError("truncated PNG chunk")
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
-        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
-        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
-        if len(body) != n or zlib.crc32(kind + body) != crc:
-            raise ValueError(f"PNG chunk {kind!r} is truncated or fails its CRC")
-        pos += 12 + n
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind in (b"PLTE", b"tRNS"):
-            raise ValueError(f"PNG with a {kind.decode()} chunk: not decoded here")
-        elif kind == b"IEND":
-            break
-    if header is None:
-        raise ValueError("PNG without IHDR")
-    w, h, depth, colour, compression, filter_method, interlace = header
-    if depth != 8 or colour not in _CHANNELS or compression or filter_method or interlace:
-        raise ValueError(f"PNG of bit depth {depth}, colour type {colour}, interlace "
-                         f"{interlace}: only 8-bit gray, RGB or RGBA, not interlaced, is decoded")
-    bpp = _CHANNELS[colour]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (1 + w * bpp):
-        raise ValueError(f"PNG data of {raw.size} bytes for {h}x{w}x{bpp}")
-    raw = raw.reshape(h, 1 + w * bpp)
-    if raw[:, 0].max() > 4:
-        raise ValueError(f"PNG row filter {raw[:, 0].max()}")
-    im = _unfilter(raw[:, 1:].reshape(h, w, bpp), raw[:, 0])
-    if colour == 0:
-        return np.repeat(im, 3, axis=2) if flags == IMREAD_COLOR else im[:, :, 0]
-    if colour == 6 and flags == IMREAD_COLOR:
-        im = im[:, :, :3]
-    order = [2, 1, 0, 3][:im.shape[2]]  # RGB(A) -> BGR(A)
-    return np.ascontiguousarray(im[:, :, order])
+    im = cv2.imread(path, flags)
+    if im is None:
+        raise FileNotFoundError(path)
+    return im

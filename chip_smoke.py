@@ -108,7 +108,6 @@ from accel_tpu_torch.config import load_config
 from accel_tpu_torch.core.pipeline import clip_logits, clip_predictions
 from accel_tpu_torch.core.predictor import pred_eval_clips
 from accel_tpu_torch.core.serving import VideoSegmenter
-from accel_tpu_torch.data import png
 from accel_tpu_torch.data.cityscapes import ANNOTATED_FRAME, Cityscape
 from accel_tpu_torch.data.image import transform
 from accel_tpu_torch.data.loader import TestClipLoader
@@ -616,11 +615,12 @@ def moving_clip(n_frames: int, hw: tuple[int, int], seed: int, device) -> torch.
 
 @torch.inference_mode()
 def compare_class_maps(pred: torch.Tensor, ref: torch.Tensor, ref_model, frames: torch.Tensor,
-                       propagate: str) -> tuple[dict, torch.Tensor]:
+                       propagate: str, interval: int = K) -> tuple[dict, torch.Tensor]:
     """Agreement of two class maps ``pred`` and ``ref`` (1, F, H, W) of
-    one group, overall and on the clear pixels: those whose top-2 margin in
-    ``ref_model``'s stride-level logits (upsampled as the tail does)
-    exceeds 1e-2 * max|logits|. Returns the agreements and those logits.
+    one group (``frames`` (1, F, H, W, 3), a key frame every
+    ``interval``), overall and on the clear pixels: those whose top-2
+    margin in ``ref_model``'s stride-level logits (upsampled as the tail
+    does) exceeds 1e-2 * max|logits|. Returns the agreements and those logits.
 
     With random weights a bf16 model puts ~0.6% of its pixels at top-2
     margins within bf16 rounding noise. Two paths whose bf16 values differ
@@ -628,7 +628,7 @@ def compare_class_maps(pred: torch.Tensor, ref: torch.Tensor, ref_model, frames:
     tensor-core stem against the f32 conv, which differ on ~0.004% of the
     stem's outputs) flip those pixels: agreement ~0.994 overall, >= 0.9999
     on the clear pixels."""
-    ref_logits = clip_logits(ref_model, frames.permute(0, 1, 4, 2, 3), K, propagate)[0]
+    ref_logits = clip_logits(ref_model, frames.permute(0, 1, 4, 2, 3), interval, propagate)[0]
     peak = ref_logits.abs().max().item()
     up = F.interpolate(ref_logits, size=pred.shape[-2:], mode="bilinear", align_corners=False)
     top2 = up.topk(2, dim=1).values
@@ -1115,8 +1115,8 @@ def write_eval_tree(root: Path) -> tuple[Path, int]:
             split = ("leftImg8bit/val" if f == ANNOTATED_FRAME
                      else "leftImg8bit_sequence/val")
             write_png(data / split / "evalcity" / f"{name}_{f:06d}_leftImg8bit.png", frames[i])
-        write_png(data / "gtFine/val/evalcity" / f"{name}_{ANNOTATED_FRAME:06d}_gtFine_labelIds.png",
-                  label)
+        write_png(data / "gtFine/val/evalcity"
+                  / f"{name}_{ANNOTATED_FRAME:06d}_gtFine_labelIds.png", label)
     return data, H * W - 16
 
 
@@ -1145,15 +1145,12 @@ def median_host_ms(fn, turns: int = 3) -> float:
 
 def loader_breakdown(imdb, cfg) -> dict:
     """Host ms of the loader's steps on the tree's first annotated frame:
-    the PNG read (``png.imread``, cv2 where it imports), the zlib decoder
-    on the same bytes (the tree's rows are unfiltered, so its fast path),
-    the normalize, and the annotation (read + label LUT)."""
+    the PNG read (``cv2.imread``), the normalize, and the annotation
+    (read + label LUT)."""
     entry = imdb.segdb[0]
     im = imdb.load_image(entry["image"])
-    data = Path(entry["image"]).read_bytes()
     means, stds = cfg.network.PIXEL_MEANS, cfg.network.PIXEL_STDS
     return dict(read=median_host_ms(lambda: imdb.load_image(entry["image"])),
-                zlib_decode=median_host_ms(lambda: png.decode_png(data)),
                 normalize=median_host_ms(lambda: transform(im, means, stds)),
                 annotation=median_host_ms(lambda: imdb.load_annotation(entry)))
 
@@ -1197,10 +1194,11 @@ def e2e_eval(phase: str, cfg_name: str, root: Path, data: Path, valid_per_clip: 
     propagate, interval = str(cfg.network.propagate), int(cfg.TEST.KEY_FRAME_INTERVAL)
     runs = {}
     for name, m in (("kernels", model), ("plain", plain)):
+        preds = []
         reset_counts()
         miou, _, st = pred_eval_clips(m, batches, int(cfg.dataset.NUM_CLASSES), interval,
-                                      propagate, quiet)
-        runs[name] = dict(miou=miou, stats=st, launches=counts())
+                                      propagate, quiet, on_preds=lambda _, p: preds.append(p))
+        runs[name] = dict(miou=miou, stats=st, launches=counts(), preds=preds)
     check(runs["kernels"]["launches"] == expected,
           f"{phase} kernel model launches {runs['kernels']['launches']} != {expected}")
     check(not any(runs["plain"]["launches"].values()),
@@ -1208,8 +1206,17 @@ def e2e_eval(phase: str, cfg_name: str, root: Path, data: Path, valid_per_clip: 
     cm_k, cm_p = runs["kernels"]["stats"]["confusion"], runs["plain"]["stats"]["confusion"]
     l1 = float(abs(cm_k - cm_p).sum())
     d_miou = abs(runs["kernels"]["miou"] - runs["plain"]["miou"])
+    # the class maps pixel by pixel, each clip's frames overall and on the
+    # pixels clear of near-ties in the plain model's logits
+    class_maps = [
+        compare_class_maps(pk[i:i + 1], pp[i:i + 1], plain, batch["clip"][i:i + 1], propagate,
+                           interval)[0]
+        for batch, pk, pp in zip(batches, runs["kernels"]["preds"], runs["plain"]["preds"],
+                                 strict=True)
+        for i in range(pk.shape[0])]
+    check(len(class_maps) >= EVAL_SNIPPETS, f"{phase}: {len(class_maps)} clips compared")
     emit(dict(phase=phase, cfg=f"experiments/cfgs/{cfg_name}.yaml", hw=[H, W], k=K,
-              clips=EVAL_SNIPPETS, propagate=propagate, png_reader=png.reader(),
+              clips=EVAL_SNIPPETS, propagate=propagate,
               entry_point=dict(miou=result["miou"], fps=stats["fps"],
                                net_ms_per_frame=1e3 / stats["fps"],
                                data_wait_ms_per_frame=stats["t_data"] * 1e3 / stats["frames"],
@@ -1221,7 +1228,10 @@ def e2e_eval(phase: str, cfg_name: str, root: Path, data: Path, valid_per_clip: 
               plain_fps=runs["plain"]["stats"]["fps"],
               predicted_classes=int((cm_k.sum(axis=0) > 0).sum()), confusion_l1=l1,
               valid_pixels=valid,
-              confusion_l1_limit=2 * (1 - overall) * valid, card=card()))
+              confusion_l1_limit=2 * (1 - overall) * valid, class_maps=class_maps,
+              card=card()))
+    for i, c in enumerate(class_maps):
+        check_class_maps(f"{phase} kernels vs plain, clip {i}", c, overall)
     check(d_miou <= 0.01, f"{phase}: kernel vs plain mIoU differ by {d_miou}")
     check(l1 <= 2 * (1 - overall) * valid,
           f"{phase}: kernel vs plain confusion L1 {l1} > {2 * (1 - overall) * valid}")

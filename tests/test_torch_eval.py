@@ -42,6 +42,7 @@ from accel_tpu_torch.config import load_config
 from accel_tpu_torch.convert import load_flax_variables
 from accel_tpu_torch.core import predictor as tpred
 from accel_tpu_torch.core.checkpoint import EvalSemanticsError, save_provenance
+from accel_tpu_torch.core.metrics import SegConfusionAccumulator
 from accel_tpu_torch.data.cityscapes import Cityscape
 from accel_tpu_torch.data.loader import TestClipLoader
 from accel_tpu_torch.experiments import test as t_entry
@@ -179,9 +180,20 @@ def test_pred_eval_clips_matches(models, jax_confusion, propagate, scales):
     jmodel, variables, tmodel, path = models
     jl, tl = _loaders(path, scales)
     jmiou, jiou, _ = jpred.pred_eval_clips(jmodel, variables, iter(jl), 19, INTERVAL, propagate)
-    miou, iou, stats = tpred.pred_eval_clips(tmodel, iter(tl), 19, INTERVAL, propagate)
+    seen = []
+    miou, iou, stats = tpred.pred_eval_clips(tmodel, iter(tl), 19, INTERVAL, propagate,
+                                             on_preds=lambda item, p: seen.append((item, p)))
     assert ("label_native" in next(iter(tl))) == (scales is not None)
     assert stats["frames"] == 4 * INTERVAL and stats["confusion"].shape == (19, 19)
+    # on_preds is handed each batch's class maps, the ones that were scored
+    assert sum(p.shape[0] * p.shape[1] for _, p in seen) == stats["frames"]
+    for item, p in seen:
+        assert p.dtype == torch.uint8 and p.shape == item["clip"].shape[:4]
+    if scales is None:
+        acc = SegConfusionAccumulator(19)
+        for item, p in seen:
+            acc.update(p, torch.as_tensor(item["label"]))
+        np.testing.assert_array_equal(acc.cm, stats["confusion"])
     assert_same_eval(stats["confusion"], jax_confusion[0].cm, miou, jmiou, 2e-3)
     np.testing.assert_allclose(iou, jiou, atol=1e-2)
 
