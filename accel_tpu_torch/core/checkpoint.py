@@ -2,8 +2,11 @@
 ``accel_tpu/core/checkpoint.py``).
 
 A port checkpoint is a ``torch.save``d dict, ``<prefix>/<epoch>.pt``, whose
-``"model"`` entry is the model's ``state_dict`` (the trainer adds its
-optimizer state there when training is ported). The reference's orbax
+``"model"`` entry is the model's ``state_dict``; the trainer's
+(:func:`train_checkpoint`) holds the f32 master weights there, so that
+``load_state_dict`` into a bf16 model rounds them as flax's cast does, and
+adds ``"optimizer"`` (the momentum trace and the step count), ``"step"``
+and ``"epoch"``, which :func:`restore_train_state` resumes from. The reference's orbax
 checkpoints have no reader here, since orbax needs JAX: a JAX checkpoint
 reaches the port by restoring it in JAX and passing its variables through
 ``accel_tpu_torch.convert.flax_to_torch``.
@@ -183,3 +186,35 @@ def saved_epochs(prefix_dir: str) -> list[int]:
         return []
     return sorted(int(m.group(1)) for name in os.listdir(prefix_dir)
                   if (m := re.fullmatch(r"(\d+)\.pt", name)))
+
+
+def latest_epoch(prefix_dir: str) -> int | None:
+    """The newest saved epoch, or None."""
+    epochs = saved_epochs(prefix_dir)
+    return epochs[-1] if epochs else None
+
+
+def train_checkpoint(state, epoch: int) -> dict:
+    """A ``core.trainer.TrainState`` as a checkpoint dict on the host:
+    ``"model"`` (the state_dict with each parameter's f32 master copy),
+    ``"optimizer"`` ({"count", "trace"}), ``"step"`` and ``"epoch"``."""
+    model = {k: state.master.get(k, v).detach().cpu()
+             for k, v in state.model.state_dict().items()}
+    trace = {k: v.detach().cpu() for k, v in state.opt_state["trace"].items()}
+    return {"model": model, "optimizer": {"count": int(state.opt_state["count"]), "trace": trace},
+            "step": int(state.step), "epoch": int(epoch)}
+
+
+@torch.no_grad()
+def restore_train_state(state, ckpt: dict):
+    """Resume ``state`` (a ``TrainState`` of the same model) from a
+    ``train_checkpoint`` dict: the master weights and the momentum exactly,
+    the model from the master weights (rounded to its dtypes), the step."""
+    state.model.load_state_dict(ckpt["model"])
+    for k, v in state.master.items():
+        v.copy_(ckpt["model"][k])
+    for k, v in state.opt_state["trace"].items():
+        v.copy_(ckpt["optimizer"]["trace"][k])
+    state.opt_state["count"] = int(ckpt["optimizer"]["count"])
+    state.step = int(ckpt["step"])
+    return state

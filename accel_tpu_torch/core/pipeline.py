@@ -1,4 +1,4 @@
-"""Clip inference (counterpart of the inference half of
+"""Clip inference and the training objectives (counterpart of
 ``accel_tpu/core/pipeline.py``).
 
 A clip runs group by group: each keyframe group of ``interval`` frames runs
@@ -20,12 +20,25 @@ Tensors are NCHW with a leading (B, F) or (B, k) pair;
 boundary: ``(B, F, H, W, 3)`` float in, ``(B, F, H, W)`` uint8 out.
 ``input_scale`` (a scalar or None) multiplies each frame where it is used,
 so ``clip * input_scale`` is never built whole.
+
+Training: :func:`pair_loss_and_stats` (one sampled warp per example) and
+:func:`clip_loss_and_stats` (the loss through the cascaded propagation of
+a whole clip) run with grad enabled; the clip objective's logits come from
+:func:`train_clip_logits`, whose ``remat`` runs the JAX package's
+sequential group step with each frame's work under
+``torch.utils.checkpoint``. The serving entry points (:func:`clip_logits`,
+:func:`clip_predictions`) run under ``torch.inference_mode``.
 """
 
 from __future__ import annotations
 
-import torch
+import functools
 
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from accel_tpu_torch.core.metrics import IGNORE_LABEL, softmax_cross_entropy
+from accel_tpu_torch.ops.upsample import resize_bilinear
 from accel_tpu_torch.ops.upsample_argmax import upsample_argmax, upsample_argmax_plain
 from accel_tpu_torch.ops.warp import bilinear_warp
 
@@ -238,20 +251,121 @@ def _group_step(model, frames_g, propagate: str, input_scale=None):
     return _GROUP_STEPS[propagate](model, frames_g, input_scale)
 
 
-@torch.inference_mode()
-def clip_logits(model, clip: torch.Tensor, interval: int, propagate: str = "incremental",
-                input_scale=None) -> torch.Tensor:
-    """clip (B,F,3,H,W) normalized, F % interval == 0 -> stride-level
-    logits (B,F,C,h,w) f32, one keyframe group after another. The
-    ``deeplab`` family takes interval 1 (every frame is a keyframe).
-    ``input_scale`` (scalar or None) multiplies every frame where it is
-    used."""
+def _remat(fn):
+    """``fn`` recomputed in the backward instead of keeping its
+    activations (``jax.checkpoint``); the model draws no random numbers, so
+    no RNG state is kept for the recompute."""
+    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
+
+
+def _group_step_remat(model, frames_g, propagate: str, input_scale=None):
+    """The sequential group step of ``accel_tpu``'s ``_group_step`` under
+    ``remat`` (``core/pipeline.py:515-618``): the keyframe forward, each
+    propagation step and each frame's output run under
+    ``torch.utils.checkpoint``, so a backward keeps one frame's activations
+    at a time and runs each forward again. The FlowNet prologue of every
+    frame runs once, outside."""
+    if propagate not in _GROUP_STEPS:
+        raise ValueError(f"unknown propagate {propagate!r} {tuple(_GROUP_STEPS)}")
+    k = frames_g.shape[1]
+    key_frame = _scaled(frames_g[:, 0], input_scale)
+    # direct propagation warps once from the keyframe: no cascade to intervene on
+    cascade = model.scale_cascade if propagate != "direct" else "product"
+
+    @_remat
+    def key_fwd(frame):
+        prop = model.ref_propagated(frame)
+        return prop, model.ref_scores_from_propagated(prop)
+
+    @_remat
+    def prop_step(carry, prod, cur_rep, anchor_rep):
+        # carry: the tensor (unmodulated but under 'product'); prod: the
+        # cumulative scale product of 'mean1'/'clamp', else None
+        flow, scale = model.flow_pair(cur_rep, anchor_rep)
+        if cascade == "product":
+            warped = model.warp(carry, flow, scale)
+            return warped, None, model.ref_scores_from_propagated(warped)
+        s = model.norm_scale(scale)
+        warped = model.warp(carry, flow, s, normalize_scale=False, modulate=False)
+        if cascade == "last":
+            eff = s
+        else:
+            prod = s if prod is None else s * _warp_field(model, prod, flow)
+            prod = eff = _cascade_post(prod, cascade)
+        return warped, prod, model.ref_scores_from_propagated(warped * eff.to(warped.dtype))
+
+    @_remat
+    def prop_step_composed(prop, acc_f, acc_s, cur_rep, anchor_rep):
+        # the composed fields carry; the tensor is warped from the keyframe
+        flow, scale = model.flow_pair(cur_rep, anchor_rep)
+        scale = model.norm_scale(scale)
+        if acc_f is None:
+            acc_f, acc_s = flow, _cascade_post(scale, cascade)
+        else:
+            acc_f = flow + _warp_field(model, acc_f, flow)
+            acc_s = (scale if cascade == "last"
+                     else _cascade_post(scale * _warp_field(model, acc_s, flow), cascade))
+        warped = model.warp(prop, acc_f, acc_s, normalize_scale=False,
+                            max_disp=int(model.warp_max_disp) * (k - 1))
+        return acc_f, acc_s, model.ref_scores_from_propagated(warped)
+
+    @_remat
+    def frame_output(ref_s, frame):
+        if model.family == "accel":
+            return model.fuse(ref_s, model.update_scores(frame))
+        return ref_s
+
+    prop, ref_scores = key_fwd(key_frame)
+    outs = [frame_output(ref_scores, key_frame)]
+    if k > 1:
+        rep = _group_flow_reps(model, frames_g, input_scale)
+    carry, prod, acc_f, acc_s, anchor = prop, None, None, None, 0
+    for i in range(1, k):
+        if propagate == "composed":
+            acc_f, acc_s, ref_s = prop_step_composed(prop, acc_f, acc_s, rep[:, i],
+                                                     rep[:, anchor])
+            anchor = i
+        else:
+            new_carry, new_prod, ref_s = prop_step(carry, prod, rep[:, i], rep[:, anchor])
+            if propagate == "incremental":
+                carry, prod, anchor = new_carry, new_prod, i
+        outs.append(frame_output(ref_s, _scaled(frames_g[:, i], input_scale)))
+    return torch.stack(outs, dim=1)
+
+
+def _check_groups(model, clip: torch.Tensor, interval: int) -> int:
     F = clip.shape[1]
     k = 1 if model.family == "deeplab" else int(interval)
     if F % k != 0:
         raise ValueError(f"clip length {F} not divisible by interval {k}")
+    return k
+
+
+@torch.inference_mode()
+def clip_logits(model, clip: torch.Tensor, interval: int, propagate: str = "incremental",
+                input_scale=None) -> torch.Tensor:
+    """clip (B,F,3,H,W) normalized, F % interval == 0 -> stride-level
+    logits (B,F,C,h,w) f32, one keyframe group after another, for serving
+    (inference mode). The ``deeplab`` family takes interval 1 (every frame
+    is a keyframe). ``input_scale`` (scalar or None) multiplies every frame
+    where it is used."""
+    k = _check_groups(model, clip, interval)
     return torch.cat([_group_step(model, clip[:, g:g + k], propagate, input_scale)
-                      for g in range(0, F, k)], dim=1)
+                      for g in range(0, clip.shape[1], k)], dim=1)
+
+
+def train_clip_logits(model, clip: torch.Tensor, interval: int,
+                      propagate: str = "incremental", remat: bool = False,
+                      input_scale=None) -> torch.Tensor:
+    """``clip_logits`` under the caller's grad mode: the grad-enabled
+    logits of the clip objective (``accel_tpu``'s ``clip_logits`` with
+    ``remat``). Without ``remat`` the batched group steps run; with it the
+    sequential step of ``_group_step_remat``, which gives the same logits
+    and gradients with one frame's activations kept at a time."""
+    k = _check_groups(model, clip, interval)
+    step = _group_step_remat if remat else _group_step
+    return torch.cat([step(model, clip[:, g:g + k], propagate, input_scale)
+                      for g in range(0, clip.shape[1], k)], dim=1)
 
 
 @torch.inference_mode()
@@ -281,3 +395,78 @@ def clip_predictions(model, clip: torch.Tensor, interval: int, propagate: str = 
         pred = upsample_argmax(_frames(logits), (H, W), plain=not model.use_kernels)
         return pred.reshape(B, F, H, W)
     return torch.stack([upsample_argmax_plain(logits[:, f], (H, W)) for f in range(F)], dim=1)
+
+
+# ---- training objectives ---------------------------------------------------------
+
+
+def _ce(logits, label, num_classes, loss_scale, ohem_fraction):
+    """Softmax CE of stride-level logits upsampled to the label's size."""
+    return softmax_cross_entropy(resize_bilinear(logits, tuple(label.shape[-2:])), label,
+                                 num_classes, loss_scale, ohem_fraction)
+
+
+def pair_loss_and_stats(model, batch: dict, num_classes: int, loss_scale: float = 1.0,
+                        mutable_stats: bool = False, ohem_fraction: float | None = None,
+                        aux_weight: float = 0.0):
+    """Cross entropy of a (key, cur) pair batch -> (loss, None).
+
+    ``batch``: 'data' and 'data_ref' (N,3,H,W), 'eq_flag' (N,), 'label'
+    (N,H,W) with 255 ignored. The logits are upsampled to the label before
+    the CE, as the reference computes it. ``aux_weight`` > 0 adds the CE
+    of the raw reference-branch scores on the current frame and (accel) of
+    the update branch's. Running-stat BatchNorm (``mutable_stats``) is not
+    ported and raises."""
+    if mutable_stats:
+        raise NotImplementedError("running-stat BatchNorm is not ported: use frozenbn or "
+                                  "groupnorm")
+    label = batch["label"]
+    logits = model(batch["data"], batch["data_ref"], batch["eq_flag"])
+    loss = _ce(logits, label, num_classes, loss_scale, ohem_fraction)
+    if aux_weight > 0.0 and model.family in ("dff", "accel"):
+        ref = model.ref_scores_from_propagated(model.ref_propagated(batch["data"]))
+        loss = loss + aux_weight * _ce(ref, label, num_classes, loss_scale, ohem_fraction)
+        if model.family == "accel":
+            upd = model.update_scores(batch["data"])
+            loss = loss + aux_weight * _ce(upd, label, num_classes, loss_scale, ohem_fraction)
+    return loss, None
+
+
+def clip_loss_and_stats(model, batch: dict, num_classes: int, loss_scale: float = 1.0,
+                        propagate: str = "incremental", mutable_stats: bool = False,
+                        ohem_fraction: float | None = None, aux_weight: float = 0.0,
+                        remat: bool = False):
+    """The clip objective -> (loss, None): CE through the cascaded
+    propagation of the whole clip, so the annotated frame's gradient flows
+    back through every warp, flow and scale field of the chain.
+
+    ``batch``: 'clip' (B,F,3,H,W), 'label' (B,F,H,W) with 255 on every
+    pixel of an unannotated frame; the clip is one keyframe group. Each
+    frame's logits are upsampled and scored on their own (a mean over the
+    frame's valid pixels across the batch); the sum is divided by the
+    number of annotated frames. ``aux_weight`` > 0 adds the CE of the raw
+    branch outputs on each clip's annotated frame alone (the loader
+    annotates one frame a clip). Running-stat BatchNorm raises, as in the
+    reference."""
+    if mutable_stats:
+        raise NotImplementedError("clip objective + running-stat BN: use frozenbn/groupnorm")
+    clip, label = batch["clip"], batch["label"]
+    B, F = clip.shape[:2]
+    logits = train_clip_logits(model, clip, F, propagate, remat)
+    per_frame = torch.stack([_ce(logits[:, f], label[:, f], num_classes, loss_scale,
+                                 ohem_fraction) for f in range(F)])
+    valid = (label != IGNORE_LABEL) & (label < num_classes)
+    annotated = valid.flatten(2).any(dim=2).any(dim=0).sum()
+    loss = per_frame.sum() / annotated.clamp(min=1)
+    if aux_weight > 0.0:
+        # the frame with the most valid pixels, the first such, per clip
+        ann_idx = valid.sum(dim=(2, 3)).argmax(dim=1)
+        rows = torch.arange(B, device=ann_idx.device)
+        ann_frames, ann_label = clip[rows, ann_idx], label[rows, ann_idx]
+        ref = model.ref_scores_from_propagated(model.ref_propagated(ann_frames))
+        loss = loss + aux_weight * _ce(ref, ann_label, num_classes, loss_scale, ohem_fraction)
+        if model.family == "accel":
+            upd = model.update_scores(ann_frames)
+            loss = loss + aux_weight * _ce(upd, ann_label, num_classes, loss_scale,
+                                           ohem_fraction)
+    return loss, None

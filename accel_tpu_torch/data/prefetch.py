@@ -17,25 +17,48 @@ import torch
 
 class PrefetchingIter:
     def __init__(self, it, depth: int = 2, transform=None):
-        """``transform`` (optional) runs on each item in the producer thread."""
+        """``transform`` (optional) runs on each item in the producer thread.
+        ``close`` stops the producer of an endless iterator (the train
+        loaders)."""
         self._it = iter(it)
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._transform = transform
         self._done = object()
         self._err: BaseException | None = None
+        self._stop = threading.Event()
         self._thread = threading.Thread(target=self._produce, daemon=True)
         self._thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
 
     def _produce(self):
         try:
             for item in self._it:
                 if self._transform is not None:
                     item = self._transform(item)
-                self._q.put(item)
+                if not self._put(item):
+                    return
         except BaseException as e:  # re-raised in the consumer by __next__
             self._err = e
         finally:
-            self._q.put(self._done)
+            self._put(self._done)
+
+    def close(self, timeout: float = 60.0) -> None:
+        """Stop the producer, drop what it queued and join it."""
+        self._stop.set()
+        while True:
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        self._thread.join(timeout)
 
     def __iter__(self):
         return self
@@ -49,16 +72,18 @@ class PrefetchingIter:
         return item
 
 
-def to_device(item: dict, device) -> dict:
-    """A loader batch with its 'clip' and 'label' arrays as tensors on
-    ``device``: on a CUDA device, copied from pinned host memory without
-    blocking the host (on PyTorch's current stream, which the consumer
-    shares); the rest of the batch as it is. A 1024x2048 f32 clip of 5
-    frames is 126 MB."""
+def to_device(item: dict, device, keys=("clip", "label")) -> dict:
+    """A loader batch with its ``keys`` entries (arrays or tensors) as
+    tensors on ``device``: on a CUDA device, copied from pinned host memory
+    without blocking the host (on PyTorch's current stream, which the
+    consumer shares); the rest of the batch as it is. A 1024x2048 f32 clip
+    of 5 frames is 126 MB."""
     device = torch.device(device)
     out = dict(item)
-    for key in ("clip", "label"):
-        t = torch.from_numpy(np.ascontiguousarray(item[key]))
+    for key in keys:
+        t = item[key]
+        if not isinstance(t, torch.Tensor):
+            t = torch.from_numpy(np.ascontiguousarray(t))
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         out[key] = t.to(device)

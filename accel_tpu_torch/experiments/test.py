@@ -85,15 +85,20 @@ def parse_network_value(val: str):
     return val
 
 
+def apply_network_overrides(cfg, set_network=()) -> None:
+    """Each ``K=V`` of ``set_network`` into ``cfg.network``."""
+    for kv in set_network:
+        key, val = kv.split("=", 1)
+        cfg.network[key] = parse_network_value(val)
+
+
 def apply_serving_network(cfg, set_network=()) -> None:
     """Apply ``TEST.serving_network`` (the cfg's serving lowerings), then
     each ``K=V`` of ``set_network``, to ``cfg.network``, in that order, so
     that explicit flags win."""
     for key, val in (cfg.TEST.get("serving_network") or {}).items():
         cfg.network[key] = val
-    for kv in set_network:
-        key, val = kv.split("=", 1)
-        cfg.network[key] = parse_network_value(val)
+    apply_network_overrides(cfg, set_network)
 
 
 def parse_args(argv=None):

@@ -197,6 +197,28 @@ class AccelNet(nn.Module):
                       dim=1)
         return self.fusion(x)
 
+    # ---- the pair objective's forward -------------------------------------
+
+    def forward(self, cur, key, eq_flag=None):
+        """Training pair forward -> logits at feature stride.
+
+        ``cur`` (N,3,H,W) is the annotated frame, ``key`` its sampled
+        keyframe, ``eq_flag`` (N,) 1.0 where cur is key: there the
+        keyframe's propagated tensor replaces the warped one (mixed in f32),
+        so early flow noise does not reach the score head."""
+        if self.family == "deeplab":
+            return self.ref_net(cur)
+        prop_key = self.ref_propagated(key)
+        flow, scale = self.flow(cur, key)
+        warped = self.warp(prop_key, flow, scale)
+        if eq_flag is not None:
+            e = eq_flag.reshape(-1, 1, 1, 1).to(torch.float32)
+            warped = e * prop_key.to(torch.float32) + (1.0 - e) * warped
+        ref_scores = self.ref_scores_from_propagated(warped)
+        if self.family == "dff":
+            return ref_scores
+        return self.fuse(ref_scores, self.update_scores(cur))
+
 
 # ---- initialisation, mirroring the flax initializers ----------------------
 

@@ -4,7 +4,9 @@ Module and attribute names follow the flax tree (``conv1``, ``bn``,
 ``layer{s}_block{b}``, ``bn1``, ``downsample``, ``ds_bn``...) so the weight
 bridge (``convert.py``) maps names one to one. Conv weights live in the
 compute dtype: flax keeps f32 params and casts them to the compute dtype at
-every apply, which rounds them the same way.
+every apply, which rounds them the same way. Training keeps the f32 master
+copy beside the model (``core/trainer.py``) and writes it, rounded, into
+the model after each step.
 """
 
 from __future__ import annotations
@@ -13,7 +15,11 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from accel_tpu_torch.ops.dilated_cuda import conv3x3_dilated, pack_dilated_weight
+from accel_tpu_torch.ops.dilated_cuda import (
+    conv3x3_dilated,
+    pack_dilated_weight,
+    pack_dilated_weight_dx,
+)
 from accel_tpu_torch.ops.fused_stem import fused_stem, stem_kernel_weight
 
 STAGE_PLANS = {
@@ -93,7 +99,9 @@ class PackedWeight:
     """A kernel's packing of a parameter, made once per parameter version:
     again after an in-place write (``load_state_dict``, ``copy_``) or a
     move to other storage. A plain attribute, so ``state_dict`` keeps only
-    the parameter."""
+    the parameter. A write through ``param.data`` does not bump the
+    version and is not seen: write parameters with ``copy_`` under
+    ``torch.no_grad()``, as the trainer does."""
 
     def __init__(self, pack):
         self.pack, self.key, self.value = pack, None, None
@@ -111,7 +119,8 @@ class DilatedConv3x3(nn.Conv2d):
     CPU or with ``use_kernels=False``); the bias is added after it, as the
     flax hook computes only the conv. Same parameters and ``state_dict``
     keys as ``nn.Conv2d``; the kernel's packed weights are a cache beside
-    them (``packed_weight``)."""
+    them (``packed_weight``), and so are the rotated weights of its
+    backward's dx conv (``packed_weight_dx``)."""
 
     def __init__(self, cin, cout, dilation, *, bias=False, use_kernels=True, device=None,
                  dtype=None):
@@ -119,15 +128,22 @@ class DilatedConv3x3(nn.Conv2d):
                          device=device, dtype=dtype)
         self.use_kernels = use_kernels
         self._packed = PackedWeight(pack_dilated_weight)
+        self._packed_dx = PackedWeight(pack_dilated_weight_dx)
 
     def packed_weight(self) -> torch.Tensor:
         """``pack_dilated_weight(self.weight)``, packed once per weight version."""
         return self._packed(self.weight)
 
+    def packed_weight_dx(self) -> torch.Tensor:
+        """``pack_dilated_weight_dx(self.weight)``, packed once per weight
+        version, on the first backward that needs it."""
+        return self._packed_dx(self.weight)
+
     def forward(self, x):
         plain = not self.use_kernels or x.device.type == "cpu"
         y = conv3x3_dilated(x, self.weight, self.dilation[0], plain=plain,
-                            packed=None if plain else self.packed_weight())
+                            packed=None if plain else self.packed_weight(),
+                            packed_dx=self.packed_weight_dx)
         if self.bias is not None:
             y = y + self.bias.view(1, -1, 1, 1)
         return y

@@ -5,6 +5,10 @@ maxpool stays outside. The kernel is ``kernels/fused_stem.cu``.
 As in the reference (``fused_stem_fwd`` packs ``kernel.astype(x.dtype)``),
 the conv weights are rounded to x's dtype before the conv; the products
 and sums are f32.
+
+Gradients (``FusedStemFunction``) are those of ``accel_tpu``'s custom VJP
+(``ops/fused_stem.py:201-218``): autograd through the plain stem with
+respect to x, the weights, inv and shift.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from accel_tpu_torch import kernels
+from accel_tpu_torch.ops.autograd import needs_grad, plain_vjp
 
 # K of the tensor-core GEMM: (c, ky, kx') with kx' = kx + 1 in 0..7 (kx' = 0
 # is a zero column, so the kernel reads tap pairs (kx', kx'+1) as aligned
@@ -89,12 +94,30 @@ def fused_stem_cuda(x: torch.Tensor, weight: torch.Tensor, inv: torch.Tensor,
 fused_stem_cuda.launches = 0
 
 
+class FusedStemFunction(torch.autograd.Function):
+    """``fused_stem_cuda`` in the forward; in the backward, autograd
+    through ``fused_stem_plain`` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, weight, inv, shift, packed):
+        ctx.save_for_backward(x, weight, inv, shift)
+        return fused_stem_cuda(x, weight, inv, shift, packed)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (*plain_vjp(fused_stem_plain, ctx.saved_tensors, ctx.needs_input_grad[:4],
+                           grad), None)
+
+
 def fused_stem(x: torch.Tensor, weight: torch.Tensor, inv: torch.Tensor,
                shift: torch.Tensor, plain: bool = False,
                packed: torch.Tensor | None = None) -> torch.Tensor:
     """relu(conv7x7/2(x) * inv + shift): the kernel for a CUDA tensor (with
-    the pre-packed weights ``packed`` if given), the plain version for a
-    CPU tensor or when ``plain`` is set."""
+    the pre-packed weights ``packed`` if given; through
+    ``FusedStemFunction`` where autograd records it), the plain version for
+    a CPU tensor or when ``plain`` is set."""
     if plain or x.device.type == "cpu":
         return fused_stem_plain(x, weight, inv, shift)
+    if needs_grad(x, weight, inv, shift):
+        return FusedStemFunction.apply(x, weight, inv, shift, packed)
     return fused_stem_cuda(x, weight, inv, shift, packed)

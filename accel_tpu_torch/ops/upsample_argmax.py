@@ -2,7 +2,9 @@
 ``accel_tpu/ops/upsample_argmax.py``): the serving tail that turns
 stride-level logits into a full-resolution uint8 class map without the
 full-resolution C-channel logits. The kernel is
-``kernels/upsample_argmax.cu``.
+``kernels/upsample_argmax.cu``. An argmax has no gradient: the kernel
+raises on logits that autograd records rather than return a class map cut
+from the graph without a word.
 """
 
 from __future__ import annotations
@@ -47,8 +49,12 @@ def upsample_argmax_plain(logits: torch.Tensor, out_hw: tuple[int, int]) -> torc
 
 def upsample_argmax_cuda(logits: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Launch ``kernels/upsample_argmax.cu``. logits (N,C,h,w) f32 on CUDA
-    -> (N,H,W) uint8. Any H >= h, W >= w; a downscale raises."""
+    -> (N,H,W) uint8. Any H >= h, W >= w; a downscale raises, and so do
+    logits that require grad under grad mode."""
     device = logits.device
+    if torch.is_grad_enabled() and logits.requires_grad:
+        raise RuntimeError("upsample_argmax_cuda: an argmax has no gradient; call it under "
+                           "torch.no_grad() or on detached logits")
     if device.type != "cuda" or logits.dtype != torch.float32:
         raise ValueError(f"upsample_argmax_cuda takes f32 CUDA logits, got "
                          f"{logits.dtype} on {device}")

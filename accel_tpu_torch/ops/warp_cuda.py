@@ -3,6 +3,11 @@
 Counterpart of ``accel_tpu/ops/warp_pallas.py::warp_pallas_fwd``: the warp
 of ``ops/warp.py`` with the flow clamped to ``±max_disp`` on both axes, as
 the TPU kernel clamps it. The kernel is ``kernels/warp.cu``.
+
+Gradients (``WarpFunction``) are those of ``accel_tpu``'s custom VJP
+(``ops/warp.py:139-152``): autograd through the plain warp on the same
+clamped flow, so the gradient with respect to the flow is zero where the
+clamp is active.
 """
 
 from __future__ import annotations
@@ -10,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from accel_tpu_torch import kernels
+from accel_tpu_torch.ops.autograd import needs_grad, plain_vjp
 
 
 def warp_plain(feat: torch.Tensor, flow: torch.Tensor, max_disp: float) -> torch.Tensor:
@@ -54,10 +60,30 @@ def warp_cuda(feat: torch.Tensor, flow: torch.Tensor, max_disp: float) -> torch.
 warp_cuda.launches = 0
 
 
+class WarpFunction(torch.autograd.Function):
+    """``warp_cuda`` in the forward; in the backward, autograd through
+    ``warp_plain`` (the clamped flow) on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, feat, flow, max_disp):
+        ctx.save_for_backward(feat, flow)
+        ctx.max_disp = max_disp
+        return warp_cuda(feat, flow, max_disp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        d = ctx.max_disp
+        return (*plain_vjp(lambda f, fl: warp_plain(f, fl, d), ctx.saved_tensors,
+                           ctx.needs_input_grad[:2], grad), None)
+
+
 def warp(feat: torch.Tensor, flow: torch.Tensor, max_disp: float,
          plain: bool = False) -> torch.Tensor:
-    """Bounded warp: the kernel for a CUDA tensor, the plain version for a
-    CPU tensor or when ``plain`` is set."""
+    """Bounded warp: the kernel for a CUDA tensor (through ``WarpFunction``
+    where autograd records it), the plain version for a CPU tensor or when
+    ``plain`` is set."""
     if plain or feat.device.type == "cpu":
         return warp_plain(feat, flow, max_disp)
+    if needs_grad(feat, flow):
+        return WarpFunction.apply(feat, flow, max_disp)
     return warp_cuda(feat, flow, max_disp)

@@ -16,6 +16,12 @@ which both versions here repeat:
 The kernel stages each channel chunk's source window (the band's rows and
 the ±ceil(D) rows around them, zero outside the image) in shared memory;
 :func:`plan` sizes the bands, chunks and stages from the shape.
+
+Gradients (``WarpOnehotFunction``) take the place of ``accel_tpu``'s
+custom VJP (``ops/warp_onehot.py:366-404``, the gather oracle's VJP):
+autograd through the plain version, with its flow_y clamp, tap-weight
+rounding, ``scale`` and ``gain``, with respect to each of feat, flow,
+scale and gain.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from accel_tpu_torch import kernels
+from accel_tpu_torch.ops.autograd import needs_grad, plain_vjp
 
 _WEIGHTS_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -209,11 +216,31 @@ def warp_onehot_cuda(feat: torch.Tensor, flow: torch.Tensor, scale: torch.Tensor
 warp_onehot_cuda.launches = 0
 
 
+class WarpOnehotFunction(torch.autograd.Function):
+    """``warp_onehot_cuda`` in the forward; in the backward, autograd
+    through ``warp_onehot_plain`` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, feat, flow, scale, gain, max_disp, weights_dtype):
+        ctx.save_for_backward(feat, flow, scale, gain)
+        ctx.max_disp, ctx.weights_dtype = max_disp, weights_dtype
+        return warp_onehot_cuda(feat, flow, scale, max_disp, gain, weights_dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        d, wd = ctx.max_disp, ctx.weights_dtype
+        return (*plain_vjp(lambda f, fl, s, g: warp_onehot_plain(f, fl, s, d, g, wd),
+                           ctx.saved_tensors, ctx.needs_input_grad[:4], grad), None, None)
+
+
 def warp_onehot(feat: torch.Tensor, flow: torch.Tensor, scale: torch.Tensor | None = None,
                 max_disp: int = 4, gain: torch.Tensor | None = None,
                 weights_dtype: torch.dtype = torch.bfloat16, plain: bool = False) -> torch.Tensor:
-    """Warp [* scale * gain]: the kernel for a CUDA tensor, the plain version
-    for a CPU tensor or when ``plain`` is set."""
+    """Warp [* scale * gain]: the kernel for a CUDA tensor (through
+    ``WarpOnehotFunction`` where autograd records it), the plain version for
+    a CPU tensor or when ``plain`` is set."""
     if plain or feat.device.type == "cpu":
         return warp_onehot_plain(feat, flow, scale, max_disp, gain, weights_dtype)
+    if needs_grad(feat, flow, scale, gain):
+        return WarpOnehotFunction.apply(feat, flow, scale, gain, max_disp, weights_dtype)
     return warp_onehot_cuda(feat, flow, scale, max_disp, gain, weights_dtype)

@@ -75,9 +75,36 @@ Phases, one JSON line each:
     confusion matrices within an L1 of 2*(1-0.99) of the valid pixels
     (0.98 for DFF), the overall class-map limits of ``compare_paths``.
 
+13. grad_warp, grad_dilated_conv, grad_fused_stem, grad_warp_onehot: each
+    kernel's ``torch.autograd.Function`` on the card, at the training
+    path's shapes, its gradients against autograd through the plain
+    version (max error and cosine per input; the warp's flow up to 2 D, so
+    the clamp is active). #5's dx, on the kernel with the rotated weights,
+    is also timed as the kernel rows are (``dilated_conv_dx``), against
+    ``torch.nn.grad.conv2d_input`` (cuDNN).
+14. e2e_train, e2e_train_pair, e2e_train_dilated: training from a cfg
+    file. A Cityscapes-layout train split at 1024x2048 (TRAIN_SNIPPETS
+    annotated snippets, frames ANNOTATED_FRAME-4 .. +4) and a val split are
+    written; the flagship cfg (clip objective, R101 + R18, groupnorm,
+    conv7, bf16, B=2 x 5 frames, 768x768 crops, remat, aux 0.5), the pair
+    cfg (B=4, direct) and the flagship cfg with ``--set-network
+    dilated_conv=pallas`` train one epoch through the port's train entry
+    point, with the exact launches per step (flagship: 4 warps and the 4
+    recomputed under remat; pair: 1 warp; pallas: also 38 forward and 29
+    recomputed dilated convs and 38 dx convs) and finite losses; the
+    checkpoint is evaluated by the eval entry point (``--max-items 1``);
+    then from the checkpoint's weights, with live flow heads, one step's
+    loss and gradients with the kernels and with the plain versions on
+    one batch, in f32 (loss within 1e-3 relative, every parameter's
+    gradient at cosine >= 0.999) and in the cfg's bf16 (loss within 1e-3,
+    the median parameter's gradient at cosine >= 0.9999, every cosine
+    reported beside, for ``pallas``, those of the plain step with its
+    convs exactly rounded: the bf16 rounding floor), and the bf16 median
+    step time (CUDA events, first step out) and peak memory.
+
 Then the ``{"kernels": [...]}`` line (each kernel's first row, with its
 launches on one path it serves and per group there, and its launches on
-every path above), the card's name and
+every path above; #5 also its dx launches on the training paths), the card's name and
 power limit from nvidia-smi, and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero and prints no result
 line. Without a CUDA device it exits with code 2. Weights are random, drawn
@@ -87,6 +114,7 @@ it is 0).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import logging
@@ -105,14 +133,22 @@ import torch.nn.functional as F
 
 from accel_tpu_torch import kernels
 from accel_tpu_torch.config import load_config
-from accel_tpu_torch.core.pipeline import clip_logits, clip_predictions
+from accel_tpu_torch.core.checkpoint import load_checkpoint
+from accel_tpu_torch.core.pipeline import (
+    clip_logits,
+    clip_loss_and_stats,
+    clip_predictions,
+    pair_loss_and_stats,
+)
 from accel_tpu_torch.core.predictor import pred_eval_clips
 from accel_tpu_torch.core.serving import VideoSegmenter
+from accel_tpu_torch.core.trainer import init_train_state, make_optimizer, make_train_step
 from accel_tpu_torch.data.cityscapes import ANNOTATED_FRAME, Cityscape
 from accel_tpu_torch.data.image import transform
-from accel_tpu_torch.data.loader import TestClipLoader
+from accel_tpu_torch.data.loader import TestClipLoader, TrainClipLoader, TrainPairLoader
 from accel_tpu_torch.data.prefetch import to_device
 from accel_tpu_torch.experiments import test as eval_entry
+from accel_tpu_torch.experiments import train as train_entry
 from accel_tpu_torch.models.accel import build_model
 from accel_tpu_torch.models.resnet import DilatedResNet
 from accel_tpu_torch.ops import dilated_cuda as dilated_ops
@@ -295,10 +331,15 @@ def sample_grid(flow: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def reset_counts() -> None:
     for fn in LAUNCHERS.values():
         fn.launches = 0
+    dilated_ops.conv3x3_dilated_cuda.backward_launches = 0
 
 
 def counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in LAUNCHERS.items()}
+    """Each kernel's launches, and #5's dx launches in the backward
+    (``dilated_conv_dx``)."""
+    out = {name: fn.launches for name, fn in LAUNCHERS.items()}
+    out["dilated_conv_dx"] = dilated_ops.conv3x3_dilated_cuda.backward_launches
+    return out
 
 
 # ---- phase 2: each kernel against its plain version ------------------------
@@ -581,6 +622,167 @@ def kernel_dilated_conv(results: dict) -> None:
         emit(dict(phase="kernel", **row))
         rows.append(row)
     results["dilated_conv"] = rows[0]
+
+
+# ---- phase 13: each kernel's gradients --------------------------------------------
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Cosine of two tensors in f64; 1.0 where both are zero."""
+    a, b = a.double().flatten(), b.double().flatten()
+    na, nb = a.norm().item(), b.norm().item()
+    if na == 0.0 and nb == 0.0:
+        return 1.0
+    return (a @ b).item() / max(na * nb, 1e-300)
+
+
+def grads_of(fn, inputs: tuple, grad_out: torch.Tensor, needs: tuple) -> list:
+    """Gradients of ``fn(*inputs)`` for ``grad_out``, for each input whose
+    ``needs`` is set (None for the others)."""
+    leaves = [t.detach().clone().requires_grad_(n) for t, n in zip(inputs, needs)]
+    fn(*leaves).backward(grad_out)
+    return [t.grad if n else None for t, n in zip(leaves, needs)]
+
+
+def compare_grads(phase: str, names: tuple, got: list, want: list, rel: float,
+                  min_cos: float) -> dict:
+    """Per input: max abs error against ``want``, its bound ``rel`` *
+    max|want| and the cosine; raises if either is out of bounds."""
+    out = {}
+    for name, g, w in zip(names, got, want):
+        if w is None:
+            continue
+        err = (g.float() - w.float()).abs().max().item()
+        tol = rel * w.float().abs().max().item()
+        cos = cosine(g, w)
+        out[name] = dict(max_abs_err=err, tol=tol, cosine=cos)
+        check(g.dtype == w.dtype and g.shape == w.shape and err <= tol and cos >= min_cos,
+              f"{phase} d{name}: max err {err} (tol {tol}), cosine {cos}")
+    return out
+
+
+def grad_warp() -> None:
+    """``WarpFunction`` at the training shapes: the flagship clip's
+    (2,19,48,48) step warp and the pair's (4,19,48,48), f32, D=8, |flow| up
+    to 2 D. The backward is autograd through the plain version on the saved
+    inputs, so the two differ only by the order of the gather's
+    scatter-adds: 1e-5 * max|ref|, cosine >= 0.99999."""
+    for shape, d in (((2, 19, 48, 48), 8), ((4, 19, 48, 48), 8)):
+        g = _gen(SEED + 50)
+        N, _, h, w = shape
+        feat = torch.randn(shape, generator=g, device="cuda")
+        flow = (torch.rand((N, 2, h, w), generator=g, device="cuda") * 2 - 1) * 2 * d
+        go = torch.randn(shape, generator=g, device="cuda")
+        reset_counts()
+        got = grads_of(lambda f, fl: warp_ops.warp(f, fl, d), (feat, flow), go, (True, True))
+        launched = counts()
+        want = grads_of(lambda f, fl: warp_ops.warp_plain(f, fl, d), (feat, flow), go,
+                        (True, True))
+        torch.cuda.synchronize()
+        check(launched == launches_of(warp=1), f"grad_warp launches {launched}")
+        emit(dict(phase="grad_warp", shape=list(shape), max_disp=d, max_abs_flow=2 * d,
+                  clamped_share=(flow.abs() > d).float().mean().item(),
+                  grads=compare_grads("grad_warp", ("feat", "flow"), got, want, 1e-5, 0.99999)))
+
+
+def grad_dilated_conv(results: dict) -> None:
+    """``DilatedConvFunction`` at the training path's bf16 shapes: fc6,
+    (2,2048,48,48) -> 1024 at d=6, whose dx conv takes (2,1024,48,48) ->
+    2048, and layer4's conv2, (2,512,48,48) -> 512 at d=2. dx runs on the
+    kernel with the rotated weights (one backward launch), dw on
+    ``conv2d_weight``; against autograd through ``F.conv2d`` (cuDNN) at the
+    forward rows' bf16 bound, 2e-2 * max|ref|, and cosine >= 0.999. The dx
+    conv is timed as a kernel row (``dilated_conv_dx``): the library call is
+    ``torch.nn.grad.conv2d_input`` (cuDNN), the plain version ``F.conv2d``
+    on the rotated weights."""
+    rows = []
+    for shape, cout, d in (((2, 2048, 48, 48), 1024, 6), ((2, 512, 48, 48), 512, 2)):
+        g = _gen(SEED + 51)
+        N, cin, h, w = shape
+        x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        wt = (torch.randn((cout, cin, 3, 3), generator=g, device="cuda")
+              / math.sqrt(9 * cin)).to(torch.bfloat16)
+        go = torch.randn((N, cout, h, w), generator=g, device="cuda").to(torch.bfloat16)
+        packed = dilated_ops.pack_dilated_weight(wt)
+        packed_dx = dilated_ops.pack_dilated_weight_dx(wt)
+        reset_counts()
+        got = grads_of(lambda a, b: dilated_ops.conv3x3_dilated(
+            a, b, d, packed=packed, packed_dx=lambda: packed_dx), (x, wt), go, (True, True))
+        launched = counts()
+        want = grads_of(lambda a, b: F.conv2d(a, b, padding=d, dilation=d), (x, wt), go,
+                        (True, True))
+        torch.cuda.synchronize()
+        check(launched == launches_of(dilated_conv=1, dilated_conv_dx=1),
+              f"grad_dilated_conv launches {launched}")
+        grads = compare_grads("grad_dilated_conv", ("x", "w"), got, want, 2e-2, 0.999)
+        dx = got[0]
+        ops = 2 * N * cin * cout * valid_taps(h, w, d)
+        row = dict(kernel="dilated_conv_dx", dtype=str(x.dtype), shape=list(go.shape), cout=cin,
+                   dilation=d, forward_shape=list(shape), forward_cout=cout, grads=grads,
+                   max_abs_err=grads["x"]["max_abs_err"],
+                   **timed(lambda: dilated_ops.conv3x3_dilated_dx_cuda(go, wt, d, packed_dx),
+                           lambda: torch.nn.grad.conv2d_input(shape, wt, go, padding=d,
+                                                               dilation=d)),
+                   pack_ms=median_ms(lambda: dilated_ops.pack_dilated_weight_dx(wt)),
+                   plain_ms=median_ms(lambda: dilated_ops.conv3x3_dilated_dx_plain(go, wt, d)),
+                   library_call="torch.nn.grad.conv2d_input(padding=d, dilation=d) (cuDNN)",
+                   **bound(nbytes(go, wt, dx), ops, "bf16"))
+        emit(dict(phase="grad_dilated_conv", **row))
+        rows.append(row)
+    results["dilated_conv_dx"] = rows[0]
+
+
+def grad_fused_stem() -> None:
+    """``FusedStemFunction`` on the training crop, (2,3,768,768) bf16
+    (``norm: frozenbn, stem: fused7``): the gradients of the bf16 weights
+    and the f32 inv and shift (the image needs none) against autograd
+    through the plain stem, which the backward runs on the saved inputs:
+    they differ only where cuDNN's reductions take another order, 1e-2 *
+    max|ref| and cosine >= 0.9999."""
+    g = _gen(SEED + 52)
+    x = torch.randn((2, 3, 768, 768), generator=g, device="cuda").to(torch.bfloat16)
+    wt = (torch.randn((64, 3, 7, 7), generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+    inv = torch.rand((64,), generator=g, device="cuda") + 0.5
+    shift = torch.randn((64,), generator=g, device="cuda") * 0.1
+    go = torch.randn((2, 64, 384, 384), generator=g, device="cuda").to(torch.bfloat16)
+    packed = stem_ops.stem_kernel_weight(wt, torch.bfloat16)
+    needs = (False, True, True, True)
+    reset_counts()
+    got = grads_of(lambda *a: stem_ops.fused_stem(*a, packed=packed), (x, wt, inv, shift), go,
+                   needs)
+    launched = counts()
+    want = grads_of(stem_ops.fused_stem_plain, (x, wt, inv, shift), go, needs)
+    torch.cuda.synchronize()
+    check(launched == launches_of(fused_stem=1), f"grad_fused_stem launches {launched}")
+    emit(dict(phase="grad_fused_stem", shape=list(x.shape), dtype=str(x.dtype),
+              grads=compare_grads("grad_fused_stem", ("x", "w", "inv", "shift"), got, want,
+                                  1e-2, 0.9999)))
+
+
+def grad_warp_onehot() -> None:
+    """``WarpOnehotFunction`` at a DFF feature map of the training crop,
+    (2,1024,48,48) bf16 with the scale field, D=4, |flow_y| up to 1.5 D
+    (clamped), |flow_x| up to 3 D: the gradients of the features, the flow
+    and the scale against autograd through the plain version (run by the
+    backward on the saved inputs), 1e-2 * max|ref|, cosine >= 0.9999."""
+    g = _gen(SEED + 53)
+    shape, d = (2, 1024, 48, 48), 4
+    feat = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    flow = torch.rand((2, 2, 48, 48), generator=g, device="cuda") * 2 - 1
+    flow = flow * torch.tensor([3.0 * d, 1.5 * d], device="cuda").view(1, 2, 1, 1)
+    scale = (torch.rand(shape, generator=g, device="cuda") + 0.5).to(torch.bfloat16)
+    go = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    reset_counts()
+    got = grads_of(lambda f, fl, sc: onehot_ops.warp_onehot(f, fl, sc, d), (feat, flow, scale),
+                   go, (True, True, True))
+    launched = counts()
+    want = grads_of(lambda f, fl, sc: onehot_ops.warp_onehot_plain(f, fl, sc, d),
+                    (feat, flow, scale), go, (True, True, True))
+    torch.cuda.synchronize()
+    check(launched == launches_of(warp_onehot=1), f"grad_warp_onehot launches {launched}")
+    emit(dict(phase="grad_warp_onehot", shape=list(shape), dtype=str(feat.dtype), max_disp=d,
+              grads=compare_grads("grad_warp_onehot", ("feat", "flow", "scale"), got, want,
+                                  1e-2, 0.9999)))
 
 
 # ---- end to end ---------------------------------------------------------------
@@ -922,8 +1124,8 @@ def e2e_deeplab() -> dict[str, int]:
 
 
 def launches_of(**per_kernel) -> dict[str, int]:
-    """Expected launch counts: every kernel 0 unless named."""
-    return {name: per_kernel.get(name, 0) for name in LAUNCHERS}
+    """Expected launch counts (``counts``' keys): every kernel 0 unless named."""
+    return {name: per_kernel.get(name, 0) for name in (*LAUNCHERS, "dilated_conv_dx")}
 
 
 def one_group(model, clip: torch.Tensor, propagate: str):
@@ -1095,40 +1297,50 @@ def write_png(path: Path, arr: torch.Tensor) -> None:
                      + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
 
 
-def write_eval_tree(root: Path) -> tuple[Path, int]:
-    """A Cityscapes-layout val tree at 1024x2048: EVAL_SNIPPETS annotated
-    snippets, frames ANNOTATED_FRAME-K+1 .. ANNOTATED_FRAME of a scene
-    panning 4 px a frame (``moving_clip``, as BGR uint8), and labelIds in
-    three bands with an unlabelled 4x4 corner. Returns the dataset path
-    and the valid (labelled) pixels per annotation."""
-    data = root / "cityscapes"
+def write_city_split(data: Path, split: str, snippets: int, first: int, last: int,
+                     seed: int) -> None:
+    """``snippets`` annotated snippets of a Cityscapes-layout ``split``
+    at 1024x2048: frames ANNOTATED_FRAME+first .. ANNOTATED_FRAME+last of
+    a scene panning 4 px a frame (``moving_clip``, as BGR uint8), and
+    labelIds in three bands with an unlabelled 4x4 corner."""
     label = torch.empty((H, W), dtype=torch.uint8)
     for i, label_id in enumerate(EVAL_BANDS):
         label[i * H // 3:(i + 1) * H // 3 if i < 2 else H] = label_id
     label[:4, :4] = 0
-    for seq in range(EVAL_SNIPPETS):
-        clip = moving_clip(K, (H, W), SEED + 30 + seq, "cpu")[0]
+    city = f"{split}city"
+    for seq in range(snippets):
+        clip = moving_clip(last - first + 1, (H, W), seed + seq, "cpu")[0]
         frames = (clip * 40 + 120).round().clamp(0, 255).to(torch.uint8)
-        name = f"evalcity_{seq:06d}"
-        for i in range(K):
-            f = ANNOTATED_FRAME - K + 1 + i
-            split = ("leftImg8bit/val" if f == ANNOTATED_FRAME
-                     else "leftImg8bit_sequence/val")
-            write_png(data / split / "evalcity" / f"{name}_{f:06d}_leftImg8bit.png", frames[i])
-        write_png(data / "gtFine/val/evalcity"
+        name = f"{city}_{seq:06d}"
+        for i, f in enumerate(range(ANNOTATED_FRAME + first, ANNOTATED_FRAME + last + 1)):
+            folder = (f"leftImg8bit/{split}" if f == ANNOTATED_FRAME
+                      else f"leftImg8bit_sequence/{split}")
+            write_png(data / folder / city / f"{name}_{f:06d}_leftImg8bit.png", frames[i])
+        write_png(data / f"gtFine/{split}/{city}"
                   / f"{name}_{ANNOTATED_FRAME:06d}_gtFine_labelIds.png", label)
+
+
+def write_eval_tree(root: Path) -> tuple[Path, int]:
+    """A Cityscapes-layout val tree: EVAL_SNIPPETS annotated snippets,
+    frames ANNOTATED_FRAME-K+1 .. ANNOTATED_FRAME. Returns the dataset
+    path and the valid (labelled) pixels per annotation."""
+    data = root / "cityscapes"
+    write_city_split(data, "val", EVAL_SNIPPETS, 1 - K, 0, SEED + 30)
     return data, H * W - 16
 
 
-def eval_cfg(name: str, root: Path, data: Path) -> Path:
+def eval_cfg(name: str, root: Path, data: Path, stem: str | None = None, **values) -> Path:
     """``experiments/cfgs/<name>.yaml`` with its output and dataset paths
-    pointed at ``root`` and ``data``; every other line as shipped."""
+    pointed at ``root`` and ``data`` and each key of ``values`` (set once
+    in the file) given its value; every other line as shipped. Written as
+    ``root/<stem or name>.yaml``: the entry points name the run's output
+    directory after the file."""
     text = (REPO / "experiments" / "cfgs" / f"{name}.yaml").read_text()
     for key, value in (("output_path", root / "out"), ("dataset_path", data),
-                       ("root_path", root)):
+                       ("root_path", root), *values.items()):
         text, n = re.subn(rf"(?m)^(\s*){key}:.*$", rf"\g<1>{key}: {value}", text)
         check(n == 1, f"{name}.yaml sets {key} {n} times")
-    path = root / f"{name}.yaml"
+    path = root / f"{stem or name}.yaml"
     path.write_text(text)
     return path
 
@@ -1238,6 +1450,209 @@ def e2e_eval(phase: str, cfg_name: str, root: Path, data: Path, valid_per_clip: 
     return launched
 
 
+# ---- phase 14: training from a cfg file ---------------------------------------
+
+# annotated train snippets: 4 steps of the clip cfg (B=2), 2 of the pair cfg (B=4)
+TRAIN_SNIPPETS = 8
+TIMED_STEPS = 4
+
+
+def write_train_tree(root: Path) -> Path:
+    """A train split (TRAIN_SNIPPETS snippets, frames ANNOTATED_FRAME-4 ..
+    +4: every frame a 5-frame clip or a pair at offset -4..0 reads) and a
+    val split of one snippet. Returns the dataset path."""
+    data = root / "cityscapes"
+    write_city_split(data, "train", TRAIN_SNIPPETS, 1 - K, K - 1, SEED + 60)
+    write_city_split(data, "val", 1, 1 - K, 0, SEED + 30)
+    return data
+
+
+def loss_and_grads(model, batch: dict, objective: str, cfg) -> tuple[float, dict, dict]:
+    """One forward and backward of the cfg's objective: the loss, each
+    parameter's gradient (f32) and the launches."""
+    model.zero_grad(set_to_none=True)
+    reset_counts()
+    tr = cfg.TRAIN
+    kw = dict(ohem_fraction=float(tr.ohem_fraction) or None,
+              aux_weight=float(tr.aux_loss_weight))
+    if objective == "clip":
+        loss, _ = clip_loss_and_stats(model, batch, int(cfg.dataset.NUM_CLASSES),
+                                      propagate=str(cfg.network.propagate),
+                                      remat=bool(tr.remat), **kw)
+    else:
+        loss, _ = pair_loss_and_stats(model, batch, int(cfg.dataset.NUM_CLASSES), **kw)
+    loss.backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad.float() for n, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads, counts()
+
+
+def grad_agreement(step: tuple, ref: tuple) -> dict:
+    """Two ``loss_and_grads`` results: the loss's relative difference and
+    the cosine of each parameter's gradients (min, median, the worst three,
+    the number under 0.999)."""
+    (loss, grads, _), (ref_loss, ref_grads, _) = step, ref
+    check(grads.keys() == ref_grads.keys(), "the two steps reach other parameters")
+    cos = sorted((cosine(grads[n], ref_grads[n]), n) for n in grads)
+    return dict(loss=loss, ref_loss=ref_loss, loss_rel_diff=abs(loss - ref_loss) / abs(ref_loss),
+                cosine_min=cos[0][0], cosine_median=cos[len(cos) // 2][0],
+                under_0999=sum(c < 0.999 for c, _ in cos), params=len(cos),
+                worst=[(n, c) for c, n in cos[:3]])
+
+
+@contextlib.contextmanager
+def exactly_rounded_dilated_plain():
+    """The plain dilated conv computed in f32 and rounded once to its
+    inputs' dtype, for the duration."""
+    plain = dilated_ops.conv3x3_dilated_plain
+    dilated_ops.conv3x3_dilated_plain = lambda x, w, d: plain(x.float(), w.float(), d).to(x.dtype)
+    try:
+        yield
+    finally:
+        dilated_ops.conv3x3_dilated_plain = plain
+
+
+def step_ms(model, batch: dict, objective: str, cfg, steps: int) -> float:
+    """Median CUDA-event time of a train step (SGD on f32 master weights)
+    over ``steps`` steps, the first step left out."""
+    tr = cfg.TRAIN
+    tx, _ = make_optimizer(cfg, 1, model)
+    state = init_train_state(model, tx)
+    train_step = make_train_step(tx, int(cfg.dataset.NUM_CLASSES),
+                                 ohem_fraction=float(tr.ohem_fraction) or None,
+                                 aux_weight=float(tr.aux_loss_weight), objective=objective,
+                                 propagate=str(cfg.network.propagate), remat=bool(tr.remat))
+    times = []
+    for _ in range(steps + 1):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, metrics = train_step(state, batch)
+        b.record()
+        b.synchronize()
+        check(math.isfinite(float(metrics["loss"])), "a timed step's loss is not finite")
+        times.append(a.elapsed_time(b))
+    return statistics.median(times[1:])
+
+
+def e2e_train(phase: str, cfg_name: str, root: Path, data: Path, per_step: dict,
+              eval_per_clip: dict | None, set_network: tuple = ()) -> dict[str, int]:
+    """Phase 14 for one cfg: the train entry point for one epoch, with the
+    exact launches per step (``per_step``) and finite losses; the eval
+    entry point on its checkpoint (``eval_per_clip`` launches; None: no
+    eval); kernels against plain on one step from the checkpoint's
+    weights, in bf16 and f32; the bf16 step time and peak memory. Returns
+    the entry point's launches."""
+    path = eval_cfg(cfg_name, root, data, stem=phase, end_epoch=1)
+    flags = [a for kv in set_network for a in ("--set-network", kv)]
+    cfg = load_config(str(path))
+    eval_entry.apply_network_overrides(cfg, set_network)
+    objective = str(cfg.TRAIN.objective)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = train_entry.main(["--cfg", str(path), "--frequent", "1", *flags])
+    wall_s = time.perf_counter() - t0
+    launched, steps = counts(), state.step
+    entry_peak = torch.cuda.max_memory_allocated()
+    del state
+    out_dir = root / "out" / phase / cfg.dataset.image_set
+    prefix = out_dir / cfg.TRAIN.model_prefix
+    rows = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in rows]
+    expected = {name: steps * n for name, n in per_step.items()}
+    check(launched == expected, f"{phase} launches {launched} != {expected} ({steps} steps)")
+    check(steps > 1 and len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"{phase}: {steps} steps, losses {losses}")
+    check((prefix / "0.pt").is_file(), f"{phase}: no checkpoint at {prefix}")
+
+    result, eval_launched = None, None
+    if eval_per_clip is not None:
+        torch.cuda.empty_cache()
+        reset_counts()
+        (result,) = eval_entry.main(["--cfg", str(path), "--max-items", "1", *flags])
+        eval_launched = counts()
+        check(eval_launched == eval_per_clip,
+              f"{phase} eval launches {eval_launched} != {eval_per_clip}")
+        check(0.0 <= result["miou"] <= 1.0 and result["stats"]["frames"] == K,
+              f"{phase} eval: miou {result['miou']}, {result['stats']['frames']} frames")
+
+    # kernels against plain: the checkpoint's weights with live flow heads, one
+    # batch, in the cfg's bf16 (then the step times) and in f32
+    torch.cuda.empty_cache()
+    imdb = Cityscape(cfg.dataset.image_set, str(root / f"cache_{phase}"), str(data))
+    loader = (TrainClipLoader if objective == "clip" else TrainPairLoader)(imdb, cfg, seed=1)
+    host = next(iter(loader))
+    batch = to_device(host, "cuda", keys=tuple(host))
+    if objective == "clip":
+        frames = batch["clip"].permute(0, 1, 3, 4, 2)
+    else:
+        frames = torch.stack([batch["data_ref"], batch["data"]], dim=1).permute(0, 1, 3, 4, 2)
+
+    def model_of(c, weights, use_kernels):
+        m = build_model(c, device="cuda", generator=torch.Generator().manual_seed(SEED),
+                        use_kernels=use_kernels)
+        m.load_state_dict(weights)
+        return m
+
+    live = model_of(cfg, load_checkpoint(str(prefix), 0)["model"], True)
+    max_flow = live_flow_heads(live, frames, SEED + 61)
+    check(max_flow > 0.5, f"{phase}: flow {max_flow} too small to exercise the warp")
+    weights = live.state_dict()
+    del live
+    compared, times = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        c = cfg.clone()
+        c.network["dtype"] = dtype
+        models = {path: model_of(c, weights, path == "kernels") for path in ("kernels", "plain")}
+        runs = {path: loss_and_grads(m, batch, objective, c) for path, m in models.items()}
+        if dtype == "bfloat16" and c.network.get("dilated_conv") == "pallas":
+            # the bf16 rounding floor: the plain step with every routed conv
+            # exactly rounded (f32 products and sums, one rounding: the
+            # kernel's own arithmetic) against cuDNN's bf16 plain step
+            with exactly_rounded_dilated_plain():
+                runs["exact"] = loss_and_grads(models["plain"], batch, objective, c)
+        check(runs["kernels"][2] == per_step,
+              f"{phase} {dtype} kernel step launches {runs['kernels'][2]}")
+        check(not any(runs["plain"][2].values()),
+              f"{phase}: the plain step launched {runs['plain'][2]}")
+        compared[dtype] = {path: grad_agreement(run, runs["plain"])
+                           for path, run in runs.items() if path != "plain"}
+        del runs
+        if dtype == "bfloat16":
+            torch.cuda.reset_peak_memory_stats()
+            times["step_ms"] = step_ms(models["kernels"], batch, objective, c, TIMED_STEPS)
+            times["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+            times["plain_step_ms"] = step_ms(models["plain"], batch, objective, c, TIMED_STEPS)
+        del models
+        torch.cuda.empty_cache()
+    emit(dict(phase=phase, cfg=f"experiments/cfgs/{cfg_name}.yaml", set_network=list(set_network),
+              objective=objective, batch={k: list(v.shape) for k, v in batch.items()},
+              remat=bool(cfg.TRAIN.remat), dtype=str(cfg.network.dtype),
+              entry_point=dict(steps=steps, losses=losses, wall_s=wall_s, launches=launched,
+                               launches_per_step={k: v / steps for k, v in launched.items()},
+                               peak_memory_bytes=entry_peak),
+              eval=None if result is None else dict(miou=result["miou"],
+                                                    fps=result["stats"]["fps"],
+                                                    launches=eval_launched),
+              max_abs_flow=max_flow, kernels_vs_plain=compared, timed_steps=TIMED_STEPS,
+              **times, card=card()))
+    # f32: the issue's bars, where only the kernels' arithmetic differs. bf16:
+    # the loss, and the median gradient; each tensor's cosine is reported:
+    # two exactly valid bf16 roundings of the same convs already differ down
+    # to ~0.997 in R101's first layers, the end of a deep bf16 backward
+    for dtype, c in compared.items():
+        k = c["kernels"]
+        check(k["loss_rel_diff"] <= 1e-3, f"{phase} {dtype}: kernel vs plain loss {k}")
+        check(k["cosine_min" if dtype == "float32" else "cosine_median"]
+              >= (0.999 if dtype == "float32" else 0.9999),
+              f"{phase} {dtype}: gradient cosines {k}")
+    del batch
+    torch.cuda.empty_cache()
+    return launched
+
+
 @functools.cache
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
@@ -1271,6 +1686,11 @@ def main() -> int:
     kernel_fused_stem(results)
     kernel_warp_onehot(results)
     kernel_dilated_conv(results)
+    grad_warp()
+    grad_dilated_conv(results)
+    grad_fused_stem()
+    grad_warp_onehot()
+    torch.cuda.empty_cache()
     small_reference()
     accel_launched, accel_groups = e2e_bench()
     torch.cuda.empty_cache()
@@ -1325,6 +1745,27 @@ def main() -> int:
         dff_eval_launched = e2e_eval("e2e_eval_dff", "dff_cityscapes", root, data,
                                      valid_per_clip, launches_of(warp_onehot=1, upsample_argmax=1),
                                      overall=0.98)
+    # training from the cfg files, one epoch each. The flagship's clip step
+    # (remat): 4 step warps, and the same 4 again when the backward recomputes
+    # each checkpointed step. With every dilated conv on the kernel: a R101
+    # pass has 4 (3 layer4 conv2 + fc6), a R18 pass 5 (4 layer4 convs + fc6);
+    # the key forward (1 R101) and the 5 frame outputs (5 R18) run again under
+    # remat, the aux loss (1 R101 + 1 R18) does not: 4 + 25 + 9 = 38 forward,
+    # 4 + 25 = 29 recomputed, 38 dx. The pair step: 1 warp. Eval of a
+    # checkpoint: the flagship's 4 step warps and 1 tail, the pair cfg's one
+    # direct warp and 1 tail.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        root = Path(tmp)
+        data = write_train_tree(root)
+        train_launched = e2e_train("e2e_train", "accel18_cityscapes", root, data,
+                                   launches_of(warp=2 * (K - 1)),
+                                   launches_of(warp=K - 1, upsample_argmax=1))
+        pair_launched = e2e_train("e2e_train_pair", "accel18_cityscapes_pair", root, data,
+                                  launches_of(warp=1), launches_of(warp=1, upsample_argmax=1))
+        dilated_launched = e2e_train(
+            "e2e_train_dilated", "accel18_cityscapes", root, data,
+            launches_of(warp=2 * (K - 1), dilated_conv=38 + 29, dilated_conv_dx=38), None,
+            set_network=("dilated_conv=pallas",))
     # each kernel with the launches of one path it serves: (path, launches, groups)
     paths = {name: ("accel18", accel_launched[name], accel_groups)
              for name in ("warp", "upsample_argmax", "fused_stem")}
@@ -1335,7 +1776,9 @@ def main() -> int:
                "dff push_frame": dff_stream_launched, "accel18_fast": fast_launched,
                "accel18_os8mixed": os8_launched, "accel18 composed": composed_launched,
                "dff composed": dff_composed_launched, "accel18 cfg eval": eval_launched,
-               "dff cfg eval": dff_eval_launched}
+               "dff cfg eval": dff_eval_launched, "accel18 clip train": train_launched,
+               "accel18 pair train": pair_launched,
+               "accel18 clip train dilated_conv=pallas": dilated_launched}
 
     keys = ("max_abs_err", "shape", "ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "library_call")
@@ -1345,7 +1788,10 @@ def main() -> int:
              launches_per_group=paths[name][1] / paths[name][2],
              launches_by_path={path: n[name] for path, n in by_path.items()},
              launch_floor_device_ms=floor["device_ms"],
-             **{k: results[name][k] for k in keys})
+             **{k: results[name][k] for k in keys},
+             **({} if name != "dilated_conv" else dict(
+                 dx_launches_by_path={path: n["dilated_conv_dx"] for path, n in by_path.items()},
+                 dx={k: results["dilated_conv_dx"][k] for k in keys})))
         for name in LAUNCHERS]})
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

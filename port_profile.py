@@ -22,8 +22,15 @@ and on the host clock (ending in ``torch.cuda.synchronize()``). One JSON
 line per turn, all from that one group: host ms, device ms (the time in
 which at least one device event ran), idle share 1 - device/host, the
 device ms of each of the port's kernels and the eight largest device
-events by name (summed per name). The profiler's own host overhead is
-inside host ms. The card's name and power limit come last.
+events by name (summed per name's first 80 characters). The profiler's
+own host overhead is inside host ms.
+
+Then one train step of the flagship cfg (``experiments/cfgs/
+accel18_cityscapes.yaml``: the clip objective, B=2 x 5 frames at 768x768,
+remat, aux loss, SGD on f32 master weights) and of the pair cfg (B=4),
+kernel path against plain path, on a synthetic panning batch with one
+annotated frame per clip: two steps untimed, a third under the profiler,
+the same line per turn. The card's name and power limit come last.
 """
 
 from __future__ import annotations
@@ -79,7 +86,9 @@ def main() -> int:
         print("port_profile: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as cs
+    from accel_tpu_torch.config import load_config
     from accel_tpu_torch.core.serving import VideoSegmenter
+    from accel_tpu_torch.core.trainer import init_train_state, make_optimizer, make_train_step
     from accel_tpu_torch.models.accel import build_model
 
     torch.backends.cudnn.allow_tf32 = False
@@ -110,15 +119,13 @@ def main() -> int:
             seg.push_frame(frames[:, i])
             torch.cuda.synchronize()
 
-    def turn(model, propagate, clip, serve):
-        seg = VideoSegmenter(model, K, propagate=propagate)
-        push = push_frames if serve == "frame" else push_group
-        for g in range(2):  # warm-up; an incremental group then has a key
-            push(seg, clip[:, g * K:(g + 1) * K])
+    def profiled(run):
+        """Host ms, device ms, the port's kernels' ms and the top events of
+        one ``run()`` under the profiler."""
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            push(seg, clip[:, 2 * K:])
+            run()
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - t0) * 1e3
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -129,9 +136,24 @@ def main() -> int:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
         by_kernel = {k: sum(ms for name, ms in by_name.items() if port_kernel(name) == k)
                      for k in KERNELS}
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        return (host_ms, busy_ms(events), {k: v for k, v in by_kernel.items() if v},
-                {name[:80]: ms for name, ms in top})
+        # summed per 80-character prefix, the name as it is printed
+        by_prefix: dict[str, float] = {}
+        for name, ms in by_name.items():
+            by_prefix[name[:80]] = by_prefix.get(name[:80], 0.0) + ms
+        top = sorted(by_prefix.items(), key=lambda kv: -kv[1])[:8]
+        return (host_ms, busy_ms(events), {k: v for k, v in by_kernel.items() if v}, dict(top))
+
+    def turn(model, propagate, clip, serve):
+        seg = VideoSegmenter(model, K, propagate=propagate)
+        push = push_frames if serve == "frame" else push_group
+        for g in range(2):  # warm-up; an incremental group then has a key
+            push(seg, clip[:, g * K:(g + 1) * K])
+        return profiled(lambda: push(seg, clip[:, 2 * K:]))
+
+    def emit(**row):
+        host_ms, device_ms = row["host_ms"], row["device_ms"]
+        print(json.dumps(dict(tree=args.tree or ".", **row, idle_share=1 - device_ms / host_ms)),
+              flush=True)
 
     # each row: its paths, label -> (model, serving protocol)
     kernel_vs_plain = {"kernels": ("kernels", "group"), "plain": ("plain", "group")}
@@ -149,11 +171,51 @@ def main() -> int:
                 for path in (labels if i % 2 == 0 else labels[::-1]):
                     model, serve = paths[path]
                     host_ms, device_ms, by_kernel, top = turn(built[model], propagate, clip, serve)
-                    print(json.dumps(dict(tree=args.tree or ".", config=name, propagate=propagate,
-                                          path=path, turn=i, host_ms=host_ms, device_ms=device_ms,
-                                          idle_share=1 - device_ms / host_ms,
-                                          kernels_ms=by_kernel, top_ms=top)), flush=True)
+                    emit(config=name, propagate=propagate, path=path, turn=i, host_ms=host_ms,
+                         device_ms=device_ms, kernels_ms=by_kernel, top_ms=top)
         del built
+        torch.cuda.empty_cache()
+
+    # training: one step of each train cfg, kernel path against plain path
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    for cfg_name in ("accel18_cityscapes", "accel18_cityscapes_pair"):
+        cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments",
+                                       "cfgs", f"{cfg_name}.yaml"))
+        tr = cfg.TRAIN
+        B, crop, k = int(tr.BATCH_IMAGES), tuple(tr.CROP_SIZE), int(tr.CLIP_LENGTH)
+        clip = cs.moving_clip(k, crop, cs.SEED + 70, "cuda").expand(B, -1, -1, -1, -1)
+        clip = clip.permute(0, 1, 4, 2, 3).contiguous()
+        label = torch.full((B, k, *crop), 255, dtype=torch.int32, device="cuda")
+        for b in range(B):
+            label[b, b % k] = torch.randint(0, 19, crop, generator=g, device="cuda")
+        if tr.objective == "clip":
+            batch = {"clip": clip, "label": label}
+        else:
+            batch = {"data": clip[:, -1], "data_ref": clip[:, 0], "label": label[:, 0],
+                     "eq_flag": torch.zeros(B, device="cuda")}
+        states = {}
+        for path in ("kernels", "plain"):
+            m = build_model(cfg, device="cuda", use_kernels=path == "kernels",
+                            generator=torch.Generator().manual_seed(cs.SEED))
+            if path == "kernels":
+                cs.live_flow_heads(m, clip.permute(0, 1, 3, 4, 2), cs.SEED + 71)
+            else:
+                m.load_state_dict(states["kernels"][0].model.state_dict())
+            tx, _ = make_optimizer(cfg, 1, m)
+            states[path] = (init_train_state(m, tx), make_train_step(
+                tx, int(cfg.dataset.NUM_CLASSES), ohem_fraction=float(tr.ohem_fraction) or None,
+                aux_weight=float(tr.aux_loss_weight), objective=str(tr.objective),
+                propagate=str(cfg.network.propagate), remat=bool(tr.remat)))
+        for i in range(args.repeat):
+            for path in (("kernels", "plain") if i % 2 == 0 else ("plain", "kernels")):
+                state, step = states[path]
+                for _ in range(2):
+                    step(state, batch)
+                host_ms, device_ms, by_kernel, top = profiled(lambda: step(state, batch))
+                emit(config=f"{cfg_name} train step", propagate=str(cfg.network.propagate),
+                     path=path, turn=i, host_ms=host_ms, device_ms=device_ms,
+                     kernels_ms=by_kernel, top_ms=top)
+        del states
         torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)

@@ -1,5 +1,5 @@
-"""The port imports neither JAX, PyYAML nor the JAX package: the machine
-with the card has no JAX, and the port keeps clear of the other two.
+"""The port imports neither JAX, optax, PyYAML nor the JAX package: the
+machine with the card has no JAX, and the port keeps clear of the others.
 Every module of ``accel_tpu_torch`` and ``chip_smoke.py`` must import with
 those blocked, and with ``cv2`` blocked too: the PNG reader imports it on
 its first read."""
@@ -15,7 +15,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 PROBE = """
 import importlib, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "flax", "yaml", "accel_tpu", "cv2")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml", "accel_tpu", "cv2")
 for blocked in BLOCKED:
     sys.modules[blocked] = None
 import accel_tpu_torch
@@ -34,6 +34,6 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # ops (7), models (4), core (5), config (2), data (7), utils (1),
-    # experiments (1), kernels, convert and seven package inits
-    assert int(out.stdout.strip()) == 36
+    # ops (8), models (4), core (8), config (2), data (7), utils (2),
+    # experiments (2), kernels, convert and seven package inits
+    assert int(out.stdout.strip()) == 42
