@@ -202,38 +202,44 @@ def _group_step_composed_batched(model, frames_g, input_scale=None):
     return _update_fuse_tail(model, frames_g, ref_all, input_scale)
 
 
+def propagate_step(model, carry, prod, flow, scale, cascade: str):
+    """One step of the frame-to-frame cascade: ``carry`` warped by
+    ``flow``. Returns (the next carry, the next cumulative scale product,
+    the tensor to score). 'product' carries the modulated tensor and scores
+    it. The other cascades carry the UNMODULATED tensor and modulate only
+    the scored copy: by this step's normalized scale field ('last'), or by
+    the cumulative product of the fields, warped along and renormalized
+    ('mean1') or clamped ('clamp'), which ``prod`` carries (None at the
+    first step and under 'product'/'last')."""
+    if cascade == "product":
+        warped = model.warp(carry, flow, scale)
+        return warped, None, warped
+    s = model.norm_scale(scale)
+    warped = model.warp(carry, flow, s, normalize_scale=False, modulate=False)
+    if cascade == "last":
+        eff = s
+    else:
+        prod = s if prod is None else s * _warp_field(model, prod, flow)
+        prod = eff = _cascade_post(prod, cascade)
+    return warped, prod, warped * eff.to(warped.dtype)
+
+
 def _group_step_incremental_batched(model, frames_g, input_scale=None):
     """Incremental mode (frame-to-frame cascade): all k-1 FlowNet passes
     are independent consecutive pairs, batched at B*(k-1); only the warp
-    chains through the steps.
-
-    ``scale_cascade='product'`` carries the modulated tensor (each step's
-    scale field multiplies in). The others carry the UNMODULATED tensor and
-    modulate only the scored copy: by the current step's scale field
-    ('last'), or by the cumulative product of the steps' fields, warped
-    along and renormalized ('mean1') or clamped ('clamp') after every
-    step."""
+    chains through the steps, each one a ``propagate_step`` under the
+    model's ``scale_cascade``."""
     B, k = frames_g.shape[:2]
     prop, key_scores = _key_pass(model, frames_g, input_scale)
     if k == 1:
         ref_all = key_scores[:, None]
     else:
         flow, scale = _step_fields(model, frames_g, input_scale)
-        mode = model.scale_cascade
         carry, prod, warped_steps = prop, None, []
         for i in range(k - 1):
-            if mode == "product":
-                carry = model.warp(carry, flow[:, i], scale[:, i])
-                warped_steps.append(carry)
-                continue
-            s = model.norm_scale(scale[:, i])
-            carry = model.warp(carry, flow[:, i], s, normalize_scale=False, modulate=False)
-            if mode == "last":
-                eff = s
-            else:
-                prod = s if prod is None else s * _warp_field(model, prod, flow[:, i])
-                prod = eff = _cascade_post(prod, mode)
-            warped_steps.append(carry * eff.to(carry.dtype))
+            carry, prod, scored = propagate_step(model, carry, prod, flow[:, i], scale[:, i],
+                                                 model.scale_cascade)
+            warped_steps.append(scored)
         warped = _frames(torch.stack(warped_steps, dim=1))
         ref_all = _with_key(key_scores, model.ref_scores_from_propagated(warped), B, k)
     return _update_fuse_tail(model, frames_g, ref_all, input_scale)
@@ -279,20 +285,9 @@ def _group_step_remat(model, frames_g, propagate: str, input_scale=None):
 
     @_remat
     def prop_step(carry, prod, cur_rep, anchor_rep):
-        # carry: the tensor (unmodulated but under 'product'); prod: the
-        # cumulative scale product of 'mean1'/'clamp', else None
         flow, scale = model.flow_pair(cur_rep, anchor_rep)
-        if cascade == "product":
-            warped = model.warp(carry, flow, scale)
-            return warped, None, model.ref_scores_from_propagated(warped)
-        s = model.norm_scale(scale)
-        warped = model.warp(carry, flow, s, normalize_scale=False, modulate=False)
-        if cascade == "last":
-            eff = s
-        else:
-            prod = s if prod is None else s * _warp_field(model, prod, flow)
-            prod = eff = _cascade_post(prod, cascade)
-        return warped, prod, model.ref_scores_from_propagated(warped * eff.to(warped.dtype))
+        carry, prod, scored = propagate_step(model, carry, prod, flow, scale, cascade)
+        return carry, prod, model.ref_scores_from_propagated(scored)
 
     @_remat
     def prop_step_composed(prop, acc_f, acc_s, cur_rep, anchor_rep):
@@ -341,31 +336,29 @@ def _check_groups(model, clip: torch.Tensor, interval: int) -> int:
     return k
 
 
-@torch.inference_mode()
-def clip_logits(model, clip: torch.Tensor, interval: int, propagate: str = "incremental",
-                input_scale=None) -> torch.Tensor:
-    """clip (B,F,3,H,W) normalized, F % interval == 0 -> stride-level
-    logits (B,F,C,h,w) f32, one keyframe group after another, for serving
-    (inference mode). The ``deeplab`` family takes interval 1 (every frame
-    is a keyframe). ``input_scale`` (scalar or None) multiplies every frame
-    where it is used."""
-    k = _check_groups(model, clip, interval)
-    return torch.cat([_group_step(model, clip[:, g:g + k], propagate, input_scale)
-                      for g in range(0, clip.shape[1], k)], dim=1)
-
-
 def train_clip_logits(model, clip: torch.Tensor, interval: int,
                       propagate: str = "incremental", remat: bool = False,
                       input_scale=None) -> torch.Tensor:
-    """``clip_logits`` under the caller's grad mode: the grad-enabled
-    logits of the clip objective (``accel_tpu``'s ``clip_logits`` with
-    ``remat``). Without ``remat`` the batched group steps run; with it the
-    sequential step of ``_group_step_remat``, which gives the same logits
-    and gradients with one frame's activations kept at a time."""
+    """clip (B,F,3,H,W) normalized, F % interval == 0 -> stride-level
+    logits (B,F,C,h,w) f32, one keyframe group after another, under the
+    caller's grad mode: the logits of the clip objective (``accel_tpu``'s
+    ``clip_logits`` with ``remat``). The ``deeplab`` family takes interval 1
+    (every frame is a keyframe). ``input_scale`` (scalar or None)
+    multiplies every frame where it is used. Without ``remat`` the batched
+    group steps run; with it the sequential step of ``_group_step_remat``,
+    which gives the same logits and gradients with one frame's activations
+    kept at a time."""
     k = _check_groups(model, clip, interval)
     step = _group_step_remat if remat else _group_step
     return torch.cat([step(model, clip[:, g:g + k], propagate, input_scale)
                       for g in range(0, clip.shape[1], k)], dim=1)
+
+
+@torch.inference_mode()
+def clip_logits(model, clip: torch.Tensor, interval: int, propagate: str = "incremental",
+                input_scale=None) -> torch.Tensor:
+    """``train_clip_logits`` without remat, for serving (inference mode)."""
+    return train_clip_logits(model, clip, interval, propagate, input_scale=input_scale)
 
 
 @torch.inference_mode()

@@ -19,7 +19,7 @@ from typing import Any
 import torch
 
 from accel_tpu_torch.core.metrics import SegConfusionAccumulator
-from accel_tpu_torch.core.pipeline import clip_predictions
+from accel_tpu_torch.core.pipeline import clip_predictions, propagate_step
 from accel_tpu_torch.data.image import resize_to
 from accel_tpu_torch.ops.upsample_argmax import upsample_argmax
 
@@ -83,6 +83,8 @@ def make_key_cur_predictors(model, full_res_pred: bool = True,
             "streaming protocol under incremental propagation; use 'last' or 'product', "
             "or run the clip through core.pipeline.clip_predictions")
     flows = model.family in ("dff", "accel")
+    # direct warps once from the keyframe: no cascade to intervene on
+    cascade = model.scale_cascade if propagate == "incremental" else "product"
 
     def scores_out(scores, image):
         if model.family == "accel":
@@ -102,12 +104,7 @@ def make_key_cur_predictors(model, full_res_pred: bool = True,
         image = frame.permute(0, 3, 1, 2).contiguous()
         small = model.downscale_for_flow(image)
         flow, scale = model.flow_pair(small, anchor_small)
-        if propagate == "incremental" and model.scale_cascade == "last":
-            s = model.norm_scale(scale)
-            warped = model.warp(prop, flow, s, normalize_scale=False, modulate=False)
-            scored = warped * s.to(warped.dtype)
-        else:
-            warped = scored = model.warp(prop, flow, scale)
+        warped, _, scored = propagate_step(model, prop, None, flow, scale, cascade)
         pred = scores_out(model.ref_scores_from_propagated(scored), image)
         if propagate == "direct":
             return {"prop": prop, "anchor_small": anchor_small, "pred": pred}

@@ -80,7 +80,8 @@ Phases, one JSON line each:
     path's shapes, its gradients against autograd through the plain
     version (max error and cosine per input; the warp's flow up to 2 D, so
     the clamp is active). #5's dx, on the kernel with the rotated weights,
-    is also timed as the kernel rows are (``dilated_conv_dx``), against
+    at every shape of the training path (``TRAIN_DILATED``), is also timed
+    as the kernel rows are (``dilated_conv_dx``), against
     ``torch.nn.grad.conv2d_input`` (cuDNN).
 14. e2e_train, e2e_train_pair, e2e_train_dilated: training from a cfg
     file. A Cityscapes-layout train split at 1024x2048 (TRAIN_SNIPPETS
@@ -95,12 +96,14 @@ Phases, one JSON line each:
     checkpoint is evaluated by the eval entry point (``--max-items 1``);
     then from the checkpoint's weights, with live flow heads, one step's
     loss and gradients with the kernels and with the plain versions on
-    one batch, in f32 (loss within 1e-3 relative, every parameter's
-    gradient at cosine >= 0.999) and in the cfg's bf16 (loss within 1e-3,
-    the median parameter's gradient at cosine >= 0.9999, every cosine
-    reported beside, for ``pallas``, those of the plain step with its
-    convs exactly rounded: the bf16 rounding floor), and the bf16 median
-    step time (CUDA events, first step out) and peak memory.
+    one batch, in f32 and in the cfg's bf16: the loss within 1e-3
+    relative and every parameter's gradient at cosine >= 0.999; for
+    ``pallas`` in bf16, every gradient at ``BF16_DILATED_COSINE``, both
+    the kernel step's and those of the plain step with its convs exactly
+    rounded (the bf16 rounding floor), and the dx launches at shapes
+    ``grad_dilated_conv`` held. Then the bf16 median step times of the
+    kernel and plain steps, alternating (CUDA events, first step out),
+    and the kernel step's peak memory with one model alive.
 
 Then the ``{"kernels": [...]}`` line (each kernel's first row, with its
 launches on one path it serves and per group there, and its launches on
@@ -685,18 +688,27 @@ def grad_warp() -> None:
                   grads=compare_grads("grad_warp", ("feat", "flow"), got, want, 1e-5, 0.99999)))
 
 
+# the dilated convs of the flagship's clip train step under
+# dilated_conv=pallas, as (forward input shape, Cout, dilation): R101's fc6,
+# R18's fc6, the 512 -> 512 layer4 convs of both branches and R18's first
+# layer4 conv, 256 -> 512. e2e_train_dilated checks that its dx launches
+# take no other shape.
+TRAIN_DILATED = (((2, 2048, 48, 48), 1024, 6), ((2, 512, 48, 48), 1024, 6),
+                 ((2, 512, 48, 48), 512, 2), ((2, 256, 48, 48), 512, 2))
+
+
 def grad_dilated_conv(results: dict) -> None:
-    """``DilatedConvFunction`` at the training path's bf16 shapes: fc6,
-    (2,2048,48,48) -> 1024 at d=6, whose dx conv takes (2,1024,48,48) ->
-    2048, and layer4's conv2, (2,512,48,48) -> 512 at d=2. dx runs on the
-    kernel with the rotated weights (one backward launch), dw on
-    ``conv2d_weight``; against autograd through ``F.conv2d`` (cuDNN) at the
-    forward rows' bf16 bound, 2e-2 * max|ref|, and cosine >= 0.999. The dx
-    conv is timed as a kernel row (``dilated_conv_dx``): the library call is
+    """``DilatedConvFunction`` at every bf16 shape of the training path
+    (``TRAIN_DILATED``); the dx conv of a forward (N,Cin,H,W) -> Cout takes
+    (N,Cout,H,W) -> Cin. dx runs on the kernel with the rotated weights (one
+    backward launch), dw on ``conv2d_weight``; against autograd through
+    ``F.conv2d`` (cuDNN) at the forward rows' bf16 bound, 2e-2 * max|ref|,
+    and cosine >= 0.999. Each dx conv is timed as a kernel row
+    (``dilated_conv_dx``, R101's fc6 the first): the library call is
     ``torch.nn.grad.conv2d_input`` (cuDNN), the plain version ``F.conv2d``
     on the rotated weights."""
     rows = []
-    for shape, cout, d in (((2, 2048, 48, 48), 1024, 6), ((2, 512, 48, 48), 512, 2)):
+    for shape, cout, d in TRAIN_DILATED:
         g = _gen(SEED + 51)
         N, cin, h, w = shape
         x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
@@ -1513,26 +1525,64 @@ def exactly_rounded_dilated_plain():
         dilated_ops.conv3x3_dilated_plain = plain
 
 
-def step_ms(model, batch: dict, objective: str, cfg, steps: int) -> float:
+@contextlib.contextmanager
+def dx_shapes_recorded():
+    """The forward shapes (input shape, Cout, dilation) of every dx launch
+    of the dilated conv kernel, for the duration."""
+    launch, seen = dilated_ops.conv3x3_dilated_dx_cuda, set()
+
+    def recorded(grad, weight, dilation, packed_dx=None):
+        seen.add(((grad.shape[0], weight.shape[1], *grad.shape[2:]), weight.shape[0], dilation))
+        return launch(grad, weight, dilation, packed_dx)
+
+    dilated_ops.conv3x3_dilated_dx_cuda = recorded
+    try:
+        yield seen
+    finally:
+        dilated_ops.conv3x3_dilated_dx_cuda = launch
+
+
+def step_times(models: dict, batch: dict, objective: str, cfg, steps: int) -> dict:
     """Median CUDA-event time of a train step (SGD on f32 master weights)
-    over ``steps`` steps, the first step left out."""
+    of each model over ``steps`` steps, the models' steps alternating, the
+    first of each left out."""
     tr = cfg.TRAIN
-    tx, _ = make_optimizer(cfg, 1, model)
-    state = init_train_state(model, tx)
-    train_step = make_train_step(tx, int(cfg.dataset.NUM_CLASSES),
-                                 ohem_fraction=float(tr.ohem_fraction) or None,
-                                 aux_weight=float(tr.aux_loss_weight), objective=objective,
-                                 propagate=str(cfg.network.propagate), remat=bool(tr.remat))
-    times = []
+    runs = {}
+    for path, model in models.items():
+        tx, _ = make_optimizer(cfg, 1, model)
+        runs[path] = [make_train_step(tx, int(cfg.dataset.NUM_CLASSES),
+                                      ohem_fraction=float(tr.ohem_fraction) or None,
+                                      aux_weight=float(tr.aux_loss_weight), objective=objective,
+                                      propagate=str(cfg.network.propagate),
+                                      remat=bool(tr.remat)),
+                      init_train_state(model, tx)]
+    times = {path: [] for path in runs}
     for _ in range(steps + 1):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        state, metrics = train_step(state, batch)
-        b.record()
-        b.synchronize()
-        check(math.isfinite(float(metrics["loss"])), "a timed step's loss is not finite")
-        times.append(a.elapsed_time(b))
-    return statistics.median(times[1:])
+        for path, run in runs.items():
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            run[1], metrics = run[0](run[1], batch)
+            b.record()
+            b.synchronize()
+            check(math.isfinite(float(metrics["loss"])), f"a timed {path} step's loss")
+            times[path].append(a.elapsed_time(b))
+    return {path: statistics.median(t[1:]) for path, t in times.items()}
+
+
+def step_peak_memory(model, batch: dict, objective: str, cfg) -> int:
+    """Peak device memory of two train steps of ``model`` (its f32 master
+    weights and momentum included) from an emptied cache."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_times({"kernels": model}, batch, objective, cfg, 1)
+    return torch.cuda.max_memory_allocated()
+
+
+# the least per-tensor gradient cosine of a bf16 train step whose dilated
+# convs run on the kernel, against cuDNN's step: the plain step with every
+# routed conv exactly rounded (the kernel's arithmetic) reaches 0.9949-0.9951
+# in R101's first layers, the kernel step 0.9949-0.9958 (PERF.md, H100 runs)
+BF16_DILATED_COSINE = 0.98
 
 
 def e2e_train(phase: str, cfg_name: str, root: Path, data: Path, per_step: dict,
@@ -1541,13 +1591,15 @@ def e2e_train(phase: str, cfg_name: str, root: Path, data: Path, per_step: dict,
     exact launches per step (``per_step``) and finite losses; the eval
     entry point on its checkpoint (``eval_per_clip`` launches; None: no
     eval); kernels against plain on one step from the checkpoint's
-    weights, in bf16 and f32; the bf16 step time and peak memory. Returns
-    the entry point's launches."""
+    weights, in bf16 and f32; the bf16 step times of the two, their steps
+    alternating, and the kernel step's peak memory with one model alive.
+    Returns the entry point's launches."""
     path = eval_cfg(cfg_name, root, data, stem=phase, end_epoch=1)
     flags = [a for kv in set_network for a in ("--set-network", kv)]
     cfg = load_config(str(path))
     eval_entry.apply_network_overrides(cfg, set_network)
     objective = str(cfg.TRAIN.objective)
+    dilated = cfg.network.get("dilated_conv") == "pallas"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1599,15 +1651,18 @@ def e2e_train(phase: str, cfg_name: str, root: Path, data: Path, per_step: dict,
     live = model_of(cfg, load_checkpoint(str(prefix), 0)["model"], True)
     max_flow = live_flow_heads(live, frames, SEED + 61)
     check(max_flow > 0.5, f"{phase}: flow {max_flow} too small to exercise the warp")
-    weights = live.state_dict()
+    weights = {name: t.cpu() for name, t in live.state_dict().items()}
     del live
     compared, times = {}, {}
     for dtype in ("bfloat16", "float32"):
         c = cfg.clone()
         c.network["dtype"] = dtype
         models = {path: model_of(c, weights, path == "kernels") for path in ("kernels", "plain")}
-        runs = {path: loss_and_grads(m, batch, objective, c) for path, m in models.items()}
-        if dtype == "bfloat16" and c.network.get("dilated_conv") == "pallas":
+        with dx_shapes_recorded() as dx_shapes:
+            runs = {path: loss_and_grads(m, batch, objective, c) for path, m in models.items()}
+        if dtype == "bfloat16" and dilated:
+            check(dx_shapes and dx_shapes <= set(TRAIN_DILATED),
+                  f"{phase}: dx shapes {sorted(dx_shapes)} not all held by grad_dilated_conv")
             # the bf16 rounding floor: the plain step with every routed conv
             # exactly rounded (f32 products and sums, one rounding: the
             # kernel's own arithmetic) against cuDNN's bf16 plain step
@@ -1621,10 +1676,11 @@ def e2e_train(phase: str, cfg_name: str, root: Path, data: Path, per_step: dict,
                            for path, run in runs.items() if path != "plain"}
         del runs
         if dtype == "bfloat16":
-            torch.cuda.reset_peak_memory_stats()
-            times["step_ms"] = step_ms(models["kernels"], batch, objective, c, TIMED_STEPS)
-            times["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-            times["plain_step_ms"] = step_ms(models["plain"], batch, objective, c, TIMED_STEPS)
+            t = step_times(models, batch, objective, c, TIMED_STEPS)
+            times.update(step_ms=t["kernels"], plain_step_ms=t["plain"])
+            del models["plain"]
+            times["peak_memory_bytes"] = step_peak_memory(models["kernels"], batch, objective, c)
+            times["dx_shapes"] = sorted(dx_shapes)
         del models
         torch.cuda.empty_cache()
     emit(dict(phase=phase, cfg=f"experiments/cfgs/{cfg_name}.yaml", set_network=list(set_network),
@@ -1638,16 +1694,14 @@ def e2e_train(phase: str, cfg_name: str, root: Path, data: Path, per_step: dict,
                                                     launches=eval_launched),
               max_abs_flow=max_flow, kernels_vs_plain=compared, timed_steps=TIMED_STEPS,
               **times, card=card()))
-    # f32: the issue's bars, where only the kernels' arithmetic differs. bf16:
-    # the loss, and the median gradient; each tensor's cosine is reported:
-    # two exactly valid bf16 roundings of the same convs already differ down
-    # to ~0.997 in R101's first layers, the end of a deep bf16 backward
+    # the loss within 1e-3 and every parameter's gradient at cosine >= 0.999;
+    # in bf16 with the dilated convs on the kernel, every gradient (and the
+    # exactly rounded control's) at BF16_DILATED_COSINE
     for dtype, c in compared.items():
-        k = c["kernels"]
-        check(k["loss_rel_diff"] <= 1e-3, f"{phase} {dtype}: kernel vs plain loss {k}")
-        check(k["cosine_min" if dtype == "float32" else "cosine_median"]
-              >= (0.999 if dtype == "float32" else 0.9999),
-              f"{phase} {dtype}: gradient cosines {k}")
+        for path, k in c.items():
+            floor = BF16_DILATED_COSINE if dtype == "bfloat16" and dilated else 0.999
+            check(k["loss_rel_diff"] <= 1e-3, f"{phase} {dtype} {path}: loss {k}")
+            check(k["cosine_min"] >= floor, f"{phase} {dtype} {path}: gradient cosines {k}")
     del batch
     torch.cuda.empty_cache()
     return launched

@@ -23,7 +23,6 @@ from accel_tpu.data import loader as jloader
 from accel_tpu.data.cityscapes import Cityscape as JCityscape
 from accel_tpu_torch.config import load_config
 from accel_tpu_torch.core import checkpoint as tck
-from accel_tpu_torch.core.callback import Speedometer, do_checkpoint
 from accel_tpu_torch.core import trainer as ttrainer
 from accel_tpu_torch.data import loader as tloader
 from accel_tpu_torch.data.cityscapes import Cityscape
@@ -141,7 +140,7 @@ def test_checkpoint_resumes_the_train_state_exactly(tree, tmp_path):
     state, step = _step_state(cfg, seed=0)
     state, _ = step(state, b0)
     prefix = str(tmp_path / "prefix")
-    do_checkpoint(prefix)(0, state)
+    tck.save_checkpoint(prefix, 0, tck.train_checkpoint(state, 0))
     assert tck.latest_epoch(prefix) == 0 and tck.latest_epoch(str(tmp_path / "none")) is None
     ckpt = tck.load_checkpoint(prefix, 0)
     assert (ckpt["epoch"], ckpt["step"], ckpt["optimizer"]["count"]) == (0, 1, 1)
@@ -200,18 +199,36 @@ def test_train_entry_point_refuses_what_is_not_ported(tree):
         t_train.main(["--cfg", write_cfg(tree, "nocard")])
 
 
-def test_speedometer_logs_every_frequent_batches(monkeypatch):
-    lines = []
+def test_fit_logs_a_speedometer_line_every_frequent_steps(monkeypatch):
+    """fit's Speedometer line and metrics row every ``frequent`` steps and
+    at each epoch's end, and the epoch callback after each epoch."""
+    lines, rows, ends = [], [], []
 
     class Log:
         info = staticmethod(lines.append)
 
+    class Rows:
+        @staticmethod
+        def write(step, **values):
+            rows.append((step, values))
+
+    def step(state, batch):
+        state.step += 1
+        return state, {"loss": torch.tensor(0.5 * state.step)}
+
+    # the clock moves a second a reading: each line times the steps since
+    # the last one in 1 s
     clock = iter(range(100))
-    monkeypatch.setattr("accel_tpu_torch.core.callback.time.time", lambda: float(next(clock)))
-    speed = Speedometer(batch_size=4, frequent=2, logger=Log)
-    for nbatch in range(5):
-        speed(0, nbatch)
-    # the clock moves a second a reading: batch 0 starts it (0), batch 2
-    # logs 2 batches of 4 at 1 and restarts it (2), batch 4 logs at 3
-    assert lines == ["Epoch[0] Batch [2]\tSpeed: 8.00 samples/sec",
-                     "Epoch[0] Batch [4]\tSpeed: 8.00 samples/sec"]
+    monkeypatch.setattr("accel_tpu_torch.core.trainer.time.time", lambda: float(next(clock)))
+    state = ttrainer.TrainState(step=0, model=torch.nn.Linear(1, 1), master={}, opt_state={})
+    batches = iter([{"data": torch.zeros(4, 3, 2, 2)}] * 10)
+    state = ttrainer.fit(state, step, batches, epochs=2, epoch_size=5, logger=Log, frequent=2,
+                         epoch_end_callback=lambda e, s: ends.append((e, s.step)),
+                         metrics_writer=Rows())
+    assert state.step == 10 and ends == [(0, 5), (1, 10)]
+    assert lines[:3] == ["Epoch[0] Batch [2/5]\tSpeed: 8.00 samples/sec\tFCNLogLoss=1.00000",
+                         "Epoch[0] Batch [4/5]\tSpeed: 8.00 samples/sec\tFCNLogLoss=2.00000",
+                         "Epoch[0] Batch [5/5]\tSpeed: 4.00 samples/sec\tFCNLogLoss=2.50000"]
+    assert len(lines) == 6 and lines[5].startswith("Epoch[1] Batch [5/5]")
+    assert [r[0] for r in rows] == [2, 4, 5, 7, 9, 10]
+    assert rows[2][1] == dict(loss=2.5, samples_per_sec=4.0, epoch=0)
