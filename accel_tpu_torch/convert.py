@@ -6,13 +6,16 @@ one to one onto a torch key; only the leaf names and layouts change:
 
 - ``params/.../kernel`` (conv, HWIO) -> ``....weight`` (OIHW);
 - ``params/.../bias`` -> ``....bias``;
-- ``params/.../scale`` (FrozenBN or GroupNorm) -> ``....weight``;
-- ``batch_stats/.../mean`` and ``var`` (FrozenBN) -> ``....running_mean``
-  and ``....running_var``.
+- ``params/.../scale`` (FrozenBN, BatchNorm or GroupNorm) -> ``....weight``;
+- ``batch_stats/.../mean`` and ``var`` (FrozenBN, or flax ``nn.BatchNorm``'s
+  running statistics) -> ``....running_mean`` and ``....running_var``.
 
 The fused7 stem keeps the conv7 tree (``backbone/conv1/kernel`` and
-``backbone/bn``), and FlowNet's ``conv1`` is a (7,7,6,64) conv with a bias,
-so both need nothing special.
+``backbone/bn``), FlowNet's ``conv1`` is a (7,7,6,64) conv with a bias, and
+the s2d stem's ``backbone/conv1_s2d/kernel`` (4,4,12,64) becomes
+``backbone.conv1_s2d.weight`` (64,12,4,4): the port's ``space_to_depth``
+orders its 12 channels as the JAX one does (``(dy*2 + dx)*3 + c``), so its
+input channels need no permutation. None of them needs anything special.
 """
 
 from __future__ import annotations

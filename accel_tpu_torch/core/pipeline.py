@@ -38,6 +38,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from accel_tpu_torch.core.metrics import IGNORE_LABEL, softmax_cross_entropy
+from accel_tpu_torch.models.resnet import BatchNorm
 from accel_tpu_torch.ops.upsample import resize_bilinear
 from accel_tpu_torch.ops.upsample_argmax import upsample_argmax, upsample_argmax_plain
 from accel_tpu_torch.ops.warp import bilinear_warp
@@ -58,16 +59,22 @@ def _scaled(x: torch.Tensor, scale) -> torch.Tensor:
     return x if scale is None else x * scale
 
 
-def _chunked_apply(fn, x: torch.Tensor, scale=None) -> torch.Tensor:
+def _chunked_apply(fn, x: torch.Tensor, scale=None):
     """``fn(x * scale)`` over the leading (frame) axis in chunks of at most
     MAX_FULLRES_FRAMES_PER_DISPATCH frames; ``scale`` (None: none)
-    multiplies one chunk at a time."""
+    multiplies one chunk at a time. ``fn`` returns a tensor or a tuple of
+    tensors; chunks are concatenated per element. The chunks are those of
+    the JAX package's ``lax.map``, so an int8 branch quantizes each chunk
+    with its own activation scales, as there."""
     n = x.shape[0]
     limit = MAX_FULLRES_FRAMES_PER_DISPATCH
     if n <= limit:
         return fn(_scaled(x, scale))
     c = max(d for d in range(1, limit + 1) if n % d == 0)
-    return torch.cat([fn(_scaled(x[i:i + c], scale)) for i in range(0, n, c)])
+    outs = [fn(_scaled(x[i:i + c], scale)) for i in range(0, n, c)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
 
 
 def _frames(t: torch.Tensor) -> torch.Tensor:
@@ -86,12 +93,28 @@ def _update_fuse_tail(model, frames_g, ref_all, input_scale=None):
     return fused.reshape(B, k, *fused.shape[1:])
 
 
+def _rep_slice(rep, fn):
+    """``fn`` on a prologue rep: a tensor, or each tensor of a tuple."""
+    return tuple(fn(a) for a in rep) if isinstance(rep, tuple) else fn(rep)
+
+
 def _group_flow_reps(model, frames_g, input_scale=None):
-    """Every frame of the group downscaled to FlowNet resolution once
-    (each frame is both a 'cur' and the next step's 'anchor')."""
+    """Every frame's FlowNet prologue, once (each frame is both a 'cur'
+    and the next step's 'anchor'): the frame downscaled to FlowNet
+    resolution, or under ``fold_flow_downscale`` its conv1 partials
+    (cur, anchor). (B, k, ...) tensors, a tuple of two for the fold."""
     B, k = frames_g.shape[:2]
-    rep = _chunked_apply(model.downscale_for_flow, _frames(frames_g), input_scale)
-    return rep.reshape(B, k, *rep.shape[1:])
+    fn = model.flow_stem_partials if model.fold_flow_downscale else model.downscale_for_flow
+    rep = _chunked_apply(fn, _frames(frames_g), input_scale)
+    return _rep_slice(rep, lambda a: a.reshape(B, k, *a.shape[1:]))
+
+
+def _flow_from_reps(model, cur_rep, anchor_rep):
+    """The FlowNet pass from two frames' prologue reps: the cur frame's
+    'cur' partial and the anchor's 'anchor' partial under the fold."""
+    if model.fold_flow_downscale:
+        return model.flow_pair_from_partials(cur_rep[0], anchor_rep[1])
+    return model.flow_pair(cur_rep, anchor_rep)
 
 
 def _key_pass(model, frames_g, input_scale):
@@ -164,9 +187,9 @@ def _group_step_direct_batched(model, frames_g, input_scale=None):
         ref_all = key_scores[:, None]
     else:
         rep = _group_flow_reps(model, frames_g, input_scale)
-        cur_rep = _frames(rep[:, 1:])
-        anchor_rep = rep[:, 0].repeat_interleave(k - 1, dim=0)
-        flow, scale = model.flow_pair(cur_rep, anchor_rep)
+        cur_rep = _rep_slice(rep, lambda a: _frames(a[:, 1:]))
+        anchor_rep = _rep_slice(rep, lambda a: a[:, 0].repeat_interleave(k - 1, dim=0))
+        flow, scale = _flow_from_reps(model, cur_rep, anchor_rep)
         warped = model.warp(prop.repeat_interleave(k - 1, dim=0), flow, scale)
         ref_all = _with_key(key_scores, model.ref_scores_from_propagated(warped), B, k)
     return _update_fuse_tail(model, frames_g, ref_all, input_scale)
@@ -177,7 +200,8 @@ def _step_fields(model, frames_g, input_scale):
     FlowNet call at batch B*(k-1): (B, k-1, 2, h, w) and (B, k-1, C, h, w)."""
     B, k = frames_g.shape[:2]
     rep = _group_flow_reps(model, frames_g, input_scale)
-    flow, scale = model.flow_pair(_frames(rep[:, 1:]), _frames(rep[:, :-1]))
+    flow, scale = _flow_from_reps(model, _rep_slice(rep, lambda a: _frames(a[:, 1:])),
+                                  _rep_slice(rep, lambda a: _frames(a[:, :-1])))
     return (flow.reshape(B, k - 1, *flow.shape[1:]),
             scale.reshape(B, k - 1, *scale.shape[1:]))
 
@@ -285,14 +309,14 @@ def _group_step_remat(model, frames_g, propagate: str, input_scale=None):
 
     @_remat
     def prop_step(carry, prod, cur_rep, anchor_rep):
-        flow, scale = model.flow_pair(cur_rep, anchor_rep)
+        flow, scale = _flow_from_reps(model, cur_rep, anchor_rep)
         carry, prod, scored = propagate_step(model, carry, prod, flow, scale, cascade)
         return carry, prod, model.ref_scores_from_propagated(scored)
 
     @_remat
     def prop_step_composed(prop, acc_f, acc_s, cur_rep, anchor_rep):
         # the composed fields carry; the tensor is warped from the keyframe
-        flow, scale = model.flow_pair(cur_rep, anchor_rep)
+        flow, scale = _flow_from_reps(model, cur_rep, anchor_rep)
         scale = model.norm_scale(scale)
         if acc_f is None:
             acc_f, acc_s = flow, _cascade_post(scale, cascade)
@@ -316,12 +340,13 @@ def _group_step_remat(model, frames_g, propagate: str, input_scale=None):
         rep = _group_flow_reps(model, frames_g, input_scale)
     carry, prod, acc_f, acc_s, anchor = prop, None, None, None, 0
     for i in range(1, k):
+        cur_rep = _rep_slice(rep, lambda a: a[:, i])
+        anchor_rep = _rep_slice(rep, lambda a: a[:, anchor])
         if propagate == "composed":
-            acc_f, acc_s, ref_s = prop_step_composed(prop, acc_f, acc_s, rep[:, i],
-                                                     rep[:, anchor])
+            acc_f, acc_s, ref_s = prop_step_composed(prop, acc_f, acc_s, cur_rep, anchor_rep)
             anchor = i
         else:
-            new_carry, new_prod, ref_s = prop_step(carry, prod, rep[:, i], rep[:, anchor])
+            new_carry, new_prod, ref_s = prop_step(carry, prod, cur_rep, anchor_rep)
             if propagate == "incremental":
                 carry, prod, anchor = new_carry, new_prod, i
         outs.append(frame_output(ref_s, _scaled(frames_g[:, i], input_scale)))
@@ -408,13 +433,25 @@ def pair_loss_and_stats(model, batch: dict, num_classes: int, loss_scale: float 
     (N,H,W) with 255 ignored. The logits are upsampled to the label before
     the CE, as the reference computes it. ``aux_weight`` > 0 adds the CE
     of the raw reference-branch scores on the current frame and (accel) of
-    the update branch's. Running-stat BatchNorm (``mutable_stats``) is not
-    ported and raises."""
-    if mutable_stats:
-        raise NotImplementedError("running-stat BatchNorm is not ported: use frozenbn or "
-                                  "groupnorm")
+    the update branch's.
+
+    ``mutable_stats`` (running-stat BatchNorm, ``norm: batchnorm``): the
+    pair forward normalizes by batch statistics (the model in ``train()``
+    mode, flax's ``train=True``), the auxiliary passes by the running
+    statistics the step started from (flax applies them without
+    ``train``), and then every BatchNorm folds its batch statistics into
+    its running statistics; returns (loss, {state_dict key: running
+    statistic}). Without it a BatchNorm model raises, as flax refuses to
+    update ``batch_stats`` that are not mutable."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    if norms and not mutable_stats:
+        raise ValueError("a running-stat BatchNorm model needs mutable_stats=True")
     label = batch["label"]
-    logits = model(batch["data"], batch["data_ref"], batch["eq_flag"])
+    model.train(mutable_stats)
+    try:
+        logits = model(batch["data"], batch["data_ref"], batch["eq_flag"])
+    finally:
+        model.eval()
     loss = _ce(logits, label, num_classes, loss_scale, ohem_fraction)
     if aux_weight > 0.0 and model.family in ("dff", "accel"):
         ref = model.ref_scores_from_propagated(model.ref_propagated(batch["data"]))
@@ -422,7 +459,18 @@ def pair_loss_and_stats(model, batch: dict, num_classes: int, loss_scale: float 
         if model.family == "accel":
             upd = model.update_scores(batch["data"])
             loss = loss + aux_weight * _ce(upd, label, num_classes, loss_scale, ohem_fraction)
-    return loss, None
+    if not mutable_stats:
+        return loss, None
+    for m in norms:
+        m.commit()
+    return loss, running_stats(model)
+
+
+def running_stats(model) -> dict[str, torch.Tensor]:
+    """Every BatchNorm's running statistics by ``state_dict`` key (flax's
+    ``batch_stats`` collection)."""
+    return {f"{name}.{stat}": getattr(m, stat) for name, m in model.named_modules()
+            if isinstance(m, BatchNorm) for stat in ("running_mean", "running_var")}
 
 
 def clip_loss_and_stats(model, batch: dict, num_classes: int, loss_scale: float = 1.0,

@@ -64,8 +64,11 @@ def make_key_cur_predictors(model, full_res_pred: bool = True,
     predictor: (data, anchor_small, prop) -> the same. 'prop' is the
     propagated tensor (scores for accel, fc6 features for dff, the scores
     for deeplab), 'anchor_small' the next step's flow anchor (the frame
-    downscaled for FlowNet; the frame itself for deeplab), 'pred' the
-    class map: (1,H,W) uint8 with ``full_res_pred``, else at stride.
+    downscaled for FlowNet, or under ``fold_flow_downscale`` its conv1
+    'anchor' partial; the frame itself for deeplab), 'pred' the class map:
+    (1,H,W) uint8 with ``full_res_pred``, else at stride. Running-stat
+    BatchNorm serves from its running statistics, which live in the model
+    (the reference's ``aux_params``).
 
     ``propagate`` must match how the weights were trained: 'direct' keeps
     the keyframe's prop and anchor for the whole group; 'incremental'
@@ -97,13 +100,22 @@ def make_key_cur_predictors(model, full_res_pred: bool = True,
         image = frame.permute(0, 3, 1, 2).contiguous()
         prop = model.ref_propagated(image)
         pred = scores_out(model.ref_scores_from_propagated(prop), image)
-        small = model.downscale_for_flow(image) if flows else frame
+        if not flows:
+            small = frame
+        elif model.fold_flow_downscale:
+            small = model.flow_stem_partials(image)[1]
+        else:
+            small = model.downscale_for_flow(image)
         return {"prop": prop, "anchor_small": small, "pred": pred}
 
     def cur_fn(frame, anchor_small, prop):
         image = frame.permute(0, 3, 1, 2).contiguous()
-        small = model.downscale_for_flow(image)
-        flow, scale = model.flow_pair(small, anchor_small)
+        if model.fold_flow_downscale:
+            cur_part, small = model.flow_stem_partials(image)
+            flow, scale = model.flow_pair_from_partials(cur_part, anchor_small)
+        else:
+            small = model.downscale_for_flow(image)
+            flow, scale = model.flow_pair(small, anchor_small)
         warped, _, scored = propagate_step(model, prop, None, flow, scale, cascade)
         pred = scores_out(model.ref_scores_from_propagated(scored), image)
         if propagate == "direct":

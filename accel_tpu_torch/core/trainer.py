@@ -110,8 +110,13 @@ class TrainState:
     opt_state: dict
 
 
-def init_train_state(model: nn.Module, tx: SGD) -> TrainState:
-    master = {n: p.detach().to(torch.float32, copy=True) for n, p in model.named_parameters()}
+def init_train_state(model: nn.Module, tx: SGD, params=None) -> TrainState:
+    """The train state of ``model``: the master copy from ``params`` (f32
+    values by parameter name, such as pretrained weights) where given,
+    else from the model's own parameters."""
+    params = params or {}
+    master = {n: (params[n] if n in params else p.detach()).to(
+        device=p.device, dtype=torch.float32, copy=True) for n, p in model.named_parameters()}
     return TrainState(step=0, model=model, master=master, opt_state=tx.init(master))
 
 
@@ -124,25 +129,30 @@ def write_master(state: TrainState) -> None:
 
 
 def make_train_step(tx: SGD, num_classes: int, loss_scale: float = 1.0,
-                    mutable_stats: bool = False, ohem_fraction: float | None = None,
+                    mutable_stats: bool | None = None, ohem_fraction: float | None = None,
                     aux_weight: float = 0.0, objective: str = "pair",
                     propagate: str = "incremental", remat: bool = False):
     """The train step ``step(state, batch) -> (state, {'loss': loss})``:
     forward, loss, backward, the SGD update of the master weights, then the
     master weights into the model. ``objective``: 'pair' (batch 'data',
     'data_ref', 'eq_flag', 'label') or 'clip' (batch 'clip', 'label';
-    ``propagate`` and ``remat`` as ``clip_loss_and_stats`` takes them)."""
+    ``propagate`` and ``remat`` as ``clip_loss_and_stats`` takes them).
+    ``mutable_stats`` (None: the model's ``norm`` is 'batchnorm') carries
+    the BatchNorm running statistics from step to step; they live in the
+    model's buffers, so checkpoints (``state_dict``) hold them."""
     if objective not in ("pair", "clip"):
         raise ValueError(f"unknown objective {objective!r} (pair | clip)")
 
     def step(state: TrainState, batch: dict):
         model = state.model
+        stats = (getattr(model, "norm", "frozenbn") == "batchnorm" if mutable_stats is None
+                 else mutable_stats)
         model.zero_grad(set_to_none=True)
         if objective == "clip":
             loss, _ = clip_loss_and_stats(model, batch, num_classes, loss_scale, propagate,
-                                          mutable_stats, ohem_fraction, aux_weight, remat)
+                                          stats, ohem_fraction, aux_weight, remat)
         else:
-            loss, _ = pair_loss_and_stats(model, batch, num_classes, loss_scale, mutable_stats,
+            loss, _ = pair_loss_and_stats(model, batch, num_classes, loss_scale, stats,
                                           ohem_fraction, aux_weight)
         loss.backward()
         # a parameter the loss does not reach has a zero gradient, as in JAX

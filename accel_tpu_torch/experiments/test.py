@@ -117,8 +117,8 @@ def parse_args(argv=None):
                    help="csv of ANNOTATED-frame offsets after the keyframe (converted to "
                         "KEY_FRAME_OFFSET = interval-1-ann)")
     p.add_argument("--quantize", action="store_true",
-                   help="int8 serving quantization (network.quantize_ref/quantize_update); "
-                        "not ported yet: raises NotImplementedError")
+                   help="int8 serving quantization of both branches "
+                        "(network.quantize_ref/quantize_update) for this eval")
     p.add_argument("--set-network", action="append", default=[], metavar="K=V",
                    help="override a cfg.network field for this eval (after "
                         "TEST.serving_network), e.g. --set-network warp_dtype=native")

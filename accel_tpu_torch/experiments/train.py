@@ -18,9 +18,11 @@ is none; ``--device cpu`` runs the plain PyTorch versions of the kernels.
 One card has no mesh: the reference's ``tpu.*`` keys (mesh, prefetch
 depth, donation) are read by no part of this entry point, and
 ``TRAIN.BATCH_IMAGES`` is the batch of the one card. Pretrained
-initialisation (``network.pretrained``, ``pretrained_flow``,
-``pretrained_update``) is not ported yet and raises
-``NotImplementedError``. ``--set-network K=V`` overrides a
+initialisation (``network.pretrained``, ``pretrained_update``,
+``pretrained_flow``: MXNet ``.params``, ``.npz`` or torchvision ``.pth``)
+merges the files into the seeded weights before training
+(``core/pretrained.py``), the master copy taking their f32 values; the
+stages ``FIXED_PARAMS`` names stay frozen. ``--set-network K=V`` overrides a
 ``cfg.network`` field after the cfg is read, as the eval entry point's
 flag does (here also for a field the cfg schema lacks, such as
 ``dilated_conv``). An unknown flag is an error here, where the reference
@@ -44,6 +46,7 @@ from accel_tpu_torch.core.checkpoint import (
     save_provenance,
     train_checkpoint,
 )
+from accel_tpu_torch.core.pretrained import apply_pretrained_cfg
 from accel_tpu_torch.core.trainer import fit, init_train_state, make_optimizer, make_train_step
 from accel_tpu_torch.data.camvid import CamVid
 from accel_tpu_torch.data.cityscapes import Cityscape
@@ -74,10 +77,6 @@ def main(argv=None):
     args = parse_args(argv)
     cfg = load_config(args.cfg)
     apply_network_overrides(cfg, args.set_network)
-    set_keys = [k for k in PRETRAINED_KEYS if cfg.network.get(k)]
-    if set_keys:
-        raise NotImplementedError(f"network.{', '.join(set_keys)}: pretrained initialisation "
-                                  "is not ported yet")
     device = torch.device(args.device)
     cfg_name = os.path.splitext(os.path.basename(args.cfg))[0]
     logger, out_dir = create_logger(cfg.output_path, cfg_name, cfg.dataset.image_set)
@@ -93,8 +92,15 @@ def main(argv=None):
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"model {cfg.network.name} params {n_params / 1e6:.1f}M "
                 f"epoch_size {epoch_size}")
+    params = None
+    if any(cfg.network.get(k) for k in PRETRAINED_KEYS):
+        # merged in f32 on the host; the model takes them rounded to its
+        # dtypes, the master copy as they are
+        params = {k: v.detach().to("cpu", torch.float32) for k, v in model.state_dict().items()}
+        params, _ = apply_pretrained_cfg(cfg, params, logger)
+        model.load_state_dict(params)
     tx, _ = make_optimizer(cfg, epoch_size, model)
-    state = init_train_state(model, tx)
+    state = init_train_state(model, tx, params)
 
     prefix = os.path.join(out_dir, cfg.TRAIN.model_prefix)
     # the training semantics beside the checkpoints, before fit, so that an

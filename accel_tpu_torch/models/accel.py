@@ -21,7 +21,7 @@ from torch import nn
 from accel_tpu_torch.config.loader import Config
 from accel_tpu_torch.models.deeplab import DeepLab
 from accel_tpu_torch.models.flownet import FlowNetS
-from accel_tpu_torch.models.resnet import FrozenBatchNorm
+from accel_tpu_torch.models.resnet import BatchNorm, FrozenBatchNorm
 from accel_tpu_torch.ops.upsample import resize_bilinear
 from accel_tpu_torch.ops.warp import bilinear_warp, flow_to_feature_res
 from accel_tpu_torch.ops.warp_onehot import warp_onehot
@@ -46,9 +46,15 @@ class AccelNet(nn.Module):
     fields (``core/pipeline.py``). The update branch may run at its own
     output stride (``update_feat_stride``) and fc6 width
     (``update_head_channels``), 0 meaning the reference branch's, on frames
-    downscaled by ``update_input_downscale``. ``use_kernels=False`` runs
-    every kernel's plain PyTorch version even on CUDA tensors (for
-    comparing the two); on CPU tensors the plain versions always run."""
+    downscaled by ``update_input_downscale``; ``fold_update_downscale``
+    folds that downscale into the update branch's stem conv, and
+    ``fold_flow_downscale`` FlowNet's input downscale into per-frame conv1
+    partials (``ops/fold_downscale.py``). ``quantize_ref`` and
+    ``quantize_update`` serve a branch's block convs and fc6 through the
+    int8 conv (``ops/quant.py``). ``use_kernels=False`` runs every kernel's
+    plain PyTorch version (and the int8 conv's exact plain product) even on
+    CUDA tensors (for comparing the two); on CPU tensors the plain versions
+    always run."""
 
     def __init__(self, ref_depth=101, update_depth=18, num_classes=19, feat_stride=16,
                  head_channels=1024, head_dilation=6, flow_input_downscale=2,
@@ -56,8 +62,9 @@ class AccelNet(nn.Module):
                  flow_width_mult=1.0, scale_field_norm="none", scale_cascade="last",
                  family="accel", warp_dtype="f32", warp_gather="taps", warp_gain_fold=False,
                  dilated_conv="auto", update_feat_stride=0, update_head_channels=0,
-                 update_input_downscale=1, *, use_kernels=True, device=None,
-                 dtype=torch.bfloat16):
+                 update_input_downscale=1, fold_update_downscale=False,
+                 fold_flow_downscale=False, quantize_ref=False, quantize_update=False, *,
+                 use_kernels=True, device=None, dtype=torch.bfloat16):
         super().__init__()
         if scale_field_norm not in ("none", "mean1"):
             raise ValueError(f"unsupported scale_field_norm {scale_field_norm!r}")
@@ -79,17 +86,22 @@ class AccelNet(nn.Module):
         self.warp_gather = warp_gather
         self.warp_gain_fold = warp_gain_fold
         self.update_input_downscale = update_input_downscale
+        self.fold_update_downscale = fold_update_downscale
+        self.fold_flow_downscale = fold_flow_downscale
+        self.norm = norm
         self.dtype = dtype
         self.use_kernels = use_kernels
         branch = dict(num_classes=num_classes, output_stride=feat_stride,
                       head_channels=head_channels, head_dilation=head_dilation, norm=norm,
                       stem=stem, dilated_conv=dilated_conv, use_kernels=use_kernels,
                       device=device, dtype=dtype)
-        self.ref_net = DeepLab(ref_depth, **branch)
+        self.ref_net = DeepLab(ref_depth, quantize=quantize_ref, **branch)
         if family == "accel":
-            self.update_net = DeepLab(update_depth, **dict(
+            fold = fold_update_downscale and update_input_downscale > 1
+            self.update_net = DeepLab(update_depth, quantize=quantize_update, **dict(
                 branch, output_stride=update_feat_stride or feat_stride,
-                head_channels=update_head_channels or head_channels))
+                head_channels=update_head_channels or head_channels,
+                input_downscale=update_input_downscale if fold else 1))
             self.fusion = nn.Conv2d(2 * num_classes, num_classes, 1, device=device,
                                     dtype=torch.float32)
         if family in ("dff", "accel"):
@@ -117,10 +129,12 @@ class AccelNet(nn.Module):
     def update_scores(self, image):
         """Update-branch scores on the feature grid: the branch runs on the
         frame downscaled by ``update_input_downscale``, and its scores are
-        resized onto the grid where its stride or input size differ."""
+        resized onto the grid where its stride or input size differ. Under
+        ``fold_update_downscale`` the branch's stem conv reads the
+        full-resolution frame with the downscale folded in."""
         feat_hw = (image.shape[-2] // self.feat_stride, image.shape[-1] // self.feat_stride)
         ds = self.update_input_downscale
-        if ds > 1:
+        if ds > 1 and not self.fold_update_downscale:
             image = resize_bilinear(image, (image.shape[-2] // ds, image.shape[-1] // ds))
         s = self.update_net(image)
         if tuple(s.shape[-2:]) != feat_hw:
@@ -149,9 +163,30 @@ class AccelNet(nn.Module):
                    cur_small.shape[-1] * ds // self.feat_stride)
         return self._flow_post(flow_small, scale_small, feat_hw)
 
+    def flow_stem_partials(self, frames):
+        """Each full-resolution frame's FlowNet conv1 partials in its two
+        roles, (cur, anchor), with the flow input downscale folded in
+        (``fold_flow_downscale``): a group computes them once per frame and
+        combines them per pair."""
+        f = self.flow_input_downscale
+        return (self.flownet.stem_partial(frames, "cur", f),
+                self.flownet.stem_partial(frames, "anchor", f))
+
+    def flow_pair_from_partials(self, cur_part, anchor_part):
+        """Flow and scale field (as ``flow_pair``) from conv1 partials."""
+        flow_small, scale_small = self.flownet.from_conv1(cur_part + anchor_part)
+        ds = self.flow_input_downscale
+        feat_hw = (cur_part.shape[-2] * 2 * ds // self.feat_stride,
+                   cur_part.shape[-1] * 2 * ds // self.feat_stride)
+        return self._flow_post(flow_small, scale_small, feat_hw)
+
     def flow(self, cur, anchor):
         """Flow mapping cur-frame pixels to their anchor-frame source, at
         feature resolution and units, plus the scale field there."""
+        if self.fold_flow_downscale:
+            f = self.flow_input_downscale
+            return self.flow_pair_from_partials(self.flownet.stem_partial(cur, "cur", f),
+                                                self.flownet.stem_partial(anchor, "anchor", f))
         return self.flow_pair(self.downscale_for_flow(cur), self.downscale_for_flow(anchor))
 
     def norm_scale_gain(self, scale):
@@ -243,10 +278,10 @@ def init_weights(model: AccelNet, generator: torch.Generator) -> None:
             _lecun_normal_(mod.weight, generator)
             if mod.bias is not None:
                 mod.bias.zero_()
-        elif isinstance(mod, (FrozenBatchNorm, nn.GroupNorm)):
+        elif isinstance(mod, (FrozenBatchNorm, BatchNorm, nn.GroupNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
-            if isinstance(mod, FrozenBatchNorm):
+            if isinstance(mod, (FrozenBatchNorm, BatchNorm)):
                 mod.running_mean.zero_()
                 mod.running_var.fill_(1.0)
     if hasattr(model, "flownet"):
@@ -261,21 +296,11 @@ def init_weights(model: AccelNet, generator: torch.Generator) -> None:
         model.fusion.weight.copy_(torch.cat([eye, eye], dim=1).view(c, 2 * c, 1, 1))
 
 
-# cfg.network keys whose other values need code that a later port slice adds
+# cfg.network keys whose other values the port does not run
+# (use_scale_field: False drops the DFF scale field, which the port keeps)
 _ONLY = {
     "name": FAMILIES,
-    "norm": ("frozenbn", "groupnorm"),
-    "stem": ("conv7", "fused7"),
     "use_scale_field": (True,),
-    "warp_dtype": ("f32", "native"),
-    "warp_gather": ("taps", "stacked", "onehot"),
-    "warp_gain_fold": (False, True),
-    "fold_update_downscale": (False,),
-    "fold_flow_downscale": (False,),
-    "quantize_ref": (False,),
-    "quantize_update": (False,),
-    "dilated_conv": ("auto", "direct", "pallas", "pallas_fc6"),
-    "scale_cascade": SCALE_CASCADES,
 }
 
 
@@ -313,7 +338,8 @@ def build_model(network: Config | Mapping | None = None, *, num_classes: int | N
         "flow_input_downscale", "norm", "stem", "use_pallas_warp", "warp_max_disp",
         "flow_width_mult", "scale_field_norm", "scale_cascade", "warp_dtype", "warp_gather",
         "warp_gain_fold", "dilated_conv", "update_feat_stride", "update_head_channels",
-        "update_input_downscale") if k in net}
+        "update_input_downscale", "fold_update_downscale", "fold_flow_downscale",
+        "quantize_ref", "quantize_update") if k in net}
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA device; pass device='cpu' to build on the CPU")

@@ -6,8 +6,13 @@ predicted flow maps a pixel of ``cur`` to its source in ``anchor``, in
 FlowNet-input pixels, at 1/4 of that resolution. The predict convs start
 at zero (identity warp) and the scale field's bias at one (identity
 modulation). "Deconv" is a 2x bilinear resize followed by a 3x3 conv.
-Only conv1's ``pair`` role is ported; the folded ``cur``/``anchor`` roles
-wait with ``fold_flow_downscale``.
+
+Folded prologue (``stem_partial`` + ``from_conv1``): conv1 is linear in its
+6 input channels, so ``conv1(cat(d(cur), d(anchor)))`` is the sum of two
+per-frame convs of its kernel halves, each with the factor-f bilinear
+downscale ``d`` folded in (``ops/fold_downscale.py``), on full-resolution
+frames. A group computes each frame's two partials once and adds them per
+pair at 1/2f resolution; the bias rides the 'cur' half.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from accel_tpu_torch.ops.fold_downscale import fold_downscale_conv
 from accel_tpu_torch.ops.upsample import bilinear_upsample
 
 
@@ -66,6 +72,19 @@ class FlowNetS(nn.Module):
         """pair (N,6,H,W) = cat(cur, anchor), H and W divisible by 64 ->
         (flow (N,2,H/4,W/4), scale (N,S,H/4,W/4)), both f32."""
         return self.from_conv1(self.conv1(pair.to(self.dtype)))
+
+    def stem_partial(self, frame, role: str, fold: int):
+        """conv1's 'cur' (input channels 0:3, with the bias) or 'anchor'
+        (3:6) kernel half on one full-resolution frame (N,3,H,W) with the
+        factor-``fold`` downscale folded in, so that ``cur + anchor``
+        equals conv1 of the downscaled pair inside the fold's edge ring
+        (``accel_tpu``'s ``_Conv1`` roles)."""
+        if role not in ("cur", "anchor"):
+            raise ValueError(f"unknown conv1 role {role!r} (cur | anchor)")
+        w = self.conv1.weight
+        half = w[:, :3] if role == "cur" else w[:, 3:]
+        y = fold_downscale_conv(frame.to(self.dtype), half, fold, 2, 3)
+        return y + self.conv1.bias.view(1, -1, 1, 1) if role == "cur" else y
 
     def from_conv1(self, c1_preact):
         """The FlowNet-S tail from the (pre-activation) conv1 output."""

@@ -15,8 +15,26 @@ a CUDA tensor keeps its own dtype throughout.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+@functools.lru_cache(maxsize=None)
+def _down_taps(f: int) -> tuple[np.ndarray, np.ndarray]:
+    """Tap offsets and interior weights of the factor-``f`` antialiased
+    bilinear downscale: a stride-``f`` correlation with the triangle
+    ``tri((j - x_i) / f)`` sampled at ``x_i = f*i + (f-1)/2``, normalized
+    to sum 1 (``accel_tpu/ops/upsample.py::_down_taps``; the edge rows,
+    where taps fall outside the image, renormalize differently)."""
+    x0 = (f - 1) / 2.0
+    lo = int(np.floor(x0 - f)) + 1
+    hi = int(np.ceil(x0 + f)) - 1
+    offs = np.arange(lo, hi + 1)
+    w = np.maximum(0.0, 1.0 - np.abs((offs - x0) / f))
+    return offs, w / w.sum()
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

@@ -104,6 +104,27 @@ Phases, one JSON line each:
     ``grad_dilated_conv`` held. Then the bf16 median step times of the
     kernel and plain steps, alternating (CUDA events, first step out),
     and the kernel step's peak memory with one model alive.
+15. e2e_quant: bench.py's --quantize Accel-18 (both branches' block convs
+    and fc6 through the int8 conv: an int8 im2col and cuBLAS's int8 GEMM;
+    the fused7 stem stays float) at 1024x2048 through ``VideoSegmenter``:
+    an incremental and a direct group at B=1, a direct group at B=4 and an
+    incremental group through ``push_frame``, with the exact launches of
+    #1-#3 (no #5: int8 takes precedence) and the exact number of int8
+    GEMMs; its class maps against the plain model's (plain kernels and the
+    exact float64 int8 product), overall and off near-ties, within
+    ``QUANT_OVERALL``/``QUANT_CLEAR``, and against the plain model with
+    the stem kernel's output on >= 0.999; the int8 and bf16 models'
+    agreement and host times printed.
+16. e2e_fold_direct, e2e_fold_incremental: accel18_fast with
+    ``fold_update_downscale`` and ``fold_flow_downscale`` (conv7 stem),
+    held as in phase 10, with the exact launches (no stem kernel).
+17. e2e_train_bn: a full ResNet-101 ``.params`` with the reference's
+    Caffe names and random values is written, and the pair cfg with
+    ``norm: batchnorm`` trains from it through the train entry point (2
+    steps, 1 warp each; every backbone tensor merged; the running
+    statistics moved); then one pair step from the checkpoint with the
+    kernels and with the plain versions: the loss within 1e-3, every
+    gradient at cosine >= 0.999, every running statistic within 1e-3.
 
 Then the ``{"kernels": [...]}`` line (each kernel's first row, with its
 launches on one path it serves and per group there, and its launches on
@@ -124,6 +145,7 @@ import logging
 import math
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -144,6 +166,7 @@ from accel_tpu_torch.core.pipeline import (
     pair_loss_and_stats,
 )
 from accel_tpu_torch.core.predictor import pred_eval_clips
+from accel_tpu_torch.core.pretrained import apply_pretrained_cfg, caffe_resnet_table
 from accel_tpu_torch.core.serving import VideoSegmenter
 from accel_tpu_torch.core.trainer import init_train_state, make_optimizer, make_train_step
 from accel_tpu_torch.data.cityscapes import ANNOTATED_FRAME, Cityscape
@@ -153,9 +176,10 @@ from accel_tpu_torch.data.prefetch import to_device
 from accel_tpu_torch.experiments import test as eval_entry
 from accel_tpu_torch.experiments import train as train_entry
 from accel_tpu_torch.models.accel import build_model
-from accel_tpu_torch.models.resnet import DilatedResNet
+from accel_tpu_torch.models.resnet import BatchNorm, DilatedResNet
 from accel_tpu_torch.ops import dilated_cuda as dilated_ops
 from accel_tpu_torch.ops import fused_stem as stem_ops
+from accel_tpu_torch.ops import quant as quant_ops
 from accel_tpu_torch.ops import upsample_argmax as ua_ops
 from accel_tpu_torch.ops import warp_cuda as warp_ops
 from accel_tpu_torch.ops import warp_onehot as onehot_ops
@@ -173,6 +197,12 @@ FLAGSHIP_NET = dict(BENCH_NET, norm="groupnorm", stem="conv7", scale_field_norm=
 # frames with a 256-wide fc6, FlowNet at 1/4 input and half width
 FAST_NET = dict(BENCH_NET, update_head_channels=256, update_input_downscale=2,
                 flow_input_downscale=4, flow_width_mult=0.5)
+# bench.py's --quantize Accel-18 (:74-98): both branches' block convs and fc6 in
+# int8, the fused7 stem kept float
+INT8_NET = dict(BENCH_NET, quantize_ref=True, quantize_update=True)
+# accel18_fast with both downscales folded into the first convs; the fold
+# needs the conv7 stem (one knob for both branches, so no stem kernel here)
+FOLD_NET = dict(FAST_NET, stem="conv7", fold_update_downscale=True, fold_flow_downscale=True)
 # bench.py's accel18_os8mixed row (:518-525): the reference branch at stride 8,
 # the update branch at stride 16
 OS8MIXED_NET = dict(BENCH_NET, feat_stride=8, update_feat_stride=16)
@@ -863,10 +893,10 @@ def compare_paths(pred: torch.Tensor, ref: torch.Tensor, model, ref_model, frame
     return dict(c, logits_max_abs_err=(logits - ref_logits).abs().max().item())
 
 
-def check_class_maps(phase: str, c: dict, overall: float = 0.99) -> None:
-    """Two bf16 paths' class maps agree on >= 0.9999 of the clear pixels
+def check_class_maps(phase: str, c: dict, overall: float = 0.99, clear: float = 0.9999) -> None:
+    """Two bf16 paths' class maps agree on ``clear`` of the clear pixels
     and on ``overall`` of all of them."""
-    check(c["agreement"] >= overall and c["clear_agreement"] >= 0.9999,
+    check(c["agreement"] >= overall and c["clear_agreement"] >= clear,
           f"{phase} class maps: {c['agreement']}, {c['clear_agreement']} off near-ties")
 
 
@@ -1280,6 +1310,134 @@ def e2e_stream(phase: str, config: str, net: dict, seed: int, per_group: dict,
     return launched
 
 
+# ---- phase 15: int8 serving ------------------------------------------------------
+
+# the int8 kernel path's class maps against the plain int8 path's, overall
+# and on the clear pixels. The two differ only in the stem (the kernel and
+# the plain stem round apart on ~0.005% of its bf16 outputs; with the
+# stem's output shared the maps agree on >= 0.9999999 of the pixels on an
+# H100): a value moved across a quantization step moves a whole int8 step,
+# and the flips compound through 104 quantized convs, so random weights
+# flip far more pixels than between two bf16 paths. Measured on an H100
+# (700 W): 0.966-0.973 overall, 0.995-0.998 clear, the same order as int8
+# against bf16 (0.962).
+QUANT_OVERALL, QUANT_CLEAR = 0.95, 0.99
+
+# int8 convs (cuBLAS int8 GEMMs) of one pass: R101 33 blocks x 3 convs + 4
+# downsamples + fc6, R18 8 blocks x 2 convs + 3 downsamples + fc6
+INT8_CONVS = {101: 33 * 3 + 4 + 1, 18: 8 * 2 + 3 + 1}
+
+
+def quant_groups(model, clip: torch.Tensor, clip4: torch.Tensor) -> dict:
+    """The int8 phase's serving run: an incremental and a direct group at
+    B=1 and a direct group at B=4 through ``push_group``, then an
+    incremental group through ``push_frame``: {name: (class maps, host ms)}."""
+    segs = {p: VideoSegmenter(model, K, propagate=p) for p in ("incremental", "direct")}
+    out = {"incremental": timed_group(segs["incremental"], clip[:, :K]),
+           "direct": timed_group(segs["direct"], clip[:, K:2 * K]),
+           "direct_B4": timed_group(segs["direct"], clip4)}
+    segs["incremental"].reset()
+    preds, ms = stream_group(segs["incremental"], clip[:, 2 * K:])
+    out["push_frame"] = (preds, sum(ms))
+    return out
+
+
+def e2e_quant() -> dict[str, int]:
+    """Phase 15: int8 Accel-18 (``INT8_NET``) at 1024x2048 through
+    ``VideoSegmenter``: the groups of ``quant_groups``, with the exact
+    launches (both stems and one tail a group, 4 warps an incremental
+    group, 1 a direct one; per frame through ``push_frame``), no dilated
+    conv (int8 takes precedence), and the exact number of int8 GEMMs.
+    Against the plain model (the kernels' plain versions and the exact
+    float64 int8 product) on the same groups: the class maps overall and
+    off near-ties (``compare_class_maps``), and, against the plain model
+    with the stem kernel's output, >= 0.999 overall (the int8 product is
+    exact on both sides, so only the warp and the tail round apart). The
+    int8 class maps' agreement with the bf16 model's on the B=1 groups is
+    printed, as are the host times of both. Returns the launches."""
+    model = build_model(INT8_NET, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    clip = moving_clip(3 * K, (H, W), SEED + 80, "cuda")
+    max_flow = live_flow_heads(model, clip, SEED + 81)
+    check(max_flow > 0.5, f"e2e_quant: flow {max_flow} too small to exercise the warp")
+    clip4 = torch.cat([moving_clip(K, (H, W), SEED + 82 + b, "cuda") for b in range(4)])
+    groups = {"incremental": ("incremental", clip[:, :K]), "direct": ("direct", clip[:, K:2 * K]),
+              "direct_B4": ("direct", clip4), "push_frame": ("incremental", clip[:, 2 * K:])}
+    quant_groups(model, clip, clip4)  # warm-up
+    reset_counts()
+    mm0 = quant_ops.int_mm.launches
+    out = quant_groups(model, clip, clip4)
+    launched, int_mm = counts(), quant_ops.int_mm.launches - mm0
+    for name, (pred, _) in out.items():
+        check_pred(pred, (4 if name == "direct_B4" else 1, K, H, W))
+    # push_frame: both stems on the key frame, the update stem on each other
+    expected = launches_of(fused_stem=2 * 3 + 2 + (K - 1), warp=(K - 1) + 1 + 1 + (K - 1),
+                           upsample_argmax=3 + K)
+    passes = INT8_CONVS[101] + INT8_CONVS[18]
+    # a group: the key frame's R101 and one R18 call over its B*k frames;
+    # push_frame: the key's R101 and an R18 call per frame
+    expected_mm = 3 * passes + INT8_CONVS[101] + K * INT8_CONVS[18]
+
+    plain = build_model(INT8_NET, device="cuda", generator=torch.Generator().manual_seed(SEED),
+                        use_kernels=False)
+    plain.load_state_dict(model.state_dict())
+    reset_counts()
+    mm0 = quant_ops.int_mm.launches
+    plain_out = quant_groups(plain, clip, clip4)
+    check(not any(counts().values()) and quant_ops.int_mm.launches == mm0,
+          f"e2e_quant: the plain path launched {counts()}, "
+          f"{quant_ops.int_mm.launches - mm0} int8 GEMMs")
+    vs_plain = {}
+    for name, (propagate, frames) in groups.items():
+        pred, ref = out[name][0], plain_out[name][0]
+        vs_plain[name] = [compare_class_maps(pred[b:b + 1], ref[b:b + 1], plain,
+                                             frames[b:b + 1], propagate)[0]
+                          for b in range(pred.shape[0])]
+    del plain
+    same_stem = plain_with_kernel_stem(INT8_NET, model.state_dict())
+    same_out = quant_groups(same_stem, clip, clip4)
+    vs_same_stem = {name: (out[name][0] == same_out[name][0]).float().mean().item()
+                    for name in groups}
+    del same_stem, same_out
+    bf16 = build_model(BENCH_NET, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    bf16.load_state_dict(model.state_dict())
+    quant_groups(bf16, clip, clip4)  # warm-up
+    bf16_out = quant_groups(bf16, clip, clip4)
+    int8_vs_bf16 = {name: (out[name][0] == bf16_out[name][0]).float().mean().item()
+                    for name in groups}
+    bf16_ms = {name: ms for name, (_, ms) in bf16_out.items()}
+    del bf16, bf16_out
+    emit(dict(phase="e2e_quant", config="accel18 int8 (quantize_ref, quantize_update) frozenbn "
+              "fused7 bf16", hw=[H, W], k=K, max_abs_flow=max_flow,
+              group_ms={name: ms for name, (_, ms) in out.items()},
+              plain_group_ms={name: ms for name, (_, ms) in plain_out.items()},
+              bf16_group_ms=bf16_ms,
+              kernels_vs_plain=vs_plain, class_agreement_vs_plain_same_stem=vs_same_stem,
+              int8_vs_bf16_class_agreement=int8_vs_bf16, launches=launched,
+              int8_gemms=int_mm, card=card()))
+    check(launched == expected, f"e2e_quant launches {launched} != {expected}")
+    check(int_mm == expected_mm, f"e2e_quant int8 GEMMs {int_mm} != {expected_mm}")
+    for name, per_clip in vs_plain.items():
+        for b, c in enumerate(per_clip):
+            check_class_maps(f"e2e_quant kernel vs plain, {name} clip {b}", c, QUANT_OVERALL,
+                             QUANT_CLEAR)
+    for name, agree in vs_same_stem.items():
+        check(agree >= 0.999, f"e2e_quant kernel vs plain with the kernel stem, {name}: {agree}")
+    return launched
+
+
+def e2e_fold() -> dict[str, int]:
+    """Phase 16: the folded fast model (``FOLD_NET``), a direct and an
+    incremental group as ``e2e_variant`` holds them. The conv7 stem runs
+    through cuDNN, so only the warp and the tail kernels launch."""
+    launched = {}
+    for propagate, warps, seed in (("direct", 1, SEED + 90), ("incremental", K - 1, SEED + 92)):
+        got = e2e_variant(f"e2e_fold_{propagate}", "accel18_fast conv7 fold_update_downscale "
+                          "fold_flow_downscale bf16", FOLD_NET, propagate, seed,
+                          launches_of(warp=warps, upsample_argmax=1))
+        launched = {name: launched.get(name, 0) + n for name, n in got.items()}
+    return launched
+
+
 # ---- phase 12: video eval from a cfg file ---------------------------------------
 
 REPO = Path(__file__).resolve().parent
@@ -1492,7 +1650,8 @@ def loss_and_grads(model, batch: dict, objective: str, cfg) -> tuple[float, dict
                                       propagate=str(cfg.network.propagate),
                                       remat=bool(tr.remat), **kw)
     else:
-        loss, _ = pair_loss_and_stats(model, batch, int(cfg.dataset.NUM_CLASSES), **kw)
+        loss, _ = pair_loss_and_stats(model, batch, int(cfg.dataset.NUM_CLASSES),
+                                      mutable_stats=model.norm == "batchnorm", **kw)
     loss.backward()
     torch.cuda.synchronize()
     grads = {n: p.grad.float() for n, p in model.named_parameters() if p.grad is not None}
@@ -1707,6 +1866,135 @@ def e2e_train(phase: str, cfg_name: str, root: Path, data: Path, per_step: dict,
     return launched
 
 
+def write_mxnet_params(path: Path, arrays: dict) -> None:
+    """An MXNet NDArray-list ``.params`` file (the V2 dense f32 records
+    ``utils/mxnet_io.py`` reads) of ``arrays`` {'arg:name' | 'aux:name':
+    float32 array}."""
+    with open(path, "wb") as f:
+        f.write(struct.pack("<QQQ", 0x112, 0, len(arrays)))
+        for a in arrays.values():
+            f.write(struct.pack(f"<Iii{a.ndim}qiii", 0xF993FAC9, 0, a.ndim, *a.shape, 1, 0, 0))
+            f.write(a.astype("<f4").tobytes())
+        f.write(struct.pack("<Q", len(arrays)))
+        for name in arrays:
+            f.write(struct.pack("<Q", len(name)) + name.encode())
+
+
+def write_caffe_resnet(path: Path, depth: int, seed: int) -> int:
+    """A ResNet-``depth`` ``.params`` with the Caffe/MSRA names of the
+    reference's pretrained files (``caffe_resnet_table``), every tensor of
+    the port's backbone at its shape, random values from ``seed`` (convs
+    at variance 1/fan_in, BN scales near 1, small biases and means,
+    variances near 1), and ImageNet's ``fc1000`` classifier, which nothing
+    takes. Returns the number of backbone tensors written."""
+    shapes = {k: tuple(v.shape) for k, v in DilatedResNet(depth, device="meta").state_dict().items()}
+    g = torch.Generator().manual_seed(seed)
+    arrays = {}
+    for name, key in caffe_resnet_table(depth).items():
+        if key not in shapes:  # a block that keeps its shape has no branch1
+            continue
+        shape = shapes[key]
+        if len(shape) == 4:
+            t = torch.randn(shape, generator=g) / math.sqrt(shape[1] * shape[2] * shape[3])
+        elif key.endswith(("weight", "running_var")):
+            t = 0.5 + torch.rand(shape, generator=g)
+        else:
+            t = 0.1 * torch.randn(shape, generator=g)
+        arrays[f"{'aux' if 'running' in key else 'arg'}:{name}"] = t.numpy()
+    n = len(arrays)
+    arrays["arg:fc1000_weight"] = torch.randn((1000, 2048), generator=g).numpy()
+    write_mxnet_params(path, arrays)
+    return n
+
+
+def e2e_train_bn(root: Path, data: Path) -> dict[str, int]:
+    """Phase 17: running-stat BatchNorm trained from pretrained weights. A
+    full ResNet-101 ``.params`` with Caffe names and random values is
+    written; the pair cfg with ``norm: batchnorm`` (conv7 stem) and
+    ``pretrained`` naming that file trains one epoch (2 steps) through the
+    train entry point, with 1 warp a step; every backbone tensor of the
+    file lands in the reference branch (``apply_pretrained_cfg``'s report)
+    and the checkpoint's running statistics moved from the file's and are
+    finite. Then, from the checkpoint's weights with live flow heads, one
+    pair step (batch statistics in the pair forward, running statistics in
+    the aux passes, then the commit) with the kernels and with the plain
+    versions on one batch, in the cfg's bf16: the loss within 1e-3
+    relative, every gradient at cosine >= 0.999 and every running
+    statistic within 1e-3 relative of the plain step's (the backbones
+    hold no kernel on this path, so the statistics come out equal).
+    Returns the entry point's launches."""
+    phase = "e2e_train_bn"
+    flags = ["--set-network", "norm=batchnorm", "--set-network", "stem=conv7",
+             "--set-network", f"pretrained={root / 'resnet'}"]
+    path = eval_cfg("accel18_cityscapes_pair", root, data, stem=phase, end_epoch=1)
+    cfg = load_config(str(path))
+    eval_entry.apply_network_overrides(cfg, flags[1::2])
+    depth = int(cfg.network.ref_depth)
+    n_file = write_caffe_resnet(root / "resnet-0000.params", depth, SEED + 100)
+    backbone = DilatedResNet(depth, norm="batchnorm").state_dict()
+    merged, reports = apply_pretrained_cfg(cfg, {f"ref_net.backbone.{k}": v
+                                                 for k, v in backbone.items()})
+    check(reports["ref"]["matched"] == n_file and reports["ref"]["unmatched"] == ["fc1000_weight"],
+          f"{phase}: pretrained merge {reports['ref']['matched']} of {n_file}, "
+          f"unmatched {reports['ref']['unmatched']}")
+    reset_counts()
+    t0 = time.perf_counter()
+    state = train_entry.main(["--cfg", str(path), "--frequent", "1", *flags])
+    wall_s = time.perf_counter() - t0
+    launched, steps = counts(), state.step
+    del state
+    out_dir = root / "out" / phase / cfg.dataset.image_set
+    rows = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in rows]
+    check(launched == launches_of(warp=steps), f"{phase} launches {launched} ({steps} steps)")
+    check(steps == 2 and all(math.isfinite(x) for x in losses), f"{phase}: losses {losses}")
+    ckpt = load_checkpoint(str(out_dir / cfg.TRAIN.model_prefix), 0)["model"]
+    stat_keys = [k for k in ckpt if k.endswith(("running_mean", "running_var"))]
+    check(all(torch.isfinite(ckpt[k]).all() for k in stat_keys), f"{phase}: running stats")
+    file_stats = [k for k in merged if k.endswith(("running_mean", "running_var"))]
+    trained_moved = sum(not torch.equal(ckpt[k], merged[k]) for k in file_stats)
+    check(trained_moved == len(file_stats),
+          f"{phase}: {trained_moved} of the file's {len(file_stats)} statistics moved")
+
+    imdb = Cityscape(cfg.dataset.image_set, str(root / f"cache_{phase}"), str(data))
+    host = next(iter(TrainPairLoader(imdb, cfg, seed=1)))
+    batch = to_device(host, "cuda", keys=tuple(host))
+    frames = torch.stack([batch["data_ref"], batch["data"]], dim=1).permute(0, 1, 3, 4, 2)
+    models = {}
+    for path_name in ("kernels", "plain"):
+        m = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED),
+                        use_kernels=path_name == "kernels")
+        m.load_state_dict(ckpt if path_name == "kernels" else models["kernels"].state_dict())
+        if path_name == "kernels":
+            max_flow = live_flow_heads(m, frames, SEED + 101)
+            check(max_flow > 0.5, f"{phase}: flow {max_flow} too small to exercise the warp")
+        models[path_name] = m
+    runs = {p: loss_and_grads(m, batch, "pair", cfg) for p, m in models.items()}
+    check(runs["kernels"][2] == launches_of(warp=1), f"{phase}: step launches {runs['kernels'][2]}")
+    check(not any(runs["plain"][2].values()), f"{phase}: the plain step launched")
+    agreement = grad_agreement(runs["kernels"], runs["plain"])
+    stats = {p: {k: v for k, v in m.state_dict().items() if k in stat_keys}
+             for p, m in models.items()}
+    stat_err = max(((stats["kernels"][k] - stats["plain"][k]).abs().max()
+                    / stats["plain"][k].abs().max().clamp_min(1e-12)).item() for k in stat_keys)
+    stat_moved = sum(not torch.equal(stats["kernels"][k], ckpt[k].cuda()) for k in stat_keys)
+    emit(dict(phase=phase, cfg="experiments/cfgs/accel18_cityscapes_pair.yaml",
+              set_network=flags[1::2], pretrained_tensors=n_file,
+              entry_point=dict(steps=steps, losses=losses, wall_s=wall_s, launches=launched,
+                               file_statistics_moved=trained_moved),
+              batchnorms=sum(isinstance(x, BatchNorm) for x in models["kernels"].modules()),
+              max_abs_flow=max_flow, kernels_vs_plain=agreement,
+              running_stats_max_rel_err=stat_err, running_stats=len(stat_keys),
+              running_stats_moved_by_the_step=stat_moved, card=card()))
+    check(agreement["loss_rel_diff"] <= 1e-3, f"{phase}: loss {agreement}")
+    check(agreement["cosine_min"] >= 0.999, f"{phase}: gradient cosines {agreement}")
+    check(stat_err <= 1e-3, f"{phase}: running statistics differ by {stat_err}")
+    check(stat_moved == len(stat_keys), f"{phase}: {stat_moved} of {len(stat_keys)} moved")
+    del models, batch
+    torch.cuda.empty_cache()
+    return launched
+
+
 @functools.cache
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
@@ -1787,6 +2075,10 @@ def main() -> int:
         "composed", SEED + 26, launches_of(fused_stem=1, warp_onehot=(K - 2) + 1,
                                            upsample_argmax=1), overall=0.98)
     torch.cuda.empty_cache()
+    quant_launched = e2e_quant()
+    torch.cuda.empty_cache()
+    fold_launched = e2e_fold()
+    torch.cuda.empty_cache()
     # eval from the cfg files: the flagship's 4 step warps and one tail per
     # clip (groupnorm + conv7, no stem kernel); DFF's one batched one-hot
     # warp and one tail
@@ -1820,6 +2112,7 @@ def main() -> int:
             "e2e_train_dilated", "accel18_cityscapes", root, data,
             launches_of(warp=2 * (K - 1), dilated_conv=38 + 29, dilated_conv_dx=38), None,
             set_network=("dilated_conv=pallas",))
+        bn_launched = e2e_train_bn(root, data)
     # each kernel with the launches of one path it serves: (path, launches, groups)
     paths = {name: ("accel18", accel_launched[name], accel_groups)
              for name in ("warp", "upsample_argmax", "fused_stem")}
@@ -1832,7 +2125,9 @@ def main() -> int:
                "dff composed": dff_composed_launched, "accel18 cfg eval": eval_launched,
                "dff cfg eval": dff_eval_launched, "accel18 clip train": train_launched,
                "accel18 pair train": pair_launched,
-               "accel18 clip train dilated_conv=pallas": dilated_launched}
+               "accel18 clip train dilated_conv=pallas": dilated_launched,
+               "accel18 int8": quant_launched, "accel18_fast fold": fold_launched,
+               "accel18 pair train batchnorm pretrained": bn_launched}
 
     keys = ("max_abs_err", "shape", "ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "library_call")

@@ -25,6 +25,13 @@ device ms of each of the port's kernels and the eight largest device
 events by name (summed per name's first 80 characters). The profiler's
 own host overhead is inside host ms.
 
+Two rows compare two models on the same weights, both on the kernel
+path: int8 Accel-18 (``INT8_NET``) against the bf16 one, and the folded
+accel18_fast (``FOLD_NET``, conv7 stem) against the same model with the
+downscales resized. Then the int8 convs of one group split into their
+parts (``int8_split``) and the folded first convs against resize + conv
+(``fold_split``).
+
 Then one train step of the flagship cfg (``experiments/cfgs/
 accel18_cityscapes.yaml``: the clip objective, B=2 x 5 frames at 768x768,
 remat, aux loss, SGD on f32 master weights) and of the pair cfg (B=4),
@@ -70,6 +77,110 @@ def busy_ms(events) -> float:
     return total / 1e3
 
 
+def int8_split(cs, hw) -> None:
+    """Int8 Accel-18's int8 convs of one B=1 incremental group, timed part
+    by part at the shapes the group gives them: the activation's quantize
+    pass (abs-max, divide, round, clip, int8), the im2col, the int8 GEMM
+    (``torch._int_mm``), the f32 rescale to bf16, and the bf16 cuDNN conv
+    of the same shape (the float model's conv). Median CUDA-event ms of
+    each part per conv, summed over the group's convs; one line per
+    branch."""
+    import torch
+    import torch.nn.functional as F
+
+    from accel_tpu_torch.core.serving import VideoSegmenter
+    from accel_tpu_torch.models.accel import build_model
+    from accel_tpu_torch.models.resnet import Int8Conv2d
+    from accel_tpu_torch.ops import quant
+
+    model = build_model(cs.INT8_NET, device="cuda",
+                        generator=torch.Generator().manual_seed(cs.SEED))
+    calls, hooks = [], []
+    for branch in ("ref_net", "update_net"):
+        for m in getattr(model, branch).modules():
+            if isinstance(m, Int8Conv2d):
+                hooks.append(m.register_forward_hook(
+                    lambda mod, i, o, b=branch: calls.append((b, mod, tuple(i[0].shape)))))
+    clip = cs.moving_clip(cs.K, hw, cs.SEED + 6, "cuda")
+    with torch.inference_mode():
+        VideoSegmenter(model, cs.K, propagate="incremental").push_group(clip)
+    for h in hooks:  # the timed calls below are not the group's
+        h.remove()
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    parts = {b: dict(convs=0, quantize=0.0, im2col=0.0, int_mm=0.0, rescale=0.0,
+                     int8_total=0.0, bf16_cudnn=0.0, gemm_ops=0) for b in ("ref_net", "update_net")}
+    with torch.inference_mode():
+        for branch, mod, shape in calls:
+            x = torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
+            w = mod._quantized(mod.weight)
+            st, pad, dil = mod.stride, mod.padding, mod.dilation
+            xq, xs = quant.quantize_symmetric(x)
+            cols, ho, wo = quant.im2col_int8(xq, w.q.shape[2:], st, pad, dil)
+            acc = quant.int_mm(cols, w.mat)
+            scale = (xs * w.scale).view(1, -1, 1, 1)
+            acc4 = acc.reshape(shape[0], ho, wo, -1).permute(0, 3, 1, 2)
+            row = parts[branch]
+            row["convs"] += 1
+            row["gemm_ops"] += 2 * cols.shape[0] * cols.shape[1] * w.mat.shape[1]
+            row["quantize"] += cs.median_ms(lambda: quant.quantize_symmetric(x), 3)
+            row["im2col"] += cs.median_ms(
+                lambda: quant.im2col_int8(xq, w.q.shape[2:], st, pad, dil), 3)
+            row["int_mm"] += cs.median_ms(lambda: quant.int_mm(cols, w.mat), 3)
+            row["rescale"] += cs.median_ms(lambda: (acc4.float() * scale).to(x.dtype), 3)
+            row["int8_total"] += cs.median_ms(lambda: mod(x), 3)
+            row["bf16_cudnn"] += cs.median_ms(
+                lambda: F.conv2d(x, mod.weight, None, st, pad, dil), 3)
+            del x, xq, cols, acc, acc4
+    for branch, row in parts.items():
+        print(json.dumps(dict(config="accel18 int8 conv split", branch=branch,
+                              group="B=1 incremental, k=5", **row)), flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+
+def fold_split(cs, hw) -> None:
+    """The folded first convs of accel18_fast at one group's shapes
+    (B*k = 5 frames at 1024x2048, bf16), against the resize + conv they
+    replace: the update stem (f=2, a 16x16 stride-4 composed kernel) and
+    FlowNet's conv1 at ``flow_input_downscale`` 4 (f=4, two 32x32
+    stride-8 half kernels per frame, then the pair sum, against the resize,
+    the 6-channel pair concat and conv1 on the k-1 pairs). Median CUDA-event
+    ms of each."""
+    import torch
+    import torch.nn.functional as F
+
+    from accel_tpu_torch.ops.fold_downscale import fold_downscale_conv
+    from accel_tpu_torch.ops.upsample import resize_bilinear
+
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    x = torch.randn((cs.K, 3, *hw), generator=g, device="cuda", dtype=torch.bfloat16)
+    w7 = torch.randn((64, 3, 7, 7), generator=g, device="cuda", dtype=torch.bfloat16) / 12
+    c1 = torch.randn((32, 6, 7, 7), generator=g, device="cuda", dtype=torch.bfloat16) / 17
+    b1 = torch.zeros(32, device="cuda", dtype=torch.bfloat16)
+    h2, w2 = hw[0] // 2, hw[1] // 2
+    h4, w4 = hw[0] // 4, hw[1] // 4
+
+    def flow_fold():
+        cur = fold_downscale_conv(x, c1[:, :3], 4, 2, 3) + b1.view(1, -1, 1, 1)
+        anchor = fold_downscale_conv(x, c1[:, 3:], 4, 2, 3)
+        return cur[1:] + anchor[:-1]
+
+    def flow_resize():
+        small = resize_bilinear(x, (h4, w4))
+        return F.conv2d(torch.cat([small[1:], small[:-1]], dim=1), c1, b1, 2, 3)
+
+    with torch.inference_mode():
+        rows = dict(
+            update_stem_fold_ms=cs.median_ms(lambda: fold_downscale_conv(x, w7, 2, 2, 3)),
+            update_stem_resize_ms=cs.median_ms(lambda: resize_bilinear(x, (h2, w2))),
+            update_stem_resize_conv7_ms=cs.median_ms(
+                lambda: F.conv2d(resize_bilinear(x, (h2, w2)), w7, None, 2, 3)),
+            flow_conv1_fold_ms=cs.median_ms(flow_fold),
+            flow_conv1_resize_ms=cs.median_ms(flow_resize))
+    print(json.dumps(dict(config="accel18_fast fold split", frames=cs.K, hw=list(hw),
+                          dtype="bf16", **rows)), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=None, help="checkout to import accel_tpu_torch from")
@@ -95,20 +206,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     K, hw = cs.K, (cs.H, cs.W)
 
-    def models(net, seed_clip, paths):
+    def models(nets, seed_clip, paths):
+        """The models the row's paths serve, {key: (net, use_kernels)}: the
+        first drawn from the seed with live flow heads, the others holding
+        its weights."""
         clip = cs.moving_clip(3 * K, hw, seed_clip, "cuda")
         out = {}
-        for path in ("kernels", "plain"):
-            if path not in {model for model, _ in paths.values()}:
+        for key, (net, use_kernels) in nets.items():
+            if key not in {model for model, _ in paths.values()}:
                 continue
-            m = build_model(net, device="cuda", use_kernels=path == "kernels",
+            m = build_model(net, device="cuda", use_kernels=use_kernels,
                             generator=torch.Generator().manual_seed(cs.SEED))
-            if hasattr(m, "flownet"):
-                if path == "kernels":
-                    cs.live_flow_heads(m, clip, cs.SEED + 7)
-                else:
-                    m.load_state_dict(out["kernels"].state_dict())
-            out[path] = m
+            if out:
+                m.load_state_dict(next(iter(out.values())).state_dict())
+            elif hasattr(m, "flownet"):
+                cs.live_flow_heads(m, clip, cs.SEED + 7)
+            out[key] = m
         return out, clip
 
     def push_group(seg, frames):
@@ -155,16 +268,31 @@ def main() -> int:
         print(json.dumps(dict(tree=args.tree or ".", **row, idle_share=1 - device_ms / host_ms)),
               flush=True)
 
-    # each row: its paths, label -> (model, serving protocol)
+    # each row: its models, key -> (net, use_kernels), and its paths,
+    # label -> (model, serving protocol)
     kernel_vs_plain = {"kernels": ("kernels", "group"), "plain": ("plain", "group")}
-    configs = (("accel18", cs.BENCH_NET, ("incremental", "direct"), kernel_vs_plain),
-               ("dff", cs.DFF_NET, ("incremental", "direct"), kernel_vs_plain),
-               ("deeplab101 pallas", dict(cs.DEEPLAB_NET, dilated_conv="pallas"), ("direct",),
+
+    def kernels_and_plain(net):
+        return {"kernels": (net, True), "plain": (net, False)}
+
+    configs = (("accel18", kernels_and_plain(cs.BENCH_NET), ("incremental", "direct"),
                 kernel_vs_plain),
-               ("accel18 per frame", cs.BENCH_NET, ("incremental", "direct"),
-                {"push_frame": ("kernels", "frame"), "push_group": ("kernels", "group")}))
-    for name, net, propagates, paths in configs:
-        built, clip = models(net, cs.SEED + 6, paths)
+               ("dff", kernels_and_plain(cs.DFF_NET), ("incremental", "direct"), kernel_vs_plain),
+               ("deeplab101 pallas", kernels_and_plain(dict(cs.DEEPLAB_NET, dilated_conv="pallas")),
+                ("direct",), kernel_vs_plain),
+               ("accel18 per frame", kernels_and_plain(cs.BENCH_NET), ("incremental", "direct"),
+                {"push_frame": ("kernels", "frame"), "push_group": ("kernels", "group")}),
+               )
+    # a tree from before int8 and the folds has neither row
+    if hasattr(cs, "INT8_NET"):
+        configs += (
+            ("accel18 int8 vs bf16", {"int8": (cs.INT8_NET, True), "bf16": (cs.BENCH_NET, True)},
+             ("incremental", "direct"), {"int8": ("int8", "group"), "bf16": ("bf16", "group")}),
+            ("accel18_fast conv7 fold vs resize",
+             {"fold": (cs.FOLD_NET, True), "resize": (dict(cs.FAST_NET, stem="conv7"), True)},
+             ("incremental", "direct"), {"fold": ("fold", "group"), "resize": ("resize", "group")}))
+    for name, nets, propagates, paths in configs:
+        built, clip = models(nets, cs.SEED + 6, paths)
         labels = list(paths)
         for propagate in propagates:
             for i in range(args.repeat):
@@ -175,6 +303,10 @@ def main() -> int:
                          device_ms=device_ms, kernels_ms=by_kernel, top_ms=top)
         del built
         torch.cuda.empty_cache()
+
+    if hasattr(cs, "INT8_NET"):
+        int8_split(cs, hw)
+        fold_split(cs, hw)
 
     # training: one step of each train cfg, kernel path against plain path
     g = torch.Generator(device="cuda").manual_seed(cs.SEED)

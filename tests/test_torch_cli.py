@@ -154,7 +154,50 @@ def test_main_without_a_card_raises(monkeypatch):
         t_entry.main(["--cfg", cfg, "--random-weights"])
 
 
-def test_quantize_is_not_ported_yet():
-    cfg = os.path.join(REPO, "experiments", "cfgs", "smoke_tiny_cpu.yaml")
-    with pytest.raises(NotImplementedError, match="quantize_ref"):
-        t_entry.main(["--cfg", cfg, "--random-weights", "--quantize", "--device", "cpu"])
+QUANT_CFG = """\
+output_path: {out}
+SCALES: [[128, 256]]
+network:
+  name: accel
+  ref_depth: 18
+  update_depth: 18
+  head_channels: 32
+  dtype: float32
+  propagate: direct
+dataset:
+  dataset: CityScape
+  dataset_path: {data}
+  root_path: {root}
+  image_set: leftImg8bit_train
+  test_image_set: leftImg8bit_val
+TEST:
+  KEY_FRAME_INTERVAL: 3
+"""
+
+
+def test_quantize_is_not_ported_yet(tmp_path, monkeypatch):
+    """``--quantize`` serves both branches through the int8 convs (it sets
+    ``quantize_ref`` and ``quantize_update``, as the reference's flag
+    does): the eval runs end to end on the CPU with every block conv and
+    fc6 of both branches quantized."""
+    from torch_parity import write_cityscapes_tree
+
+    from accel_tpu_torch.models.resnet import Int8Conv2d
+
+    data = write_cityscapes_tree(tmp_path, 128, 256, snippets=1, cities=("aachen",))
+    path = tmp_path / "quant.yaml"
+    path.write_text(QUANT_CFG.format(out=tmp_path / "out", data=data, root=tmp_path))
+    built = []
+
+    def recording_build(*args, **kwargs):
+        built.append(t_entry_build(*args, **kwargs))
+        return built[-1]
+
+    t_entry_build = t_entry.build_model
+    monkeypatch.setattr(t_entry, "build_model", recording_build)
+    (result,) = t_entry.main(["--cfg", str(path), "--random-weights", "--quantize",
+                              "--device", "cpu", "--max-items", "1"])
+    assert 0.0 <= result["miou"] <= 1.0 and result["stats"]["frames"] == 3
+    (model,) = built
+    for branch in (model.ref_net, model.update_net):
+        assert sum(isinstance(m, Int8Conv2d) for m in branch.modules()) == 20

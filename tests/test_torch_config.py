@@ -13,7 +13,7 @@ import yaml
 from accel_tpu.config import load_config as j_load_config
 from accel_tpu_torch.config import default_config, load_config, safe_load
 from accel_tpu_torch.models.accel import build_model
-from accel_tpu_torch.models.resnet import FrozenBatchNorm
+from accel_tpu_torch.models.resnet import BatchNorm, FrozenBatchNorm
 
 torch.set_num_threads(2)
 CFGS = sorted((Path(__file__).resolve().parents[1] / "experiments" / "cfgs").glob("*.yaml"))
@@ -102,12 +102,26 @@ def test_build_model_takes_the_cfg_defaults():
 
 
 def test_cfg_values_not_ported_raise():
-    cfg = default_config()
-    cfg.network.update(ref_depth=18, head_channels=32, dtype="float32", quantize_ref=True)
-    with pytest.raises(NotImplementedError, match="quantize_ref"):
-        build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
-    cfg.network.update(quantize_ref=False, stem="s2d")
-    with pytest.raises(NotImplementedError, match="stem"):
+    """Every value of these keys that ``accel_tpu``'s ``build_model`` takes
+    builds a model here; ``use_scale_field: false`` (a FlowNet without the
+    DFF scale field) is the value the port still refuses."""
+    norms = {"batchnorm": BatchNorm, "frozenbn": FrozenBatchNorm, "groupnorm": torch.nn.GroupNorm}
+    for key, value in [("norm", "batchnorm"), ("norm", "frozenbn"), ("stem", "s2d"),
+                       ("stem", "fused7"), ("quantize_ref", True), ("quantize_update", True),
+                       ("fold_flow_downscale", True), ("fold_update_downscale", True),
+                       ("dilated_conv", "s2b"), ("dilated_conv", "shift1x1"),
+                       ("dilated_conv", "pallas"), ("dilated_conv", "pallas_fc6")]:
+        cfg = default_config()
+        cfg.network.update(ref_depth=18, update_depth=18, head_channels=32, dtype="float32",
+                           update_input_downscale=2)
+        if value == "fused7":
+            cfg.network.norm = "frozenbn"
+        cfg.network[key] = value
+        model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        assert model.ref_net.backbone.stem == cfg.network.stem, (key, value)
+        assert isinstance(model.ref_net.backbone.bn, norms[cfg.network.norm]), (key, value)
+    cfg.network.use_scale_field = False
+    with pytest.raises(NotImplementedError, match="use_scale_field"):
         build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
 
 

@@ -86,7 +86,8 @@ def test_variant_clip_matches_jax(variant, propagate):
 
 def test_build_model_takes_the_fast_knobs():
     """build_model passes the three update-branch knobs through, inherits
-    where they are 0, and still refuses the folded downscale."""
+    where they are 0, and folds the update downscale into the update
+    branch's stem where asked."""
     gen = torch.Generator().manual_seed(3)
     m = build_model(dict(BASE, name="accel", dtype="float32", update_head_channels=16,
                          update_input_downscale=2, update_feat_stride=8),
@@ -97,6 +98,7 @@ def test_build_model_takes_the_fast_knobs():
                                update_feat_stride=0), device="cpu", generator=gen)
     assert inherit.update_net.head.fc6.out_channels == 32
     assert inherit.update_net.backbone.layer4_block0.conv2.dilation == (2, 2)  # stride 16
-    with pytest.raises(NotImplementedError, match="fold_update_downscale"):
-        build_model(dict(BASE, name="accel", update_input_downscale=2,
-                         fold_update_downscale=True), device="cpu", generator=gen)
+    folded = build_model(dict(BASE, name="accel", dtype="float32", update_input_downscale=2,
+                              fold_update_downscale=True), device="cpu", generator=gen)
+    assert folded.update_net.backbone.input_downscale == 2
+    assert folded.ref_net.backbone.input_downscale == 1

@@ -34,6 +34,6 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # ops (8), models (4), core (7), config (2), data (7), utils (2),
+    # ops (10), models (4), core (8), config (2), data (7), utils (3),
     # experiments (2), kernels, convert and seven package inits
-    assert int(out.stdout.strip()) == 41
+    assert int(out.stdout.strip()) == 45

@@ -95,10 +95,10 @@ def test_unported_modes_raise(tiny):
         tpipe.clip_logits(tm, nchw(clip), 5, "sideways")
     with pytest.raises(ValueError, match="divisible"):
         tpipe.clip_logits(tm, nchw(clip), 3)
-    with pytest.raises(NotImplementedError, match="dilated_conv"):
-        build_model({"dilated_conv": "s2b"}, generator=torch.Generator())
-    with pytest.raises(NotImplementedError, match="fold_update_downscale"):
-        build_model({"fold_update_downscale": True}, generator=torch.Generator())
+    with pytest.raises(ValueError, match="dilated_conv"):
+        build_model({"dilated_conv": "sideways"}, device="cpu", generator=torch.Generator())
+    with pytest.raises(NotImplementedError, match="use_scale_field"):
+        build_model({"use_scale_field": False}, generator=torch.Generator())
 
 
 @pytest.mark.parametrize("n,chunk", [(5, 5), (20, 20), (25, 5), (40, 20)])

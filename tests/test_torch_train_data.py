@@ -8,7 +8,8 @@ train state resumes it exactly. ``python3 -m
 accel_tpu_torch.experiments.train --device cpu`` trains a tiny model
 (R18 / R18, head 32, f32, 128x128 crops) for an epoch, its checkpoint is
 evaluated by the port's eval entry point, and ``TRAIN.RESUME`` carries it
-on from there; a cfg that asks for pretrained weights raises.
+on from there; a cfg that names pretrained weights (an MXNet ``.params``)
+starts from them.
 """
 
 import json
@@ -184,13 +185,44 @@ def test_train_entry_point_trains_and_its_checkpoint_evaluates(tree):
     assert tck.load_checkpoint(str(prefix), 1)["optimizer"]["count"] == 4
 
 
-def test_train_entry_point_refuses_what_is_not_ported(tree):
-    path = write_cfg(tree, "pretrained", pretrained="resnet_v1_101.params")
-    with pytest.raises(NotImplementedError, match="pretrained"):
-        t_train.main(["--cfg", path, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="pretrained_flow"):
+def test_train_entry_point_refuses_what_is_not_ported(tree, monkeypatch):
+    """``network.pretrained`` names an MXNet ``.params`` by its prefix
+    (``{prefix}-{epoch:04d}.params``): its Caffe-named conv1 and stem norm
+    scale start the reference backbone (the f32 master copy and the model
+    take them exactly), the moving mean, which a groupnorm model has no
+    place for, is reported unmatched, and the model trains from there. A
+    missing pretrained file, an unknown flag and a missing card are
+    refused."""
+    from tests.test_convert import _write_mxnet_params
+
+    root, _ = tree
+    rng = np.random.default_rng(7)
+    conv1 = rng.standard_normal((64, 3, 7, 7)).astype(np.float32)
+    gamma = rng.uniform(0.5, 1.5, 64).astype(np.float32)
+    _write_mxnet_params(str(root / "r18-0000.params"),
+                        {"arg:conv1_weight": conv1, "arg:bn_conv1_gamma": gamma,
+                         "aux:bn_conv1_moving_mean": np.zeros(64, np.float32)})
+    path = write_cfg(tree, "pretrained", objective="pair", pretrained=str(root / "r18"))
+    starts = []
+
+    def recording_init(model, tx, params=None):
+        state = ttrainer.init_train_state(model, tx, params)
+        starts.append({k: v.clone() for k, v in state.master.items()})
+        return state
+
+    monkeypatch.setattr(t_train, "init_train_state", recording_init)
+    state = t_train.main(["--cfg", path, "--device", "cpu"])
+    (start,) = starts
+    np.testing.assert_array_equal(start["ref_net.backbone.conv1.weight"].numpy(), conv1)
+    np.testing.assert_array_equal(start["ref_net.backbone.bn.weight"].numpy(), gamma)
+    assert state.step == 2 and not torch.equal(state.master["ref_net.backbone.conv1.weight"],
+                                               start["ref_net.backbone.conv1.weight"])
+    prefix = root / "out" / "pretrained" / "leftImg8bit_train" / "tiny"
+    assert tck.saved_epochs(str(prefix)) == [0]
+
+    with pytest.raises(FileNotFoundError, match="flownet"):
         t_train.main(["--cfg", write_cfg(tree, "flow"), "--device", "cpu",
-                      "--set-network", "pretrained_flow=flownet.params"])
+                      "--set-network", f"pretrained_flow={root / 'flownet'}"])
     with pytest.raises(SystemExit):
         t_train.main(["--cfg", path, "--device", "cpu", "--no-such-flag"])
     if torch.cuda.is_available():
