@@ -65,10 +65,13 @@ def _chunked_apply(fn, x: torch.Tensor, scale=None):
     multiplies one chunk at a time. ``fn`` returns a tensor or a tuple of
     tensors; chunks are concatenated per element. The chunks are those of
     the JAX package's ``lax.map``, so an int8 branch quantizes each chunk
-    with its own activation scales, as there."""
+    with its own activation scales, as there. A symbolic frame count (a
+    program traced with a batch-polymorphic clip) runs unchunked, as the
+    JAX package runs it under ``jax.export``: the chunk size needs a
+    concrete count."""
     n = x.shape[0]
     limit = MAX_FULLRES_FRAMES_PER_DISPATCH
-    if n <= limit:
+    if isinstance(n, torch.SymInt) or n <= limit:
         return fn(_scaled(x, scale))
     c = max(d for d in range(1, limit + 1) if n % d == 0)
     outs = [fn(_scaled(x[i:i + c], scale)) for i in range(0, n, c)]
@@ -234,8 +237,9 @@ def propagate_step(model, carry, prod, flow, scale, cascade: str):
     the scored copy: by this step's normalized scale field ('last'), or by
     the cumulative product of the fields, warped along and renormalized
     ('mean1') or clamped ('clamp'), which ``prod`` carries (None at the
-    first step and under 'product'/'last')."""
-    if cascade == "product":
+    first step and under 'product'/'last'). A model without the scale
+    field takes the 'product' step, whose warp modulates nothing."""
+    if cascade == "product" or not model.use_scale_field:
         warped = model.warp(carry, flow, scale)
         return warped, None, warped
     s = model.norm_scale(scale)
@@ -398,11 +402,21 @@ def clip_predictions(model, clip: torch.Tensor, interval: int, propagate: str = 
     'bilinear_logits_xla' (the same, materialized, one frame at a time)
     or 'nearest_pred' (argmax at stride, each class repeated over its
     H/h x W/w block)."""
+    return clip_predictions_body(model, clip, interval, propagate, full_res, upsample,
+                                 input_scale)
+
+
+def clip_predictions_body(model, clip: torch.Tensor, interval: int,
+                          propagate: str = "incremental", full_res: bool = True,
+                          upsample: str = "bilinear_logits", input_scale=None) -> torch.Tensor:
+    """``clip_predictions`` under the caller's grad mode: the program
+    ``core/export.py`` traces (``torch.export`` does not trace into
+    ``torch.inference_mode``)."""
     if upsample not in UPSAMPLES:
         raise ValueError(f"unknown upsample {upsample!r} {UPSAMPLES}")
     B, F, H, W, _ = clip.shape
-    logits = clip_logits(model, clip.permute(0, 1, 4, 2, 3).contiguous(), interval, propagate,
-                         input_scale)
+    logits = train_clip_logits(model, clip.permute(0, 1, 4, 2, 3).contiguous(), interval,
+                               propagate, input_scale=input_scale)
     if not full_res or upsample == "nearest_pred":
         pred = logits.argmax(dim=2).to(torch.uint8)
         if not full_res:

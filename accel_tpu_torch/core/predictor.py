@@ -80,7 +80,8 @@ def make_key_cur_predictors(model, full_res_pred: bool = True,
     have: they raise under 'incremental'."""
     if propagate not in ("direct", "incremental"):
         raise ValueError(f"propagate must be direct|incremental, got {propagate!r}")
-    if propagate == "incremental" and model.scale_cascade in ("mean1", "clamp"):
+    if (propagate == "incremental" and model.use_scale_field
+            and model.scale_cascade in ("mean1", "clamp")):
         raise ValueError(
             f"scale_cascade={model.scale_cascade!r} is not representable in the key/cur "
             "streaming protocol under incremental propagation; use 'last' or 'product', "

@@ -39,7 +39,9 @@ class AccelNet(nn.Module):
     propagated tensor's dtype). ``warp_gather``: 'taps' or 'stacked'
     (the same plain warp here, where the kernel does not take the map) or
     'onehot' (the wide-feature warp, with the scale modulation fused into
-    it).
+    it). ``use_scale_field=False`` drops FlowNet's scale-field head: the
+    warp modulates nothing (under 'onehot' the kernel takes no scale) and
+    incremental propagation carries the product cascade.
     ``warp_gain_fold`` folds mean1's per-sample gain into that fused
     epilogue. ``scale_cascade`` ('last', 'product', 'mean1', 'clamp') is
     what incremental and composed propagation do with the per-step scale
@@ -63,8 +65,9 @@ class AccelNet(nn.Module):
                  family="accel", warp_dtype="f32", warp_gather="taps", warp_gain_fold=False,
                  dilated_conv="auto", update_feat_stride=0, update_head_channels=0,
                  update_input_downscale=1, fold_update_downscale=False,
-                 fold_flow_downscale=False, quantize_ref=False, quantize_update=False, *,
-                 use_kernels=True, device=None, dtype=torch.bfloat16):
+                 fold_flow_downscale=False, quantize_ref=False, quantize_update=False,
+                 use_scale_field=True, *, use_kernels=True, device=None,
+                 dtype=torch.bfloat16):
         super().__init__()
         if scale_field_norm not in ("none", "mean1"):
             raise ValueError(f"unsupported scale_field_norm {scale_field_norm!r}")
@@ -82,6 +85,7 @@ class AccelNet(nn.Module):
         self.warp_max_disp = warp_max_disp
         self.scale_field_norm = scale_field_norm
         self.scale_cascade = scale_cascade
+        self.use_scale_field = use_scale_field
         self.warp_dtype = warp_dtype
         self.warp_gather = warp_gather
         self.warp_gain_fold = warp_gain_fold
@@ -106,7 +110,8 @@ class AccelNet(nn.Module):
                                     dtype=torch.float32)
         if family in ("dff", "accel"):
             scale_channels = head_channels if self.warp_tensor == "features" else num_classes
-            self.flownet = FlowNetS(scale_channels, flow_width_mult, device=device, dtype=dtype)
+            self.flownet = FlowNetS(scale_channels, flow_width_mult, use_scale_field,
+                                    device=device, dtype=dtype)
 
     @property
     def warp_tensor(self) -> str:
@@ -203,7 +208,9 @@ class AccelNet(nn.Module):
         """Warp the propagated tensor (in f32, or in its own dtype under
         ``warp_dtype='native'``) and (``modulate``) multiply by the
         (``normalize_scale``: normalized) scale field. Under
-        ``warp_gather='onehot'`` the multiply is fused into the warp."""
+        ``warp_gather='onehot'`` the multiply is fused into the warp.
+        Without the scale field nothing is modulated."""
+        modulate = modulate and self.use_scale_field
         x = prop if self.warp_dtype == "native" else prop.to(torch.float32)
         d = self.warp_max_disp if max_disp is None else max_disp
         plain = not self.use_kernels
@@ -272,7 +279,7 @@ def init_weights(model: AccelNet, generator: torch.Generator) -> None:
     """Seeded init of every parameter and buffer, in module order: lecun
     normal convs with zero biases, unit norms, zero predict heads, a scale
     field of one, and the fusion ``0.5*I | 0.5*I`` (the last two where the
-    family has them)."""
+    model has them)."""
     for mod in model.modules():
         if isinstance(mod, nn.Conv2d):
             _lecun_normal_(mod.weight, generator)
@@ -287,21 +294,16 @@ def init_weights(model: AccelNet, generator: torch.Generator) -> None:
     if hasattr(model, "flownet"):
         fn = model.flownet
         for name in ("predict_flow6", "predict_flow5", "predict_flow4", "predict_flow3",
-                     "predict_flow2", "scale_field"):
+                     "predict_flow2"):
             getattr(fn, name).weight.zero_()
-        fn.scale_field.bias.fill_(1.0)
+        if fn.use_scale_field:
+            fn.scale_field.weight.zero_()
+            fn.scale_field.bias.fill_(1.0)
     if hasattr(model, "fusion"):
         c = model.num_classes
         eye = 0.5 * torch.eye(c, dtype=torch.float32)
         model.fusion.weight.copy_(torch.cat([eye, eye], dim=1).view(c, 2 * c, 1, 1))
 
-
-# cfg.network keys whose other values the port does not run
-# (use_scale_field: False drops the DFF scale field, which the port keeps)
-_ONLY = {
-    "name": FAMILIES,
-    "use_scale_field": (True,),
-}
 
 
 def build_model(network: Config | Mapping | None = None, *, num_classes: int | None = None,
@@ -316,8 +318,8 @@ def build_model(network: Config | Mapping | None = None, *, num_classes: int | N
     ``cfg.network``-style keys, where a missing key takes ``AccelNet``'s
     defaults and ``num_classes`` defaults to 19.
 
-    Values this port does not run yet raise ``NotImplementedError``. The
-    model lives on ``device``, by default the card ("cuda"); without one
+    Every value ``accel_tpu``'s ``build_model`` takes builds; an unknown
+    family or knob value raises ``ValueError``. The model lives on ``device``, by default the card ("cuda"); without one
     it raises rather than build on the CPU, which takes ``device="cpu"``.
     The parameters are drawn from ``generator`` on its own device, so one
     seed gives the same weights on every device."""
@@ -327,10 +329,6 @@ def build_model(network: Config | Mapping | None = None, *, num_classes: int | N
         network = network.network
     net = dict(network or {})
     num_classes = 19 if num_classes is None else num_classes
-    for key, allowed in _ONLY.items():
-        if key in net and net[key] not in allowed:
-            raise NotImplementedError(
-                f"network.{key}={net[key]!r} is not ported yet (supported: {allowed})")
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
         net.get("dtype", "bfloat16")]
     kwargs = {k: net[k] for k in (
@@ -339,7 +337,7 @@ def build_model(network: Config | Mapping | None = None, *, num_classes: int | N
         "flow_width_mult", "scale_field_norm", "scale_cascade", "warp_dtype", "warp_gather",
         "warp_gain_fold", "dilated_conv", "update_feat_stride", "update_head_channels",
         "update_input_downscale", "fold_update_downscale", "fold_flow_downscale",
-        "quantize_ref", "quantize_update") if k in net}
+        "quantize_ref", "quantize_update", "use_scale_field") if k in net}
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA device; pass device='cpu' to build on the CPU")

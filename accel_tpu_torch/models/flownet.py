@@ -5,7 +5,9 @@ Input is the channel concat ``[cur, anchor]`` at FlowNet resolution; the
 predicted flow maps a pixel of ``cur`` to its source in ``anchor``, in
 FlowNet-input pixels, at 1/4 of that resolution. The predict convs start
 at zero (identity warp) and the scale field's bias at one (identity
-modulation). "Deconv" is a 2x bilinear resize followed by a 3x3 conv.
+modulation). Without the scale field (``use_scale_field=False``) there is
+no ``scale_field`` head and the scale is all ones. "Deconv" is a 2x
+bilinear resize followed by a 3x3 conv.
 
 Folded prologue (``stem_partial`` + ``from_conv1``): conv1 is linear in its
 6 input channels, so ``conv1(cat(d(cur), d(anchor)))`` is the sum of two
@@ -30,10 +32,12 @@ def _leaky(x):
 
 
 class FlowNetS(nn.Module):
-    def __init__(self, scale_channels=19, width_mult=1.0, *, device=None,
-                 dtype=torch.bfloat16):
+    def __init__(self, scale_channels=19, width_mult=1.0, use_scale_field=True, *,
+                 device=None, dtype=torch.bfloat16):
         super().__init__()
         self.dtype = dtype
+        self.scale_channels = scale_channels
+        self.use_scale_field = use_scale_field
         wm = lambda ch: max(int(ch * width_mult), 16)  # noqa: E731
 
         def conv(cin, ch, k, s):
@@ -66,7 +70,8 @@ class FlowNetS(nn.Module):
         self.predict_flow4 = predict(cat4, 2)
         self.predict_flow3 = predict(cat3, 2)
         self.predict_flow2 = predict(cat2, 2)
-        self.scale_field = predict(cat2, scale_channels)
+        if use_scale_field:
+            self.scale_field = predict(cat2, scale_channels)
 
     def forward(self, pair):
         """pair (N,6,H,W) = cat(cur, anchor), H and W divisible by 64 ->
@@ -113,4 +118,7 @@ class FlowNetS(nn.Module):
         flow3 = self.predict_flow3(cat3.to(f32))
         cat2 = torch.cat([c2, _leaky(upconv(self.deconv2, cat3)), upflow(flow3)], dim=1)
         flow2 = self.predict_flow2(cat2.to(f32))
+        if not self.use_scale_field:
+            return flow2, flow2.new_ones((flow2.shape[0], self.scale_channels,
+                                          *flow2.shape[2:]))
         return flow2, self.scale_field(cat2.to(f32))

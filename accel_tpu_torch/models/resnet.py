@@ -155,12 +155,18 @@ class PackedWeight:
     move to other storage. A plain attribute, so ``state_dict`` keeps only
     the parameter. A write through ``param.data`` does not bump the
     version and is not seen: write parameters with ``copy_`` under
-    ``torch.no_grad()``, as the trainer does."""
+    ``torch.no_grad()``, as the trainer does. While a program is traced
+    (``torch.export``) the packing is computed from the parameter inside
+    the program and the cache is neither read nor written, so a program
+    that takes its weights as an argument packs the weights it is called
+    with."""
 
     def __init__(self, pack):
         self.pack, self.key, self.value = pack, None, None
 
     def __call__(self, param: torch.Tensor, *args) -> torch.Tensor:
+        if torch.compiler.is_compiling():
+            return self.pack(param.detach(), *args)
         key = (param.data_ptr(), param._version, *args)
         if key != self.key:
             self.value, self.key = self.pack(param.detach(), *args), key

@@ -18,6 +18,12 @@ counted in ``conv3x3_dilated_cuda.backward_launches``); dw is
 ``torch.nn.grad.conv2d_weight``, as the JAX backward takes dw from the lax
 transpose. The dx conv's input is the output gradient, so the bf16 kernel
 needs the forward's Cout % 8 == 0 there, which every ResNet conv has.
+
+``conv3x3_dilated_op`` (``torch.ops.accel_tpu_torch.conv3x3_dilated``) is
+the forward kernel as a ``torch.library`` op, for programs that
+``torch.export`` traces: the kernel on a CUDA tensor, the plain version on
+a CPU tensor and a fake implementation for shapes. A traced program serves
+and registers no gradient; the dx stays inside ``DilatedConvFunction``.
 """
 
 from __future__ import annotations
@@ -148,13 +154,34 @@ class DilatedConvFunction(torch.autograd.Function):
         return dx, dw, None, None, None
 
 
+@torch.library.custom_op("accel_tpu_torch::conv3x3_dilated", mutates_args=(),
+                         device_types="cuda")
+def conv3x3_dilated_op(x: torch.Tensor, weight: torch.Tensor, dilation: int,
+                       packed: torch.Tensor | None) -> torch.Tensor:
+    """#5's forward as an op: ``conv3x3_dilated_cuda`` on a CUDA tensor."""
+    return conv3x3_dilated_cuda(x, weight, dilation, packed)
+
+
+@conv3x3_dilated_op.register_kernel("cpu")
+def _(x, weight, dilation, packed):
+    return conv3x3_dilated_plain(x, weight, dilation).contiguous()
+
+
+@conv3x3_dilated_op.register_fake
+def _(x, weight, dilation, packed):
+    return x.new_empty((x.shape[0], weight.shape[0], *x.shape[2:]))
+
+
 def conv3x3_dilated(x: torch.Tensor, weight: torch.Tensor, dilation: int,
                     plain: bool = False, packed: torch.Tensor | None = None,
                     packed_dx=None) -> torch.Tensor:
     """Dilated 3x3 conv, no bias: the kernel for a CUDA tensor (with the
     pre-packed weights ``packed`` if given; through ``DilatedConvFunction``,
     with ``packed_dx`` for its dx, where autograd records it), the plain
-    version for a CPU tensor or when ``plain`` is set."""
+    version for a CPU tensor or when ``plain`` is set;
+    ``conv3x3_dilated_op`` while a program is traced."""
+    if not plain and torch.compiler.is_compiling():
+        return conv3x3_dilated_op(x, weight, int(dilation), packed)
     if plain or x.device.type == "cpu":
         return conv3x3_dilated_plain(x, weight, dilation)
     if needs_grad(x, weight):

@@ -9,6 +9,12 @@ and sums are f32.
 Gradients (``FusedStemFunction``) are those of ``accel_tpu``'s custom VJP
 (``ops/fused_stem.py:201-218``): autograd through the plain stem with
 respect to x, the weights, inv and shift.
+
+``fused_stem_op`` (``torch.ops.accel_tpu_torch.fused_stem``) is the kernel
+as a ``torch.library`` op, for programs that ``torch.export`` traces: the
+kernel on a CUDA tensor, the plain version on a CPU tensor, a fake
+implementation for shapes, and the same gradients. The dispatcher
+:func:`fused_stem` routes through it while a program is traced.
 """
 
 from __future__ import annotations
@@ -94,19 +100,48 @@ def fused_stem_cuda(x: torch.Tensor, weight: torch.Tensor, inv: torch.Tensor,
 fused_stem_cuda.launches = 0
 
 
+def _save(ctx, inputs, output) -> None:
+    ctx.save_for_backward(*inputs[:4])
+
+
+def _backward(ctx, grad):
+    """Autograd through ``fused_stem_plain`` on the saved inputs; none
+    for the packing."""
+    return (*plain_vjp(fused_stem_plain, ctx.saved_tensors, ctx.needs_input_grad[:4], grad),
+            None)
+
+
 class FusedStemFunction(torch.autograd.Function):
     """``fused_stem_cuda`` in the forward; in the backward, autograd
     through ``fused_stem_plain`` on the saved inputs."""
 
     @staticmethod
     def forward(ctx, x, weight, inv, shift, packed):
-        ctx.save_for_backward(x, weight, inv, shift)
+        _save(ctx, (x, weight, inv, shift, packed), None)
         return fused_stem_cuda(x, weight, inv, shift, packed)
 
-    @staticmethod
-    def backward(ctx, grad):
-        return (*plain_vjp(fused_stem_plain, ctx.saved_tensors, ctx.needs_input_grad[:4],
-                           grad), None)
+    backward = staticmethod(_backward)
+
+
+@torch.library.custom_op("accel_tpu_torch::fused_stem", mutates_args=(), device_types="cuda")
+def fused_stem_op(x: torch.Tensor, weight: torch.Tensor, inv: torch.Tensor, shift: torch.Tensor,
+                  packed: torch.Tensor | None) -> torch.Tensor:
+    """#3 as an op: ``fused_stem_cuda`` on a CUDA tensor."""
+    return fused_stem_cuda(x, weight, inv, shift, packed)
+
+
+fused_stem_op.register_autograd(_backward, setup_context=_save)
+
+
+@fused_stem_op.register_kernel("cpu")
+def _(x, weight, inv, shift, packed):
+    return fused_stem_plain(x, weight, inv, shift).contiguous()
+
+
+@fused_stem_op.register_fake
+def _(x, weight, inv, shift, packed):
+    N, _, H, W = x.shape
+    return x.new_empty((N, 64, (H - 1) // 2 + 1, (W - 1) // 2 + 1))
 
 
 def fused_stem(x: torch.Tensor, weight: torch.Tensor, inv: torch.Tensor,
@@ -115,7 +150,10 @@ def fused_stem(x: torch.Tensor, weight: torch.Tensor, inv: torch.Tensor,
     """relu(conv7x7/2(x) * inv + shift): the kernel for a CUDA tensor (with
     the pre-packed weights ``packed`` if given; through
     ``FusedStemFunction`` where autograd records it), the plain version for
-    a CPU tensor or when ``plain`` is set."""
+    a CPU tensor or when ``plain`` is set; ``fused_stem_op`` while a
+    program is traced."""
+    if not plain and torch.compiler.is_compiling():
+        return fused_stem_op(x, weight, inv, shift, packed)
     if plain or x.device.type == "cpu":
         return fused_stem_plain(x, weight, inv, shift)
     if needs_grad(x, weight, inv, shift):

@@ -12,11 +12,13 @@ operands with an int32 result), outside any Pallas kernel. On the card the
 port does the same with a library product: an int8 im2col (pad and strided
 slices of the int8 tensor, NHWC rows; a 1x1 conv is a reshape) and cuBLAS's
 int8 GEMM, ``torch._int_mm`` (int32 out). ``torch._int_mm`` on CUDA wants
-m > 16 and k, n multiples of 8: every quantized ResNet and fc6 conv has
-Cin*kh*kw and Cout multiples of 8 (``int_mm`` checks it), and a frame's
-pixels are far more than 16. The plain version computes the same int32 accumulators
-exactly: ``F.conv2d`` in float64 on the integer values (127^2 * K < 2^53
-for every K here).
+m > 16 and k, n multiples of 8 (``int_mm`` checks it), so
+``int8_conv_acc_gemm`` zero-pads the im2col rows up to 17 and k and n up
+to multiples of 8 (the weights once, in ``QuantizedWeight``), then slices
+the product back: zero rows and columns add nothing to an int32
+accumulator, so every conv shape computes exactly. The plain version
+computes the same int32 accumulators exactly: ``F.conv2d`` in float64 on
+the integer values (127^2 * K < 2^53 for every K here).
 
 Weights are quantized once per weight version (``QuantizedWeight``); the
 JAX package quantizes them at trace time, which XLA folds into constants.
@@ -46,13 +48,15 @@ def quantize_symmetric(x: torch.Tensor, dim: int | None = None):
 
 class QuantizedWeight:
     """A conv weight (Cout, Cin, kh, kw) quantized per output channel:
-    ``q`` (int8, OIHW), ``scale`` (Cout,) f32 and ``mat`` (kh*kw*Cin, Cout)
-    int8, the GEMM's B operand in the im2col's (ky, kx, c) order."""
+    ``q`` (int8, OIHW), ``scale`` (Cout,) f32 and ``mat``, the GEMM's int8
+    B operand: (kh*kw*Cin, Cout) in the im2col's (ky, kx, c) order,
+    zero-padded to multiples of 8 in both dimensions."""
 
     def __init__(self, weight: torch.Tensor):
         self.q, s = quantize_symmetric(weight, dim=0)
         self.scale = s.reshape(-1)
-        self.mat = self.q.permute(2, 3, 1, 0).reshape(-1, weight.shape[0]).contiguous()
+        mat = self.q.permute(2, 3, 1, 0).reshape(-1, weight.shape[0])
+        self.mat = F.pad(mat, (0, -mat.shape[1] % 8, 0, -mat.shape[0] % 8)).contiguous()
 
 
 def int8_conv_acc_plain(xq: torch.Tensor, wq: torch.Tensor, stride, padding,
@@ -101,11 +105,20 @@ int_mm.launches = 0
 def int8_conv_acc_gemm(xq: torch.Tensor, w: QuantizedWeight, stride, padding,
                        dilation) -> torch.Tensor:
     """The int32 accumulators through im2col and ``int_mm`` -> (N,Cout,Ho,Wo)
-    int32, channels innermost in memory. Runs on the card and on the CPU."""
-    kh, kw = w.q.shape[2:]
+    int32, channels innermost in memory. The im2col rows are zero-padded to
+    at least 17 and its columns to ``w.mat``'s padded k, and the product is
+    sliced back to (rows, Cout): exact for every shape. Runs on the card and
+    on the CPU."""
+    Cout, _, kh, kw = w.q.shape
     cols, Ho, Wo = im2col_int8(xq, (kh, kw), stride, padding, dilation)
+    m, k = cols.shape
+    pad_k, pad_m = w.mat.shape[0] - k, max(17 - m, 0)
+    if pad_k or pad_m:
+        cols = F.pad(cols, (0, pad_k, 0, pad_m))
     acc = int_mm(cols, w.mat)
-    return acc.reshape(xq.shape[0], Ho, Wo, -1).permute(0, 3, 1, 2)
+    if pad_m or acc.shape[1] != Cout:
+        acc = acc[:m, :Cout]
+    return acc.reshape(xq.shape[0], Ho, Wo, Cout).permute(0, 3, 1, 2)
 
 
 def int8_conv2d(x: torch.Tensor, weight: torch.Tensor | QuantizedWeight, stride=1, padding=0,

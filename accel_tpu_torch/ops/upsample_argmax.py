@@ -5,9 +5,16 @@ full-resolution C-channel logits. The kernel is
 ``kernels/upsample_argmax.cu``. An argmax has no gradient: the kernel
 raises on logits that autograd records rather than return a class map cut
 from the graph without a word.
+
+``upsample_argmax_op`` (``torch.ops.accel_tpu_torch.upsample_argmax``) is
+the kernel as a ``torch.library`` op, for programs that ``torch.export``
+traces: the kernel on a CUDA tensor, the plain version on a CPU tensor and
+a fake implementation for shapes; it registers no gradient.
 """
 
 from __future__ import annotations
+
+from collections.abc import Sequence
 
 import torch
 
@@ -78,11 +85,29 @@ def upsample_argmax_cuda(logits: torch.Tensor, out_hw: tuple[int, int]) -> torch
 upsample_argmax_cuda.launches = 0
 
 
+@torch.library.custom_op("accel_tpu_torch::upsample_argmax", mutates_args=(),
+                         device_types="cuda")
+def upsample_argmax_op(logits: torch.Tensor, out_hw: Sequence[int]) -> torch.Tensor:
+    """#2 as an op: ``upsample_argmax_cuda`` on a CUDA tensor."""
+    return upsample_argmax_cuda(logits, out_hw)
+
+
+upsample_argmax_op.register_kernel("cpu")(upsample_argmax_plain)
+
+
+@upsample_argmax_op.register_fake
+def _(logits, out_hw):
+    return logits.new_empty((logits.shape[0], out_hw[0], out_hw[1]), dtype=torch.uint8)
+
+
 def upsample_argmax(logits: torch.Tensor, out_hw: tuple[int, int],
                     plain: bool = False) -> torch.Tensor:
     """``argmax(resize_bilinear(logits, out_hw), dim=1)`` as uint8: the
     kernel for a CUDA tensor, the plain version for a CPU tensor or when
-    ``plain`` is set (``accel_tpu``'s ``upsample_argmax_or_oracle``)."""
+    ``plain`` is set (``accel_tpu``'s ``upsample_argmax_or_oracle``);
+    ``upsample_argmax_op`` while a program is traced."""
+    if not plain and torch.compiler.is_compiling():
+        return upsample_argmax_op(logits, [int(out_hw[0]), int(out_hw[1])])
     if plain or logits.device.type == "cpu":
         return upsample_argmax_plain(logits, out_hw)
     return upsample_argmax_cuda(logits, out_hw)

@@ -8,6 +8,12 @@ Gradients (``WarpFunction``) are those of ``accel_tpu``'s custom VJP
 (``ops/warp.py:139-152``): autograd through the plain warp on the same
 clamped flow, so the gradient with respect to the flow is zero where the
 clamp is active.
+
+``warp_op`` (``torch.ops.accel_tpu_torch.warp``) is the kernel as a
+``torch.library`` op, for programs that ``torch.export`` traces: the kernel
+on a CUDA tensor, the plain version on a CPU tensor, a fake implementation
+for shapes, and the same gradients. The dispatcher :func:`warp` routes
+through it while a program is traced.
 """
 
 from __future__ import annotations
@@ -60,29 +66,57 @@ def warp_cuda(feat: torch.Tensor, flow: torch.Tensor, max_disp: float) -> torch.
 warp_cuda.launches = 0
 
 
+def _save(ctx, inputs, output) -> None:
+    feat, flow, max_disp = inputs
+    ctx.save_for_backward(feat, flow)
+    ctx.max_disp = max_disp
+
+
+def _backward(ctx, grad):
+    """Autograd through ``warp_plain`` (the clamped flow) on the saved
+    inputs."""
+    d = ctx.max_disp
+    return (*plain_vjp(lambda f, fl: warp_plain(f, fl, d), ctx.saved_tensors,
+                       ctx.needs_input_grad[:2], grad), None)
+
+
 class WarpFunction(torch.autograd.Function):
     """``warp_cuda`` in the forward; in the backward, autograd through
     ``warp_plain`` (the clamped flow) on the saved inputs."""
 
     @staticmethod
     def forward(ctx, feat, flow, max_disp):
-        ctx.save_for_backward(feat, flow)
-        ctx.max_disp = max_disp
+        _save(ctx, (feat, flow, max_disp), None)
         return warp_cuda(feat, flow, max_disp)
 
-    @staticmethod
-    def backward(ctx, grad):
-        d = ctx.max_disp
-        return (*plain_vjp(lambda f, fl: warp_plain(f, fl, d), ctx.saved_tensors,
-                           ctx.needs_input_grad[:2], grad), None)
+    backward = staticmethod(_backward)
+
+
+@torch.library.custom_op("accel_tpu_torch::warp", mutates_args=(), device_types="cuda")
+def warp_op(feat: torch.Tensor, flow: torch.Tensor, max_disp: float) -> torch.Tensor:
+    """#1 as an op: ``warp_cuda`` on a CUDA tensor."""
+    return warp_cuda(feat, flow, max_disp)
+
+
+warp_op.register_kernel("cpu")(warp_plain)
+warp_op.register_autograd(_backward, setup_context=_save)
+
+
+@warp_op.register_fake
+def _(feat, flow, max_disp):
+    return feat.new_empty(feat.shape)
 
 
 def warp(feat: torch.Tensor, flow: torch.Tensor, max_disp: float,
          plain: bool = False) -> torch.Tensor:
     """Bounded warp: the kernel for a CUDA tensor (through ``WarpFunction``
     where autograd records it), the plain version for a CPU tensor or when
-    ``plain`` is set."""
-    if plain or feat.device.type == "cpu":
+    ``plain`` is set; ``warp_op`` while a program is traced."""
+    if plain:
+        return warp_plain(feat, flow, max_disp)
+    if torch.compiler.is_compiling():
+        return warp_op(feat, flow, float(max_disp))
+    if feat.device.type == "cpu":
         return warp_plain(feat, flow, max_disp)
     if needs_grad(feat, flow):
         return WarpFunction.apply(feat, flow, max_disp)

@@ -22,6 +22,12 @@ custom VJP (``ops/warp_onehot.py:366-404``, the gather oracle's VJP):
 autograd through the plain version, with its flow_y clamp, tap-weight
 rounding, ``scale`` and ``gain``, with respect to each of feat, flow,
 scale and gain.
+
+``warp_onehot_op`` (``torch.ops.accel_tpu_torch.warp_onehot``) is the
+kernel as a ``torch.library`` op, for programs that ``torch.export``
+traces: the kernel on a CUDA tensor, the plain version on a CPU tensor, a
+fake implementation for shapes, and the same gradients. The dispatcher
+:func:`warp_onehot` routes through it while a program is traced.
 """
 
 from __future__ import annotations
@@ -216,6 +222,15 @@ def warp_onehot_cuda(feat: torch.Tensor, flow: torch.Tensor, scale: torch.Tensor
 warp_onehot_cuda.launches = 0
 
 
+def _vjp(ctx, needs, grad) -> tuple:
+    """Autograd through ``warp_onehot_plain`` on the saved (feat, flow,
+    scale, gain): the gradients of those whose ``needs`` is set, in that
+    order."""
+    d, wd = ctx.max_disp, ctx.weights_dtype
+    return plain_vjp(lambda f, fl, s, g: warp_onehot_plain(f, fl, s, d, g, wd),
+                     ctx.saved_tensors, needs, grad)
+
+
 class WarpOnehotFunction(torch.autograd.Function):
     """``warp_onehot_cuda`` in the forward; in the backward, autograd
     through ``warp_onehot_plain`` on the saved inputs."""
@@ -228,9 +243,39 @@ class WarpOnehotFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        d, wd = ctx.max_disp, ctx.weights_dtype
-        return (*plain_vjp(lambda f, fl, s, g: warp_onehot_plain(f, fl, s, d, g, wd),
-                           ctx.saved_tensors, ctx.needs_input_grad[:4], grad), None, None)
+        return (*_vjp(ctx, ctx.needs_input_grad[:4], grad), None, None)
+
+
+@torch.library.custom_op("accel_tpu_torch::warp_onehot", mutates_args=(), device_types="cuda")
+def warp_onehot_op(feat: torch.Tensor, flow: torch.Tensor, scale: torch.Tensor | None,
+                   max_disp: float, gain: torch.Tensor | None,
+                   weights_dtype: torch.dtype) -> torch.Tensor:
+    """#4 as an op, in ``warp_onehot``'s argument order:
+    ``warp_onehot_cuda`` on a CUDA tensor."""
+    return warp_onehot_cuda(feat, flow, scale, max_disp, gain, weights_dtype)
+
+
+warp_onehot_op.register_kernel("cpu")(warp_onehot_plain)
+
+
+def _op_save(ctx, inputs, output) -> None:
+    feat, flow, scale, max_disp, gain, weights_dtype = inputs
+    ctx.save_for_backward(feat, flow, scale, gain)
+    ctx.max_disp, ctx.weights_dtype = max_disp, weights_dtype
+
+
+def _op_backward(ctx, grad):
+    n = ctx.needs_input_grad
+    gf, gfl, gs, gg = _vjp(ctx, (n[0], n[1], n[2], n[4]), grad)
+    return gf, gfl, gs, None, gg, None
+
+
+warp_onehot_op.register_autograd(_op_backward, setup_context=_op_save)
+
+
+@warp_onehot_op.register_fake
+def _(feat, flow, scale, max_disp, gain, weights_dtype):
+    return feat.new_empty(feat.shape)
 
 
 def warp_onehot(feat: torch.Tensor, flow: torch.Tensor, scale: torch.Tensor | None = None,
@@ -238,7 +283,10 @@ def warp_onehot(feat: torch.Tensor, flow: torch.Tensor, scale: torch.Tensor | No
                 weights_dtype: torch.dtype = torch.bfloat16, plain: bool = False) -> torch.Tensor:
     """Warp [* scale * gain]: the kernel for a CUDA tensor (through
     ``WarpOnehotFunction`` where autograd records it), the plain version for
-    a CPU tensor or when ``plain`` is set."""
+    a CPU tensor or when ``plain`` is set; ``warp_onehot_op`` while a
+    program is traced."""
+    if not plain and torch.compiler.is_compiling():
+        return warp_onehot_op(feat, flow, scale, float(max_disp), gain, weights_dtype)
     if plain or feat.device.type == "cpu":
         return warp_onehot_plain(feat, flow, scale, max_disp, gain, weights_dtype)
     if needs_grad(feat, flow, scale, gain):

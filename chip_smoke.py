@@ -125,6 +125,27 @@ Phases, one JSON line each:
     statistics moved); then one pair step from the checkpoint with the
     kernels and with the plain versions: the loss within 1e-3, every
     gradient at cosine >= 0.999, every running statistic within 1e-3.
+18. e2e_export: the Accel-18 bench row, direct, exported through
+    ``core/export.py`` (``torch.export``; the five kernels as
+    ``torch.ops.accel_tpu_torch`` ops) with a symbolic batch and the weights
+    embedded, written, loaded and run at B=1 and B=4, with the exact
+    launches per group, its class maps against ``push_group`` of the same
+    model (identical, or printed and held to ``compare_class_maps``'
+    limits), the export and load seconds, the artifact's MB and the loaded
+    group's ms against ``push_group``'s (CUDA events, alternating turns).
+19. e2e_export_args: the same row with the weights as an argument (B=1):
+    called with the state dict, then again after the key stem's weight is
+    doubled with ``copy_``: the class maps follow the write, equal to
+    ``push_group``'s after it (the kernels' packings are traced).
+20. e2e_export_dff: the DFF row, direct, exported and loaded (B=1): one
+    #4 with the scale fused, one #3, one #2; class maps against
+    ``push_group``.
+21. e2e_noscale: ``use_scale_field: false``: Accel-18 incremental through
+    ``push_group`` and ``push_frame`` and DFF direct (#4 with no scale),
+    against the plain path, with the exact launches.
+22. e2e_quant_small: the int8 row at B=1 on 64x64 frames (GEMMs of 16
+    rows) and with ``head_channels`` 1020 (k and n not multiples of 8),
+    against the plain int8 path within ``QUANT_OVERALL``/``QUANT_CLEAR``.
 
 Then the ``{"kernels": [...]}`` line (each kernel's first row, with its
 launches on one path it serves and per group there, and its launches on
@@ -159,6 +180,7 @@ import torch.nn.functional as F
 from accel_tpu_torch import kernels
 from accel_tpu_torch.config import load_config
 from accel_tpu_torch.core.checkpoint import load_checkpoint
+from accel_tpu_torch.core.export import export_serving, load_serving
 from accel_tpu_torch.core.pipeline import (
     clip_logits,
     clip_loss_and_stats,
@@ -181,6 +203,7 @@ from accel_tpu_torch.ops import dilated_cuda as dilated_ops
 from accel_tpu_torch.ops import fused_stem as stem_ops
 from accel_tpu_torch.ops import quant as quant_ops
 from accel_tpu_torch.ops import upsample_argmax as ua_ops
+from accel_tpu_torch.ops import warp as warp_module
 from accel_tpu_torch.ops import warp_cuda as warp_ops
 from accel_tpu_torch.ops import warp_onehot as onehot_ops
 
@@ -832,13 +855,14 @@ def grad_warp_onehot() -> None:
 
 @torch.no_grad()
 def live_flow_heads(model, frames: torch.Tensor, seed: int, target: float = 3.0) -> float:
-    """Re-draw the zero-initialised flow head and the scale field from a
-    seed; the flow head is then scaled (the flow is linear in it) so the
+    """Re-draw the zero-initialised flow head and the scale field (where
+    the model has one) from a seed; the flow head is then scaled (the flow is linear in it) so the
     largest displacement between the first two frames is ``target``
     feature pixels. Returns that displacement."""
     g = torch.Generator().manual_seed(seed)
     fn = model.flownet
-    for conv, sigma in ((fn.predict_flow2, 1.0), (fn.scale_field, 0.05)):
+    heads = [(fn.predict_flow2, 1.0)] + ([(fn.scale_field, 0.05)] if fn.use_scale_field else [])
+    for conv, sigma in heads:
         conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) * sigma)
     cur = frames[:, 1].permute(0, 3, 1, 2)
     anchor = frames[:, 0].permute(0, 3, 1, 2)
@@ -1435,6 +1459,300 @@ def e2e_fold() -> dict[str, int]:
                           "fold_flow_downscale bf16", FOLD_NET, propagate, seed,
                           launches_of(warp=warps, upsample_argmax=1))
         launched = {name: launched.get(name, 0) + n for name, n in got.items()}
+    return launched
+
+
+# ---- phases 18-22: serving export, use_scale_field: false, small int8 GEMMs -------
+
+
+def cuda_ms(fn) -> tuple[object, float]:
+    """``fn()`` bracketed by CUDA events on an idle stream: its result and
+    the ms from before its host work to the end of its device work."""
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def held_to_push_group(phase: str, got: torch.Tensor, want: torch.Tensor, model,
+                       frames: torch.Tensor, propagate: str) -> dict:
+    """A loaded program's class maps against ``push_group``'s on the same
+    frames: identical, or else (printed) within ``compare_class_maps``'
+    limits, 0.99 overall and 0.9999 off near-ties, clip by clip."""
+    check_pred(got, tuple(want.shape))
+    out = dict(identical=torch.equal(got, want))
+    if not out["identical"]:
+        out["per_clip"] = [compare_class_maps(got[b:b + 1], want[b:b + 1], model,
+                                              frames[b:b + 1], propagate)[0]
+                           for b in range(got.shape[0])]
+        for b, c in enumerate(out["per_clip"]):
+            check_class_maps(f"{phase} loaded program vs push_group, clip {b}", c)
+    return out
+
+
+def export_and_load(model, path: Path, batch, embed_params: bool = True,
+                    propagate: str = "direct") -> tuple[object, dict]:
+    """Export ``model``'s group program at 1024x2048, k=K, write it to
+    ``path`` and load it: (the loaded program, its export and load seconds
+    and MB)."""
+    t0 = time.perf_counter()
+    blob = export_serving(model, None, (H, W), K, propagate=propagate, batch=batch,
+                          embed_params=embed_params, path=str(path))
+    t1 = time.perf_counter()
+    serve = load_serving(str(path))
+    t2 = time.perf_counter()
+    return serve, dict(export_s=t1 - t0, load_s=t2 - t1, artifact_mb=len(blob) / 1e6)
+
+
+def e2e_export(tmp: Path) -> tuple[dict[str, int], dict[str, int]]:
+    """Phase 18: the Accel-18 bench row (``BENCH_NET``), direct, k=K,
+    exported by ``core/export.py`` with a symbolic batch and its weights
+    embedded, saved, loaded and run at B=1 and at B=4: each group's exact
+    launches (at B=1 both stems, one warp, one tail; at B=4 the same four
+    launches, at N=4 and 20 frames, N=16 and 20 frames), and its class maps
+    against ``push_group`` of the same model on the same frames
+    (``held_to_push_group``). Then the loaded program's and ``push_group``'s
+    ms per B=1 group (CUDA events), in alternating turns. Returns the
+    launches of the B=1 and the B=4 group."""
+    model = build_model(BENCH_NET, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    clip = moving_clip(K, (H, W), SEED + 100, "cuda")
+    max_flow = live_flow_heads(model, clip, SEED + 101)
+    check(max_flow > 0.5, f"e2e_export: flow {max_flow} too small to exercise the warp")
+    clip4 = torch.cat([moving_clip(K, (H, W), SEED + 102 + b, "cuda") for b in range(4)])
+    serve, sizes = export_and_load(model, tmp / "accel18.pt2", "b")
+    ops = sorted({str(n.target) for n in serve.exported.graph.nodes
+                  if str(n.target).startswith("accel_tpu_torch.")})
+    seg = VideoSegmenter(model, K, propagate="direct")
+    serve(clip), seg.push_group(clip)  # warm-up: cuDNN algorithm choice, allocator
+    launched = {}
+    for name, frames in (("B1", clip), ("B4", clip4)):
+        reset_counts()
+        got = serve(frames)
+        torch.cuda.synchronize()
+        launched[name] = counts()
+        want = seg.push_group(frames)
+        check(launched[name] == launches_of(fused_stem=2, warp=1, upsample_argmax=1),
+              f"e2e_export {name} launches {launched[name]}")
+        launched[name + "_vs_push_group"] = held_to_push_group(
+            f"e2e_export {name}", got, want, model, frames, "direct")
+    turns = {"loaded": [], "push_group": []}
+    for turn in range(4):
+        order = ("loaded", "push_group") if turn % 2 == 0 else ("push_group", "loaded")
+        for name in order:
+            fn = (lambda: serve(clip)) if name == "loaded" else (lambda: seg.push_group(clip))
+            turns[name].append(cuda_ms(fn)[1])
+    emit(dict(phase="e2e_export", config="accel18 frozenbn fused7 bf16 direct, batch-polymorphic,"
+              " weights embedded", hw=[H, W], k=K, max_abs_flow=max_flow, **sizes, ops=ops,
+              launches_B1=launched["B1"], launches_B4=launched["B4"],
+              B1_vs_push_group=launched["B1_vs_push_group"],
+              B4_vs_push_group=launched["B4_vs_push_group"],
+              group_ms_B1=turns, card=card()))
+    return launched["B1"], launched["B4"]
+
+
+def e2e_export_args(tmp: Path) -> dict[str, int]:
+    """Phase 19: the same row exported with ``embed_params=False`` at a
+    static B=1, called with the model's state dict; then the key branch's
+    stem weight (``conv1``, which #3 packs) is doubled with ``copy_`` and
+    the program called again: its class maps follow the new weights, equal
+    to ``push_group`` after the same write (the packing is traced, not baked
+    into the artifact). Returns the launches of the first call."""
+    model = build_model(BENCH_NET, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    clip = moving_clip(K, (H, W), SEED + 110, "cuda")
+    live_flow_heads(model, clip, SEED + 111)
+    serve, sizes = export_and_load(model, tmp / "accel18_args.pt2", 1, embed_params=False)
+    seg = VideoSegmenter(model, K, propagate="direct")
+    serve(model.state_dict(), clip)  # warm-up
+    reset_counts()
+    before = serve(model.state_dict(), clip)
+    torch.cuda.synchronize()
+    launched = counts()
+    held = {"before": held_to_push_group("e2e_export_args", before, seg.push_group(clip), model,
+                                         clip, "direct")}
+    with torch.no_grad():
+        w = model.ref_net.backbone.conv1.weight
+        w.copy_(w * 2)
+    after = serve(model.state_dict(), clip)
+    held["after"] = held_to_push_group("e2e_export_args after the write", after,
+                                       seg.push_group(clip), model, clip, "direct")
+    moved = (after != before).float().mean().item()
+    emit(dict(phase="e2e_export_args", config="accel18 frozenbn fused7 bf16 direct, B=1, "
+              "weights as an argument", hw=[H, W], k=K, **sizes, launches=launched,
+              vs_push_group=held, class_maps_moved_by_the_write=moved))
+    check(launched == launches_of(fused_stem=2, warp=1, upsample_argmax=1),
+          f"e2e_export_args launches {launched}")
+    check(sizes["artifact_mb"] < 10, f"e2e_export_args: the weights are in the artifact "
+          f"({sizes['artifact_mb']} MB)")
+    check(moved > 0, "e2e_export_args: doubling the stem weight moved no class")
+    return launched
+
+
+def e2e_export_dff(tmp: Path) -> dict[str, int]:
+    """Phase 20: the DFF row (``DFF_NET``: one-hot native D=4), direct,
+    exported (symbolic batch, weights embedded) and run at B=1: one #4
+    (N=4, the scale fused), one #3, one #2, and class maps against
+    ``push_group``. Returns the launches."""
+    model = build_model(DFF_NET, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    clip = moving_clip(K, (H, W), SEED + 120, "cuda")
+    max_flow = live_flow_heads(model, clip, SEED + 121)
+    serve, sizes = export_and_load(model, tmp / "dff.pt2", "b")
+    seg = VideoSegmenter(model, K, propagate="direct")
+    serve(clip), seg.push_group(clip)  # warm-up
+    reset_counts()
+    got = serve(clip)
+    torch.cuda.synchronize()
+    launched = counts()
+    held = held_to_push_group("e2e_export_dff", got, seg.push_group(clip), model, clip, "direct")
+    (_, loaded_ms), (_, group_ms) = cuda_ms(lambda: serve(clip)), cuda_ms(
+        lambda: seg.push_group(clip))
+    emit(dict(phase="e2e_export_dff", config="dff101 frozenbn fused7 bf16 onehot native D=4 "
+              "direct", hw=[H, W], k=K, max_abs_flow=max_flow, **sizes, launches=launched,
+              vs_push_group=held, loaded_ms=loaded_ms, push_group_ms=group_ms))
+    check(launched == launches_of(fused_stem=1, warp_onehot=1, upsample_argmax=1),
+          f"e2e_export_dff launches {launched}")
+    return launched
+
+
+@contextlib.contextmanager
+def unmodulated_onehot_warps():
+    """Record, for each one-hot warp that ``bilinear_warp`` dispatches in
+    the scope (the unmodulated warp; the modulated one is
+    ``AccelNet.warp``'s own call), whether it took no scale."""
+    dispatch, seen = warp_module.warp_onehot, []
+
+    def recording(feat, flow, scale=None, *args, **kwargs):
+        seen.append(scale is None)
+        return dispatch(feat, flow, scale, *args, **kwargs)
+
+    warp_module.warp_onehot = recording
+    try:
+        yield seen
+    finally:
+        warp_module.warp_onehot = dispatch
+
+
+def e2e_noscale() -> dict[str, int]:
+    """Phase 21: ``use_scale_field: false``. The Accel-18 bench row without
+    the scale field, incremental (the product cascade) through
+    ``push_group`` (exact launches: both stems, a warp per non-key frame,
+    one tail) and ``push_frame`` (both stems on the key frame, the update
+    stem and a warp on each other, a tail a frame), against the plain path
+    (``check_bf16_paths`` and ``compare_class_maps``). Then the DFF row
+    without it, direct: one #4 that takes no scale, one #3, one #2; its
+    class maps against the plain path (0.98 overall), its logits and class
+    maps (0.999 overall, 0.9999 off near-ties) against the plain path with
+    the stem kernel's output.
+    Returns the launches of all three."""
+    net = dict(BENCH_NET, use_scale_field=False)
+    model = build_model(net, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    plain = build_model(net, device="cuda", generator=torch.Generator().manual_seed(SEED),
+                        use_kernels=False)
+    clip = moving_clip(2 * K, (H, W), SEED + 130, "cuda")
+    max_flow = live_flow_heads(model, clip, SEED + 131)
+    plain.load_state_dict(model.state_dict())
+    check(not hasattr(model.flownet, "scale_field"), "e2e_noscale: a scale-field head")
+    groups = [("incremental", clip[:, :K])]
+    out, launched = run_groups(model, groups)
+    plain_out, _ = run_groups(plain, groups)
+    vs_plain = compare_paths(out[0][0], plain_out[0][0], model, plain, clip[:, :K], "incremental")
+    seg = VideoSegmenter(model, K, propagate="incremental")
+    stream_group(seg, clip[:, K:])  # warm-up
+    seg.reset()
+    reset_counts()
+    streamed, _ = stream_group(seg, clip[:, K:])
+    stream_launched = counts()
+    plain_streamed = VideoSegmenter(plain, K, propagate="incremental").push_clip(clip[:, K:])
+    stream_vs_plain = compare_class_maps(streamed, plain_streamed, plain, clip[:, K:],
+                                         "incremental")[0]
+    del model, plain
+    torch.cuda.empty_cache()
+
+    dff_net = dict(DFF_NET, use_scale_field=False)
+    dff = build_model(dff_net, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    dff_plain = build_model(dff_net, device="cuda", generator=torch.Generator().manual_seed(SEED),
+                            use_kernels=False)
+    dff_clip = moving_clip(K, (H, W), SEED + 132, "cuda")
+    dff_flow = live_flow_heads(dff, dff_clip, SEED + 133)
+    dff_plain.load_state_dict(dff.state_dict())
+    with unmodulated_onehot_warps() as unscaled:
+        dff_out, dff_launched = run_groups(dff, [("direct", dff_clip)])
+    dff_plain_out, _ = run_groups(dff_plain, [("direct", dff_clip)])
+    dff_vs_plain = compare_paths(dff_out[0][0], dff_plain_out[0][0], dff, dff_plain, dff_clip,
+                                 "direct")
+    del dff_plain
+    same_stem = plain_with_kernel_stem(dff_net, dff.state_dict())
+    same_out, _ = run_groups(same_stem, [("direct", dff_clip)])
+    dff_vs_same_stem = compare_paths(dff_out[0][0], same_out[0][0], dff, same_stem, dff_clip,
+                                     "direct")
+    emit(dict(phase="e2e_noscale", config="use_scale_field: false; accel18 frozenbn fused7 bf16 "
+              "incremental, dff101 onehot native D=4 direct", hw=[H, W], k=K,
+              max_abs_flow=max_flow, dff_max_abs_flow=dff_flow, push_group_launches=launched,
+              push_frame_launches=stream_launched, dff_launches=dff_launched,
+              dff_onehot_without_scale=unscaled, kernels_vs_plain=vs_plain,
+              push_frame_vs_plain=stream_vs_plain, dff_kernels_vs_plain=dff_vs_plain,
+              dff_kernels_vs_plain_same_stem=dff_vs_same_stem))
+    check(launched == launches_of(fused_stem=2, warp=K - 1, upsample_argmax=1),
+          f"e2e_noscale push_group launches {launched}")
+    check(stream_launched == launches_of(fused_stem=2 + (K - 1), warp=K - 1, upsample_argmax=K),
+          f"e2e_noscale push_frame launches {stream_launched}")
+    check(dff_launched == launches_of(fused_stem=1, warp_onehot=1, upsample_argmax=1),
+          f"e2e_noscale dff launches {dff_launched}")
+    # two groups ran under the recorder (run_groups' warm-up and its timed
+    # pass), each with its one #4 launch through bilinear_warp, unscaled
+    check(unscaled == [True, True], f"e2e_noscale: #4 took a scale ({unscaled})")
+    check_bf16_paths("e2e_noscale kernel vs plain", vs_plain)
+    check_class_maps("e2e_noscale push_frame vs plain", stream_vs_plain)
+    # without the modulation DFF's logits are smaller, and the stem kernel's
+    # bf16 roundings put them 2.5% of max|logits| off the plain path's (the
+    # bench row sits at 1.5-1.8%), which flips pixels of margins past the 1%
+    # that compare_class_maps counts as clear (0.99985 of them agreed on an
+    # H100): against the plain path the class maps are held overall, and #4
+    # and #2 against the plain path that shares the stem's output
+    check(dff_vs_plain["agreement"] >= 0.98,
+          f"e2e_noscale dff kernel vs plain class maps: {dff_vs_plain['agreement']}")
+    check_bf16_paths("e2e_noscale dff kernel vs plain with the kernel stem", dff_vs_same_stem,
+                     0.999)
+    return {name: launched[name] + stream_launched[name] + dff_launched[name]
+            for name in launched}
+
+
+def e2e_quant_small() -> dict[str, int]:
+    """Phase 22: int8 GEMMs that CUDA's int8 GEMM refuses unpadded. The
+    int8 bench row (``INT8_NET``) at B=1 on 64x64 frames (FlowNet at full
+    input, since 64x64 halved does not divide by 64): the key frame's layer4
+    and fc6 run GEMMs of 4x4 = 16 rows; and the row with ``head_channels``
+    1020 (fc6's Cout and the score conv's k not multiples of 8) on 128x256
+    frames. One direct group each through ``push_group``, with the exact
+    launches, against the plain int8 path (the exact float64 product)
+    within ``QUANT_OVERALL``/``QUANT_CLEAR``. Returns the launches."""
+    launched, rows = {}, {}
+    for name, net, hw in (("m16", dict(INT8_NET, flow_input_downscale=1), (64, 64)),
+                          ("head1020", dict(INT8_NET, head_channels=1020), (128, 256))):
+        model = build_model(net, device="cuda", generator=torch.Generator().manual_seed(SEED))
+        plain = build_model(net, device="cuda", generator=torch.Generator().manual_seed(SEED),
+                            use_kernels=False)
+        clip = moving_clip(K, hw, SEED + 140, "cuda")
+        live_flow_heads(model, clip, SEED + 141)
+        plain.load_state_dict(model.state_dict())
+        mm0 = quant_ops.int_mm.launches
+        out, got = run_groups(model, [("direct", clip)])
+        gemms = quant_ops.int_mm.launches - mm0
+        plain_out, _ = run_groups(plain, [("direct", clip)])
+        check_pred(out[0][0], (1, K, *hw))
+        c = compare_class_maps(out[0][0], plain_out[0][0], plain, clip, "direct")[0]
+        rows[name] = dict(hw=list(hw), launches=got, int8_gemms_two_groups=gemms,
+                          kernels_vs_plain=c)
+        check(got == launches_of(fused_stem=2, warp=1, upsample_argmax=1),
+              f"e2e_quant_small {name} launches {got}")
+        check(gemms > 0, f"e2e_quant_small {name}: no int8 GEMM ran")
+        check_class_maps(f"e2e_quant_small {name} kernel vs plain", c, QUANT_OVERALL, QUANT_CLEAR)
+        launched = {k: launched.get(k, 0) + n for k, n in got.items()}
+        del model, plain
+    emit(dict(phase="e2e_quant_small", config="accel18 int8 frozenbn fused7 bf16 direct B=1",
+              k=K, **rows))
     return launched
 
 
@@ -2079,6 +2397,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     fold_launched = e2e_fold()
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        export_b1, export_b4 = e2e_export(Path(tmp))
+        torch.cuda.empty_cache()
+        export_args = e2e_export_args(Path(tmp))
+        torch.cuda.empty_cache()
+        export_dff = e2e_export_dff(Path(tmp))
+        torch.cuda.empty_cache()
+    noscale_launched = e2e_noscale()
+    torch.cuda.empty_cache()
+    quant_small_launched = e2e_quant_small()
+    torch.cuda.empty_cache()
     # eval from the cfg files: the flagship's 4 step warps and one tail per
     # clip (groupnorm + conv7, no stem kernel); DFF's one batched one-hot
     # warp and one tail
@@ -2127,7 +2456,11 @@ def main() -> int:
                "accel18 pair train": pair_launched,
                "accel18 clip train dilated_conv=pallas": dilated_launched,
                "accel18 int8": quant_launched, "accel18_fast fold": fold_launched,
-               "accel18 pair train batchnorm pretrained": bn_launched}
+               "accel18 pair train batchnorm pretrained": bn_launched,
+               "accel18 exported B=1": export_b1, "accel18 exported B=4": export_b4,
+               "accel18 exported, weights as argument": export_args,
+               "dff exported": export_dff, "use_scale_field false": noscale_launched,
+               "accel18 int8 small GEMMs": quant_small_launched}
 
     keys = ("max_abs_err", "shape", "ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "library_call")

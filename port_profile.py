@@ -30,7 +30,10 @@ path: int8 Accel-18 (``INT8_NET``) against the bf16 one, and the folded
 accel18_fast (``FOLD_NET``, conv7 stem) against the same model with the
 downscales resized. Then the int8 convs of one group split into their
 parts (``int8_split``) and the folded first convs against resize + conv
-(``fold_split``).
+(``fold_split``). Then Accel-18 and the DFF row, direct, through their
+programs exported and loaded by ``core/export.py`` (B=1) against
+``push_group`` of the same model. Every row also counts its device
+events (``device_events``).
 
 Then one train step of the flagship cfg (``experiments/cfgs/
 accel18_cityscapes.yaml``: the clip objective, B=2 x 5 frames at 768x768,
@@ -254,7 +257,8 @@ def main() -> int:
         for name, ms in by_name.items():
             by_prefix[name[:80]] = by_prefix.get(name[:80], 0.0) + ms
         top = sorted(by_prefix.items(), key=lambda kv: -kv[1])[:8]
-        return (host_ms, busy_ms(events), {k: v for k, v in by_kernel.items() if v}, dict(top))
+        return (host_ms, busy_ms(events), {k: v for k, v in by_kernel.items() if v}, dict(top),
+                len(events))
 
     def turn(model, propagate, clip, serve):
         seg = VideoSegmenter(model, K, propagate=propagate)
@@ -298,11 +302,33 @@ def main() -> int:
             for i in range(args.repeat):
                 for path in (labels if i % 2 == 0 else labels[::-1]):
                     model, serve = paths[path]
-                    host_ms, device_ms, by_kernel, top = turn(built[model], propagate, clip, serve)
+                    host_ms, device_ms, by_kernel, top, n = turn(built[model], propagate, clip,
+                                                                 serve)
                     emit(config=name, propagate=propagate, path=path, turn=i, host_ms=host_ms,
-                         device_ms=device_ms, kernels_ms=by_kernel, top_ms=top)
+                         device_ms=device_ms, device_events=n, kernels_ms=by_kernel, top_ms=top)
         del built
         torch.cuda.empty_cache()
+
+    # a tree from before the serving export has no such row
+    if hasattr(cs, "e2e_export"):
+        from accel_tpu_torch.core.export import export_serving, load_serving
+
+        for name, net in (("accel18 exported", cs.BENCH_NET), ("dff exported", cs.DFF_NET)):
+            built, clip = models({"kernels": (net, True)}, cs.SEED + 6,
+                                 {"push_group": ("kernels", "group")})
+            model, frames = built["kernels"], clip[:, 2 * K:]
+            serve = load_serving(export_serving(model, None, hw, K, "direct", batch=1))
+            seg = VideoSegmenter(model, K, propagate="direct")
+            runs = {"loaded": lambda: serve(frames), "push_group": lambda: seg.push_group(frames)}
+            for run in (*runs.values(), *runs.values()):  # warm-up
+                run()
+            for i in range(args.repeat):
+                for path in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+                    host_ms, device_ms, by_kernel, top, n = profiled(runs[path])
+                    emit(config=name, propagate="direct", path=path, turn=i, host_ms=host_ms,
+                         device_ms=device_ms, device_events=n, kernels_ms=by_kernel, top_ms=top)
+            del built, serve, seg, runs
+            torch.cuda.empty_cache()
 
     if hasattr(cs, "INT8_NET"):
         int8_split(cs, hw)
@@ -343,10 +369,10 @@ def main() -> int:
                 state, step = states[path]
                 for _ in range(2):
                     step(state, batch)
-                host_ms, device_ms, by_kernel, top = profiled(lambda: step(state, batch))
+                host_ms, device_ms, by_kernel, top, n = profiled(lambda: step(state, batch))
                 emit(config=f"{cfg_name} train step", propagate=str(cfg.network.propagate),
                      path=path, turn=i, host_ms=host_ms, device_ms=device_ms,
-                     kernels_ms=by_kernel, top_ms=top)
+                     device_events=n, kernels_ms=by_kernel, top_ms=top)
         del states
         torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -201,3 +201,132 @@ def test_quantize_is_not_ported_yet(tmp_path, monkeypatch):
     (model,) = built
     for branch in (model.ref_net, model.update_net):
         assert sum(isinstance(m, Int8Conv2d) for m in branch.modules()) == 20
+
+
+# ---- the demo, export and train_test entry points --------------------------------
+
+TINY_CFG = """\
+output_path: {out}
+SCALES: [[128, 256]]
+network:
+  name: accel
+  ref_depth: 18
+  update_depth: 18
+  head_channels: 32
+  flow_width_mult: 0.25
+  norm: frozenbn
+  dtype: float32
+  propagate: direct
+dataset:
+  dataset: CityScape
+  dataset_path: {data}
+  root_path: {root}
+  image_set: leftImg8bit_train
+  test_image_set: leftImg8bit_val
+TRAIN:
+  objective: pair
+  lr: 0.002
+  lr_step: "100"
+  warmup: false
+  end_epoch: 1
+  BATCH_IMAGES: 2
+  CROP_SIZE: [128, 128]
+  MIN_OFFSET: -2
+  MAX_OFFSET: 0
+  model_prefix: tiny
+TEST:
+  KEY_FRAME_INTERVAL: 2
+  test_epoch: 1
+"""
+
+
+def _tiny_cfg(tmp_path, data="", name="tiny") -> str:
+    path = tmp_path / f"{name}.yaml"
+    path.write_text(TINY_CFG.format(out=tmp_path / "out", data=data, root=tmp_path))
+    return str(path)
+
+
+def test_demo_writes_maps_in_the_reference_palette(tmp_path):
+    """``demo --synthetic --device cpu`` writes 2k noise frames, then one
+    ``*_seg.png`` map a frame, each the port's class map of the clip in
+    JAX's ``CITYSCAPES_PALETTE`` (BGR)."""
+    import cv2
+    import numpy as np
+
+    from accel_tpu_torch.config import load_config
+    from accel_tpu_torch.core.pipeline import clip_predictions
+    from accel_tpu_torch.data.image import transform
+    from accel_tpu_torch.experiments import demo
+    from accel_tpu_torch.models.accel import build_model
+
+    spec = importlib.util.spec_from_file_location(
+        "experiments_demo", os.path.join(REPO, "experiments", "demo.py"))
+    j_demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(j_demo)
+    assert np.array_equal(demo.CITYSCAPES_PALETTE, j_demo.CITYSCAPES_PALETTE)
+
+    cfg_path = _tiny_cfg(tmp_path)
+    frames, out = tmp_path / "frames", tmp_path / "maps"
+    written = demo.main(["--cfg", cfg_path, "--frames", str(frames), "--out", str(out),
+                         "--synthetic", "--device", "cpu"])
+    assert sorted(os.listdir(out)) == [f"frame_{i:04d}_seg.png" for i in range(4)]
+    cfg = load_config(cfg_path)
+    clip = np.stack([transform(cv2.imread(str(frames / f"frame_{i:04d}.png")),
+                               cfg.network.PIXEL_MEANS, cfg.network.PIXEL_STDS)[0]
+                     for i in range(4)])[None]
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    pred = clip_predictions(model, torch.from_numpy(clip), 2, "direct")[0].numpy()
+    for i, path in enumerate(written):
+        assert np.array_equal(cv2.imread(path), j_demo.colorize(pred[i]))
+
+
+def test_export_entry_point_writes_a_served_artifact(tmp_path, capsys):
+    """``export --random-weights --device cpu``: the artifact serves a clip
+    at any batch as the seeded model's ``clip_predictions`` does."""
+    from accel_tpu_torch.config import load_config
+    from accel_tpu_torch.core.export import load_serving
+    from accel_tpu_torch.core.pipeline import clip_predictions
+    from accel_tpu_torch.experiments import export
+    from accel_tpu_torch.models.accel import build_model
+
+    cfg_path, out = _tiny_cfg(tmp_path), str(tmp_path / "tiny.pt2")
+    export.main(["--cfg", cfg_path, "--out", out, "--height", "128", "--width", "128",
+                 "--random-weights", "--device", "cpu"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith(f"wrote {out}: ") and line.endswith(
+        "MB, clip=(b,2,128,128,3), propagate=direct, params embedded")
+    clip = torch.randn((1, 2, 128, 128, 3), generator=torch.Generator().manual_seed(1))
+    model = build_model(load_config(cfg_path), device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    assert torch.equal(load_serving(out)(clip), clip_predictions(model, clip, 2, "direct"))
+
+
+def test_train_test_trains_then_tests(tmp_path, capfd, monkeypatch):
+    """``train_test`` runs the train entry point and then the eval entry
+    point, each in its own process, with the same arguments: the eval
+    restores the checkpoint the training wrote."""
+    from torch_parity import write_cityscapes_tree
+
+    from accel_tpu_torch.core.checkpoint import saved_epochs
+    from accel_tpu_torch.experiments import train_test
+
+    data = write_cityscapes_tree(tmp_path, 128, 256, snippets=2, split="train", seed=3,
+                                 cities=("aachen",))
+    write_cityscapes_tree(tmp_path, 128, 256, snippets=1, split="val", seed=4,
+                          cities=("aachen",))
+    monkeypatch.chdir(REPO)
+    assert train_test.main(["--cfg", _tiny_cfg(tmp_path, data), "--device", "cpu"]) == 0
+    assert saved_epochs(str(tmp_path / "out" / "tiny" / "leftImg8bit_train" / "tiny")) == [0]
+    err = capfd.readouterr().err
+    assert "training done" in err and "restored" in err and "meanIU" in err
+    assert err.index("training done") < err.index("meanIU")
+
+
+def test_train_test_stops_on_a_failing_train(monkeypatch):
+    from accel_tpu_torch.experiments import train_test
+
+    calls = []
+    monkeypatch.setattr(train_test.subprocess, "call", lambda cmd: calls.append(cmd) or 3)
+    assert train_test.main(["--cfg", "x.yaml"]) == 3
+    (cmd,) = calls
+    assert cmd[1:] == ["-m", "accel_tpu_torch.experiments.train", "--cfg", "x.yaml"]

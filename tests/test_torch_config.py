@@ -103,8 +103,8 @@ def test_build_model_takes_the_cfg_defaults():
 
 def test_cfg_values_not_ported_raise():
     """Every value of these keys that ``accel_tpu``'s ``build_model`` takes
-    builds a model here; ``use_scale_field: false`` (a FlowNet without the
-    DFF scale field) is the value the port still refuses."""
+    builds a model here, ``use_scale_field: false`` too: its FlowNet has no
+    scale-field head."""
     norms = {"batchnorm": BatchNorm, "frozenbn": FrozenBatchNorm, "groupnorm": torch.nn.GroupNorm}
     for key, value in [("norm", "batchnorm"), ("norm", "frozenbn"), ("stem", "s2d"),
                        ("stem", "fused7"), ("quantize_ref", True), ("quantize_update", True),
@@ -121,8 +121,9 @@ def test_cfg_values_not_ported_raise():
         assert model.ref_net.backbone.stem == cfg.network.stem, (key, value)
         assert isinstance(model.ref_net.backbone.bn, norms[cfg.network.norm]), (key, value)
     cfg.network.use_scale_field = False
-    with pytest.raises(NotImplementedError, match="use_scale_field"):
-        build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    assert not model.use_scale_field and not hasattr(model.flownet, "scale_field")
+    assert "flownet.scale_field.weight" not in model.state_dict()
 
 
 def test_config_clone_is_deep():

@@ -97,8 +97,10 @@ def test_unported_modes_raise(tiny):
         tpipe.clip_logits(tm, nchw(clip), 3)
     with pytest.raises(ValueError, match="dilated_conv"):
         build_model({"dilated_conv": "sideways"}, device="cpu", generator=torch.Generator())
-    with pytest.raises(NotImplementedError, match="use_scale_field"):
-        build_model({"use_scale_field": False}, generator=torch.Generator())
+    # use_scale_field: false is ported: a FlowNet without the scale-field head
+    model = build_model({"use_scale_field": False, "ref_depth": 18, "head_channels": 32},
+                        device="cpu", generator=torch.Generator())
+    assert not hasattr(model.flownet, "scale_field")
 
 
 @pytest.mark.parametrize("n,chunk", [(5, 5), (20, 20), (25, 5), (40, 20)])

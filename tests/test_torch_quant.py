@@ -118,6 +118,38 @@ def test_biased_int8_conv_matches_flax(dtype):
     assert (err <= _ulp(want, tdt)).all(), float(err.max())
 
 
+# (N, Cin, H, W, Cout, kernel, stride, dilation): shapes CUDA's int8 GEMM refuses
+# unpadded: m = N*Ho*Wo <= 16 (layer4 of a 64x64 frame at stride 16), k =
+# Cin*kh*kw and n = Cout not multiples of 8
+SMALL_GEMMS = {"m16": (1, 64, 4, 4, 128, 3, 1, 1), "cout19": (2, 32, 6, 10, 19, 1, 1, 1),
+               "k_odd_m6": (1, 13, 5, 7, 19, 3, 2, 1)}
+
+
+@pytest.mark.parametrize("name", list(SMALL_GEMMS))
+def test_int8_gemm_pads_every_shape_exactly(name):
+    """``int8_conv_acc_gemm`` zero-pads the rows to 17 and k, n to multiples
+    of 8, then slices: its int32 accumulators equal the int8 conv of
+    ``accel_tpu`` (``lax.conv_general_dilated`` on the int8 values, int32
+    out, as ``int8_conv_general_dilated`` computes it) exactly."""
+    N, cin, h, w, cout, k, s, d = SMALL_GEMMS[name]
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((N, h, w, cin)).astype(np.float32)
+    wt = (rng.standard_normal((k, k, cin, cout)) * 0.1).astype(np.float32)
+    pad = d * (k // 2)
+    jxq, _ = jq.quantize_symmetric(jnp.asarray(x))
+    jwq, _ = jq.quantize_symmetric(jnp.asarray(wt), axis=(3,))
+    acc = jax.lax.conv_general_dilated(jxq, jwq, (s, s), [(pad, pad)] * 2, rhs_dilation=(d, d),
+                                       dimension_numbers=DN, preferred_element_type=jnp.int32)
+    want = torch.from_numpy(np.array(acc)).permute(0, 3, 1, 2)
+    xq, _ = tq.quantize_symmetric(nchw(x))
+    qw = tq.QuantizedWeight(torch.from_numpy(wt).permute(3, 2, 0, 1).contiguous())
+    assert qw.mat.shape[0] % 8 == 0 and qw.mat.shape[1] % 8 == 0
+    launches = tq.int_mm.launches
+    got = tq.int8_conv_acc_gemm(xq, qw, s, pad, d)
+    assert tq.int_mm.launches == launches + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
 def test_int_mm_checks_the_gemm_shape():
     """The int8 GEMM takes m > 16 and k, n multiples of 8, exactly, and
     refuses what CUDA's would."""
