@@ -3,8 +3,9 @@
 The field vocabulary is the reference's (``network``, ``dataset``,
 ``TRAIN``, ``TEST``, ``SCALES``, ``PIXEL_MEANS`` ...), so every experiment
 YAML of ``experiments/cfgs/`` merges strictly onto it, ``tpu.*`` included:
-the port reads no ``tpu`` field (one card, no mesh), but keeps the keys so
-that a reference YAML that sets them still loads.
+the port reads ``tpu.mesh`` (``parallel/mesh.py``: ``data`` -1 or the
+number of ranks, ``spatial`` 1) and keeps the other ``tpu`` keys so that a
+reference YAML that sets them still loads.
 """
 
 from accel_tpu_torch.config.loader import Config
@@ -113,7 +114,7 @@ def make_defaults() -> Config:
                 # (serving lowerings); --set-network wins over them
                 "serving_network": None,
             },
-            # the reference's TPU knobs; read by no part of the port
+            # the reference's TPU knobs; the port reads only mesh (parallel/mesh.py)
             "tpu": {
                 "mesh": {"data": -1, "spatial": 1},
                 "donate_carry": True,

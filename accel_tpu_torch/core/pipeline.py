@@ -28,13 +28,22 @@ a whole clip) run with grad enabled; the clip objective's logits come from
 sequential group step with each frame's work under
 ``torch.utils.checkpoint``. The serving entry points (:func:`clip_logits`,
 :func:`clip_predictions`) run under ``torch.inference_mode``.
+
+Under data parallelism (``group``: ``parallel/mesh.py``) the objectives
+take this rank's rows of a global batch and return its share of the global
+batch's loss: every count they divide by (valid pixels, annotated frames,
+OHEM's kept pixels) is reduced over the ranks, and running-stat BatchNorm
+normalizes by the global batch's statistics. No collective runs inside
+``train_clip_logits``, whose remat would run it again in the backward.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from accel_tpu_torch.core.metrics import IGNORE_LABEL, softmax_cross_entropy
@@ -432,15 +441,28 @@ def clip_predictions_body(model, clip: torch.Tensor, interval: int,
 # ---- training objectives ---------------------------------------------------------
 
 
-def _ce(logits, label, num_classes, loss_scale, ohem_fraction):
+def _ce(logits, label, num_classes, loss_scale, ohem_fraction, group=None):
     """Softmax CE of stride-level logits upsampled to the label's size."""
     return softmax_cross_entropy(resize_bilinear(logits, tuple(label.shape[-2:])), label,
-                                 num_classes, loss_scale, ohem_fraction)
+                                 num_classes, loss_scale, ohem_fraction, group)
+
+
+@contextlib.contextmanager
+def _global_batch_stats(norms, group):
+    """Each BatchNorm in ``norms`` takes its batch statistics over the
+    ranks of ``group`` for the duration."""
+    for m in norms:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.group = None
 
 
 def pair_loss_and_stats(model, batch: dict, num_classes: int, loss_scale: float = 1.0,
                         mutable_stats: bool = False, ohem_fraction: float | None = None,
-                        aux_weight: float = 0.0):
+                        aux_weight: float = 0.0, group=None):
     """Cross entropy of a (key, cur) pair batch -> (loss, None).
 
     ``batch``: 'data' and 'data_ref' (N,3,H,W), 'eq_flag' (N,), 'label'
@@ -456,23 +478,28 @@ def pair_loss_and_stats(model, batch: dict, num_classes: int, loss_scale: float 
     ``train``), and then every BatchNorm folds its batch statistics into
     its running statistics; returns (loss, {state_dict key: running
     statistic}). Without it a BatchNorm model raises, as flax refuses to
-    update ``batch_stats`` that are not mutable."""
+    update ``batch_stats`` that are not mutable.
+
+    ``group``: this rank's share of the global batch's loss (module
+    docstring); the batch statistics are the global batch's."""
     norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
     if norms and not mutable_stats:
         raise ValueError("a running-stat BatchNorm model needs mutable_stats=True")
     label = batch["label"]
     model.train(mutable_stats)
     try:
-        logits = model(batch["data"], batch["data_ref"], batch["eq_flag"])
+        with _global_batch_stats(norms, group):
+            logits = model(batch["data"], batch["data_ref"], batch["eq_flag"])
     finally:
         model.eval()
-    loss = _ce(logits, label, num_classes, loss_scale, ohem_fraction)
+    loss = _ce(logits, label, num_classes, loss_scale, ohem_fraction, group)
     if aux_weight > 0.0 and model.family in ("dff", "accel"):
         ref = model.ref_scores_from_propagated(model.ref_propagated(batch["data"]))
-        loss = loss + aux_weight * _ce(ref, label, num_classes, loss_scale, ohem_fraction)
+        loss = loss + aux_weight * _ce(ref, label, num_classes, loss_scale, ohem_fraction, group)
         if model.family == "accel":
             upd = model.update_scores(batch["data"])
-            loss = loss + aux_weight * _ce(upd, label, num_classes, loss_scale, ohem_fraction)
+            loss = loss + aux_weight * _ce(upd, label, num_classes, loss_scale, ohem_fraction,
+                                           group)
     if not mutable_stats:
         return loss, None
     for m in norms:
@@ -490,7 +517,7 @@ def running_stats(model) -> dict[str, torch.Tensor]:
 def clip_loss_and_stats(model, batch: dict, num_classes: int, loss_scale: float = 1.0,
                         propagate: str = "incremental", mutable_stats: bool = False,
                         ohem_fraction: float | None = None, aux_weight: float = 0.0,
-                        remat: bool = False):
+                        remat: bool = False, group=None):
     """The clip objective -> (loss, None): CE through the cascaded
     propagation of the whole clip, so the annotated frame's gradient flows
     back through every warp, flow and scale field of the chain.
@@ -502,26 +529,32 @@ def clip_loss_and_stats(model, batch: dict, num_classes: int, loss_scale: float 
     number of annotated frames. ``aux_weight`` > 0 adds the CE of the raw
     branch outputs on each clip's annotated frame alone (the loader
     annotates one frame a clip). Running-stat BatchNorm raises, as in the
-    reference."""
+    reference. ``group``: this rank's share of the global batch's loss
+    (module docstring); a frame is annotated where any rank has a valid
+    pixel of it."""
     if mutable_stats:
         raise NotImplementedError("clip objective + running-stat BN: use frozenbn/groupnorm")
     clip, label = batch["clip"], batch["label"]
     B, F = clip.shape[:2]
     logits = train_clip_logits(model, clip, F, propagate, remat)
     per_frame = torch.stack([_ce(logits[:, f], label[:, f], num_classes, loss_scale,
-                                 ohem_fraction) for f in range(F)])
+                                 ohem_fraction, group) for f in range(F)])
     valid = (label != IGNORE_LABEL) & (label < num_classes)
-    annotated = valid.flatten(2).any(dim=2).any(dim=0).sum()
-    loss = per_frame.sum() / annotated.clamp(min=1)
+    annotated = valid.flatten(2).any(dim=2).any(dim=0)
+    if group is not None:
+        annotated = annotated.to(torch.int32)
+        dist.all_reduce(annotated, op=dist.ReduceOp.MAX, group=group)
+    loss = per_frame.sum() / annotated.sum().clamp(min=1)
     if aux_weight > 0.0:
         # the frame with the most valid pixels, the first such, per clip
         ann_idx = valid.sum(dim=(2, 3)).argmax(dim=1)
         rows = torch.arange(B, device=ann_idx.device)
         ann_frames, ann_label = clip[rows, ann_idx], label[rows, ann_idx]
         ref = model.ref_scores_from_propagated(model.ref_propagated(ann_frames))
-        loss = loss + aux_weight * _ce(ref, ann_label, num_classes, loss_scale, ohem_fraction)
+        loss = loss + aux_weight * _ce(ref, ann_label, num_classes, loss_scale, ohem_fraction,
+                                       group)
         if model.family == "accel":
             upd = model.update_scores(ann_frames)
             loss = loss + aux_weight * _ce(upd, ann_label, num_classes, loss_scale,
-                                           ohem_fraction)
+                                           ohem_fraction, group)
     return loss, None

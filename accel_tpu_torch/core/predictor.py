@@ -16,7 +16,9 @@ import time
 from collections.abc import Callable, Sequence
 from typing import Any
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from accel_tpu_torch.core.metrics import SegConfusionAccumulator
 from accel_tpu_torch.core.pipeline import clip_predictions, propagate_step
@@ -178,7 +180,7 @@ def pred_eval(key_predictor: Predictor, cur_predictor: Predictor, test_iter, num
 
 def pred_eval_clips(model, clip_iter, num_classes: int, interval: int,
                     propagate: str = "incremental", logger=None,
-                    upsample: str = "bilinear_logits", on_preds=None):
+                    upsample: str = "bilinear_logits", on_preds=None, mesh=None):
     """Clip eval: each batch of clips through ``core.pipeline.clip_predictions``.
 
     ``clip_iter`` yields {'clip': (B,F,H,W,3) normalized, 'label': (B,F,H,W)
@@ -187,10 +189,18 @@ def pred_eval_clips(model, clip_iter, num_classes: int, interval: int,
     already. Where the batch holds 'label_native' (SCALES resized the
     frames), each clip's annotated frame is scored at its annotation's own
     resolution: the padding cropped, the class map nearest-resized to the
-    annotation (the reference protocol). The weights live in ``model``;
-    the reference's ``variables``, ``mesh`` and ``shard_spatial`` have no
-    counterpart on one card. ``on_preds(item, preds)``, where given, is
-    called with each batch and its (B, F, H, W) uint8 class maps.
+    annotation (the reference protocol). The weights live in ``model``
+    (the reference's ``variables``). ``on_preds(item, preds)``, where
+    given, is called with each batch and its (B, F, H, W) uint8 class maps.
+
+    ``mesh`` (``parallel.mesh.Mesh``): data-parallel eval. ``clip_iter``
+    yields this rank's rows of each global batch (``TestClipLoader(rows=
+    ...)`` or ``parallel.mesh.shard_batch``; nothing on a rank outside the
+    split), and the results are the global ones: the confusion matrix
+    summed over the ranks (so the mIoU is the one-process mIoU exactly),
+    the frames summed, and fps the global timed frames over the slowest
+    rank's net time. Every rank of the mesh must call it. The reference's
+    ``shard_spatial`` has no counterpart (``parallel/mesh.py``).
 
     Net time runs from the batch in hand, its copy to the card included,
     to its class maps on the card (synchronized); the first batch, which pays the allocator's and
@@ -236,8 +246,25 @@ def pred_eval_clips(model, clip_iter, num_classes: int, interval: int,
         elif label is not None:
             acc.update(preds, torch.as_tensor(label, device=device))
         t0 = time.perf_counter()
+    if mesh is not None and mesh.group is not None:
+        acc.cm, (n_frames, n_timed), t_net = _reduce_eval(mesh, acc.cm, n_frames, n_timed, t_net)
     miou, iou = acc.result()
     fps = n_timed / max(t_net, 1e-9)
-    log(f"frames {n_frames}  net fps {fps:.2f}  mIoU {miou * 100:.2f}")
+    if mesh is None or mesh.rank == 0:
+        log(f"frames {n_frames}  net fps {fps:.2f}  mIoU {miou * 100:.2f}")
     return miou, iou, {"t_net": t_net, "t_data": t_data, "frames": n_frames, "fps": fps,
                        "confusion": acc.cm.copy()}
+
+
+def _reduce_eval(mesh, cm: np.ndarray, n_frames: int, n_timed: int, t_net: float):
+    """The global results of a data-parallel eval: the confusion matrices
+    and the frame counts summed over the ranks (exact in float64), the
+    slowest rank's net seconds."""
+    summed = torch.from_numpy(np.concatenate([cm.reshape(-1), [n_frames, n_timed]]))
+    summed = summed.to(mesh.device)
+    slowest = torch.tensor([t_net], dtype=torch.float64, device=mesh.device)
+    dist.all_reduce(summed, group=mesh.group)
+    dist.all_reduce(slowest, op=dist.ReduceOp.MAX, group=mesh.group)
+    summed = summed.cpu().numpy()
+    return (summed[:cm.size].reshape(cm.shape), (int(summed[-2]), int(summed[-1])),
+            float(slowest[0]))

@@ -17,6 +17,16 @@ weight decay added to the gradient, momentum (a trace started at zero),
 times -lr of the step's count (step 0 takes ``schedule(0)``), and a zero
 update for the parameters that ``FIXED_PARAMS`` names (their trace still
 accumulates, as under ``optax.masked``).
+
+Data parallelism (``mesh``, ``parallel/mesh.py``): each rank's step takes
+its rows of the global batch, computes its share of the global loss (the
+objectives divide by global counts), and sums the shares' f32 gradients
+over the ranks in a few flat all-reduces before the update, so clipping
+sees the global gradient and every rank applies the same update. This is
+the reference's ``jit`` program over a mesh: the one-process loss and
+gradient of the whole global batch. PyTorch's ``DistributedDataParallel``
+is not used: it averages the per-rank ``.grad`` (bf16 on the shipped cfgs)
+of per-rank means, and the step already owns the f32 gradients.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from torch import nn
 
 from accel_tpu_torch.core.lr_schedule import lr_steps_from_epochs, warmup_multifactor_schedule
 from accel_tpu_torch.core.pipeline import clip_loss_and_stats, pair_loss_and_stats
+from accel_tpu_torch.parallel.mesh import all_reduce_
 
 
 def flax_param_paths(model: nn.Module) -> dict[str, str]:
@@ -131,7 +142,7 @@ def write_master(state: TrainState) -> None:
 def make_train_step(tx: SGD, num_classes: int, loss_scale: float = 1.0,
                     mutable_stats: bool | None = None, ohem_fraction: float | None = None,
                     aux_weight: float = 0.0, objective: str = "pair",
-                    propagate: str = "incremental", remat: bool = False):
+                    propagate: str = "incremental", remat: bool = False, mesh=None):
     """The train step ``step(state, batch) -> (state, {'loss': loss})``:
     forward, loss, backward, the SGD update of the master weights, then the
     master weights into the model. ``objective``: 'pair' (batch 'data',
@@ -139,9 +150,16 @@ def make_train_step(tx: SGD, num_classes: int, loss_scale: float = 1.0,
     ``propagate`` and ``remat`` as ``clip_loss_and_stats`` takes them).
     ``mutable_stats`` (None: the model's ``norm`` is 'batchnorm') carries
     the BatchNorm running statistics from step to step; they live in the
-    model's buffers, so checkpoints (``state_dict``) hold them."""
+    model's buffers, so checkpoints (``state_dict``) hold them.
+
+    ``mesh`` (``parallel.mesh.Mesh``): the batch is this rank's rows of the
+    global batch; the gradients (and the loss returned, the global batch's)
+    are summed over the mesh's group before the update. A mesh of one rank
+    with a group runs the one-process step and the all-reduce."""
     if objective not in ("pair", "clip"):
         raise ValueError(f"unknown objective {objective!r} (pair | clip)")
+    group = mesh.loss_group if mesh is not None else None
+    reduce_group = mesh.group if mesh is not None else None
 
     def step(state: TrainState, batch: dict):
         model = state.model
@@ -150,19 +168,22 @@ def make_train_step(tx: SGD, num_classes: int, loss_scale: float = 1.0,
         model.zero_grad(set_to_none=True)
         if objective == "clip":
             loss, _ = clip_loss_and_stats(model, batch, num_classes, loss_scale, propagate,
-                                          stats, ohem_fraction, aux_weight, remat)
+                                          stats, ohem_fraction, aux_weight, remat, group)
         else:
             loss, _ = pair_loss_and_stats(model, batch, num_classes, loss_scale, stats,
-                                          ohem_fraction, aux_weight)
+                                          ohem_fraction, aux_weight, group)
         loss.backward()
         # a parameter the loss does not reach has a zero gradient, as in JAX
         grads = {n: torch.zeros_like(state.master[n]) if p.grad is None
                  else p.grad.to(torch.float32) for n, p in model.named_parameters()}
         model.zero_grad(set_to_none=True)
+        loss = loss.detach().float().reshape(1)
+        if reduce_group is not None:
+            all_reduce_([*grads.values(), loss], reduce_group)
         tx.update(grads, state.opt_state, state.master)
         write_master(state)
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, {"loss": loss[0]}
 
     return step
 
@@ -176,12 +197,17 @@ def _synchronize(model: nn.Module) -> None:
 def fit(state: TrainState, train_step, data_iter: Iterable, epochs: int, epoch_size: int,
         logger=None, frequent: int = 20,
         epoch_end_callback: Callable[[int, TrainState], None] | None = None,
-        begin_epoch: int = 0, metrics_writer=None) -> TrainState:
+        begin_epoch: int = 0, metrics_writer=None, mesh=None) -> TrainState:
     """The reference-shaped fit loop: ``epoch_size`` steps per epoch, a
     Speedometer line (and a metrics row) every ``frequent`` steps and at the
     epoch's end, ``epoch_end_callback(epoch, state)`` after each epoch. On
-    the card, the clock is read after a synchronize."""
+    the card, the clock is read after a synchronize. Under a ``mesh`` the
+    loss is the global batch's (the step's) and the speed counts the
+    global batch; only rank 0 logs, writes metrics and calls
+    ``epoch_end_callback`` (which writes the checkpoints)."""
     log = logger.info if logger else print
+    main = mesh is None or mesh.rank == 0
+    ranks = 1 if mesh is None else mesh.data
     for epoch in range(begin_epoch, epochs):
         _synchronize(state.model)
         t0 = time.time()
@@ -189,11 +215,11 @@ def fit(state: TrainState, train_step, data_iter: Iterable, epochs: int, epoch_s
         for i, batch in zip(range(epoch_size), data_iter):
             state, metrics = train_step(state, batch)
             n_since += 1
-            if (i + 1) % frequent == 0 or (i + 1) == epoch_size:
+            if main and ((i + 1) % frequent == 0 or (i + 1) == epoch_size):
                 loss = float(metrics["loss"])
                 _synchronize(state.model)
                 dt = time.time() - t0
-                bsz = (batch["data"] if "data" in batch else batch["clip"]).shape[0]
+                bsz = (batch["data"] if "data" in batch else batch["clip"]).shape[0] * ranks
                 log(f"Epoch[{epoch}] Batch [{i + 1}/{epoch_size}]\t"
                     f"Speed: {n_since * bsz / dt:.2f} samples/sec\tFCNLogLoss={loss:.5f}")
                 if metrics_writer is not None:
@@ -201,6 +227,6 @@ def fit(state: TrainState, train_step, data_iter: Iterable, epochs: int, epoch_s
                                          samples_per_sec=n_since * bsz / dt, epoch=epoch)
                 t0 = time.time()
                 n_since = 0
-        if epoch_end_callback is not None:
+        if main and epoch_end_callback is not None:
             epoch_end_callback(epoch, state)
     return state

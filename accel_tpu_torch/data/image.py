@@ -1,36 +1,17 @@
 """Host-side image preprocessing (counterpart of ``accel_tpu/data/image.py``).
 
 Short-side ``resize`` capped at a max size, BGR mean-subtract
-``transform``, the label LUT and ``tensor_vstack`` batching, in numpy:
-the ops of ``accel_tpu/native/__init__.py``'s numpy fallback (half-pixel
-bilinear resize, normalize, LUT). The reference's C++ extension for these
-loops (``accel_tpu/native/_accel_native.cpp``) has no counterpart here yet.
+``transform``, the label LUT and ``tensor_vstack`` batching. The hot loops
+(bilinear resize, normalize, label LUT) run in the C++ of
+``accel_tpu_torch/native`` (``native_ops``), as the reference's do once
+its extension is built; nearest resizes are numpy indexing.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-
-def resize_bilinear(im: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
-    """Half-pixel-centre bilinear resize, edges clamped, in f32 (HW or HWC)."""
-    squeeze = im.ndim == 2
-    if squeeze:
-        im = im[..., None]
-    h, w, _ = im.shape
-    fy = np.clip((np.arange(out_h) + 0.5) * (h / out_h) - 0.5, 0, h - 1)
-    fx = np.clip((np.arange(out_w) + 0.5) * (w / out_w) - 0.5, 0, w - 1)
-    y0 = fy.astype(np.int64)
-    x0 = fx.astype(np.int64)
-    y1 = np.minimum(y0 + 1, h - 1)
-    x1 = np.minimum(x0 + 1, w - 1)
-    wy = (fy - y0)[:, None, None].astype(np.float32)
-    wx = (fx - x0)[None, :, None].astype(np.float32)
-    im = im.astype(np.float32)
-    top = im[y0][:, x0] * (1 - wx) + im[y0][:, x1] * wx
-    bot = im[y1][:, x0] * (1 - wx) + im[y1][:, x1] * wx
-    out = top * (1 - wy) + bot * wy
-    return out[..., 0] if squeeze else out
+from accel_tpu_torch.native import native_ops
 
 
 def resize(im: np.ndarray, target_size: int, max_size: int, interp: str = "bilinear"):
@@ -51,14 +32,13 @@ def resize_to(im: np.ndarray, out_h: int, out_w: int, interp: str = "bilinear"):
         ys = (np.arange(out_h) * (im.shape[0] / out_h)).astype(np.int64)
         xs = (np.arange(out_w) * (im.shape[1] / out_w)).astype(np.int64)
         return im[ys][:, xs]
-    return resize_bilinear(im, out_h, out_w)
+    return native_ops.resize_bilinear(im, out_h, out_w)
 
 
 def transform(im: np.ndarray, pixel_means, pixel_stds=(1.0, 1.0, 1.0)) -> np.ndarray:
     """uint8/float HWC in BGR order -> normalized float32 (1, H, W, C)."""
-    means = np.asarray(pixel_means, np.float32)
-    stds = np.asarray(pixel_stds, np.float32)
-    return ((im.astype(np.float32) - means) / stds).astype(np.float32)[None]
+    return native_ops.normalize(im, np.asarray(pixel_means, np.float32),
+                                np.asarray(pixel_stds, np.float32))[None]
 
 
 def transform_inverse(im_tensor: np.ndarray, pixel_means, pixel_stds=(1.0, 1.0, 1.0)):
@@ -69,7 +49,7 @@ def transform_inverse(im_tensor: np.ndarray, pixel_means, pixel_stds=(1.0, 1.0, 
 
 def map_labels(label: np.ndarray, lut: np.ndarray) -> np.ndarray:
     """Apply a 256-entry labelId -> trainId LUT (255 = ignore)."""
-    return lut[label.astype(np.uint8)]
+    return native_ops.map_labels(label, lut)
 
 
 def tensor_vstack(tensor_list, pad: float = 0.0) -> np.ndarray:

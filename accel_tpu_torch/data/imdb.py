@@ -29,16 +29,19 @@ class IMDB:
 
     def _load_cached(self, tag: str, builder):
         """The segdb from ``<root>/cache/<name>_<tag>.pkl``, built and
-        written there on first use. The cache is this program's own file:
-        only a trusted dataset root may hold it, since unpickling runs
-        code."""
+        written there on first use, under a temporary name and then
+        renamed, so that a data-parallel rank never reads another's half
+        written file. The cache is this program's own file: only a trusted
+        dataset root may hold it, since unpickling runs code."""
         cache_file = os.path.join(self.cache_path, f"{self.name}_{tag}.pkl")
         if os.path.exists(cache_file):
             with open(cache_file, "rb") as f:
                 return pickle.load(f)
         db = builder()
-        with open(cache_file, "wb") as f:
+        tmp = f"{cache_file}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
             pickle.dump(db, f, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(tmp, cache_file)
         return db
 
     # ---- evaluation ------------------------------------------------------

@@ -7,6 +7,13 @@ The train loaders draw from ``np.random.default_rng(seed)`` the same
 numbers in the same order as the reference's, so their batches are the
 reference's bit for bit; the batches leave as NCHW float32 tensors (labels
 int32), the eval loader's as the reference's NHWC arrays.
+
+Under data parallelism each loader takes ``rows``, this rank's rows of
+every global batch (``parallel.mesh.batch_rows``). A train loader draws
+its crops and flips in order over the global batch, and a crop depends on
+each image's shape, so every rank decodes and normalizes the whole global
+batch and keeps its rows (W ranks do W times the host work of one). The
+eval loader draws nothing, so each rank loads only its clips.
 """
 
 from __future__ import annotations
@@ -60,9 +67,13 @@ def _crop_window(rng: np.random.Generator, crop, hw) -> tuple[int, int, int, int
 
 class _TrainLoader:
     """What the two train loaders share: the cfg, the rng, the annotated
-    entries, the epoch's order and the crop and flip draws."""
+    entries, the epoch's order and the crop and flip draws. ``rows``: the
+    rows of each global batch of ``TRAIN.BATCH_IMAGES`` this loader yields
+    (default all). Fewer annotated entries than a batch raise: an epoch
+    would hold no batch, and the endless iterator would yield none."""
 
-    def __init__(self, imdb, cfg, shuffle: bool = True, seed: int = 0):
+    def __init__(self, imdb, cfg, shuffle: bool = True, seed: int = 0,
+                 rows: slice | None = None):
         self.imdb = imdb
         self.cfg = cfg
         self.shuffle = shuffle
@@ -74,6 +85,10 @@ class _TrainLoader:
         self.stds = np.asarray(cfg.network.PIXEL_STDS, np.float32)
         self.scales = cfg.get("SCALES")
         self.entries = [e for e in imdb.segdb if e["annotation"]]
+        if len(self.entries) < self.batch_size:
+            raise ValueError(f"{len(self.entries)} annotated entries, fewer than "
+                             f"TRAIN.BATCH_IMAGES={self.batch_size}: no full batch to train on")
+        self.rows = rows
         self.has_seq = getattr(imdb, "has_sequences", lambda: False)()
 
     @property
@@ -105,7 +120,8 @@ class _TrainLoader:
             n = len(self.entries)
             order = self.rng.permutation(n) if self.shuffle else np.arange(n)
             for i in range(0, n - self.batch_size + 1, self.batch_size):
-                yield self._batch([self.entries[j] for j in order[i:i + self.batch_size]])
+                batch = self._batch([self.entries[j] for j in order[i:i + self.batch_size]])
+                yield batch if self.rows is None else {k: v[self.rows] for k, v in batch.items()}
 
 
 class TrainPairLoader(_TrainLoader):
@@ -117,8 +133,9 @@ class TrainPairLoader(_TrainLoader):
     Batch: 'data' and 'data_ref' (N,3,H,W) float32, 'eq_flag' (N,) float32,
     'label' (N,H,W) int32 (255 ignored)."""
 
-    def __init__(self, imdb, cfg, shuffle: bool = True, seed: int = 0):
-        super().__init__(imdb, cfg, shuffle, seed)
+    def __init__(self, imdb, cfg, shuffle: bool = True, seed: int = 0,
+                 rows: slice | None = None):
+        super().__init__(imdb, cfg, shuffle, seed, rows)
         self.min_off = int(cfg.TRAIN.MIN_OFFSET)
         self.max_off = int(cfg.TRAIN.MAX_OFFSET)
 
@@ -162,8 +179,9 @@ class TrainClipLoader(_TrainLoader):
     Batch: 'clip' (N,F,3,H,W) float32, 'label' (N,F,H,W) int32, 255
     everywhere but each clip's annotated frame."""
 
-    def __init__(self, imdb, cfg, shuffle: bool = True, seed: int = 0):
-        super().__init__(imdb, cfg, shuffle, seed)
+    def __init__(self, imdb, cfg, shuffle: bool = True, seed: int = 0,
+                 rows: slice | None = None):
+        super().__init__(imdb, cfg, shuffle, seed, rows)
         self.clip_length = int(cfg.TRAIN.CLIP_LENGTH)
 
     def _load_clip(self, entry):
@@ -217,12 +235,14 @@ class TestClipLoader:
 
     __test__ = False  # pytest: not a test class (reference naming)
 
-    def __init__(self, imdb, cfg, batch_clips: int = 1, max_items: int | None = None):
+    def __init__(self, imdb, cfg, batch_clips: int = 1, max_items: int | None = None,
+                 rows: slice | None = None):
         self.imdb = imdb
         self.cfg = cfg
         self.interval = int(cfg.TEST.KEY_FRAME_INTERVAL)
         self.key_offset = int(cfg.TEST.KEY_FRAME_OFFSET)
         self.batch_clips = batch_clips
+        self.rows = slice(0, batch_clips) if rows is None else rows
         self.means = np.asarray(cfg.network.PIXEL_MEANS, np.float32)
         self.stds = np.asarray(cfg.network.PIXEL_STDS, np.float32)
         self.scales = cfg.get("SCALES")
@@ -267,20 +287,24 @@ class TestClipLoader:
         return clip, label_full, native
 
     def __iter__(self):
+        if self.rows.start >= self.rows.stop:
+            return
         for i in range(0, len(self.entries), self.batch_clips):
+            batch = self.entries[i:i + self.batch_clips]
             clips, labels, idxs, natives = [], [], [], []
-            for e in self.entries[i:i + self.batch_clips]:
-                clip, label, native = self._load_clip(e)
+            loaded = {}
+            for row in range(self.rows.start, self.rows.stop):
+                # the last batch is filled up with repeats of its last clip
+                # that score nothing
+                e = batch[min(row, len(batch) - 1)]
+                if id(e) not in loaded:
+                    loaded[id(e)] = self._load_clip(e)
+                clip, label, native = loaded[id(e)]
+                pad = row >= len(batch)
                 clips.append(clip)
-                labels.append(label)
-                idxs.append(self._entry_idx[id(e)])
-                natives.append(native)
-            # the last batch is filled up with repeats that score nothing
-            while len(clips) < self.batch_clips:
-                clips.append(clips[-1])
-                labels.append(np.full_like(labels[-1], 255))
-                idxs.append(-1)
-                natives.append(None)
+                labels.append(np.full_like(label, 255) if pad else label)
+                idxs.append(-1 if pad else self._entry_idx[id(e)])
+                natives.append(None if pad else native)
             item = {"clip": np.stack(clips, 0), "label": np.stack(labels, 0),
                     "entry_idx": np.asarray(idxs), "ann_pos": self.ann_pos}
             if any(n is not None for n in natives):

@@ -3,6 +3,7 @@
 
     python3 -m accel_tpu_torch.experiments.test --cfg experiments/cfgs/accel18_cityscapes.yaml
     python3 -m accel_tpu_torch.experiments.test --cfg <yaml> --device cpu --random-weights
+    torchrun --standalone --nproc_per_node=N -m accel_tpu_torch.experiments.test --cfg <yaml>
 
 Loads the cfg, applies ``TEST.serving_network`` and then ``--set-network``,
 builds the model from the cfg, restores the newest port checkpoint at or
@@ -14,9 +15,13 @@ and offset asked for, logging per-class IoU, mIoU and fps.
 
 It runs on the card (``--device cuda``, the default) and raises where
 there is none; ``--device cpu`` runs the plain PyTorch versions of the
-kernels. The reference's device mesh (its clip batch sharded over chips,
-``tpu.mesh``) has no counterpart on one H100: ``TEST.BATCH_IMAGES`` clips
-run as one batch on the one card. The reference's ``--vis`` and
+kernels. Under ``torchrun`` (``parallel/mesh.py``) each rank runs its rows
+of every batch of ``TEST.BATCH_IMAGES`` clips on its card (gloo where ranks
+share a card, and on the CPU), loading only those clips, and the confusion
+matrices are summed over the ranks: the mIoU is the one-process mIoU. A
+batch that does not divide by the ranks is split over gcd(batch, ranks)
+of them with a warning, as the reference clamps its mesh's data axis.
+Plain ``python3 -m`` runs one process. The reference's ``--vis`` and
 ``--ignore_cache``, which change nothing there, are not taken, and an
 unknown flag is an error here, where the reference ignores it.
 """
@@ -41,6 +46,7 @@ from accel_tpu_torch.data.cityscapes import Cityscape
 from accel_tpu_torch.data.loader import TestClipLoader
 from accel_tpu_torch.data.prefetch import PrefetchingIter, to_device
 from accel_tpu_torch.models.accel import build_model
+from accel_tpu_torch.parallel.mesh import batch_rows, mesh_from_cfg
 from accel_tpu_torch.utils.logger import create_logger
 
 
@@ -152,10 +158,19 @@ def main(argv=None) -> list[dict]:
         cfg.network.warp_max_disp = args.warp_max_disp
     apply_serving_network(cfg, args.set_network)
 
-    device = torch.device(args.device)
+    mesh = mesh_from_cfg(cfg, device=args.device)
+    try:
+        return _evaluate(args, cfg, mesh)
+    finally:
+        mesh.close()
+
+
+def _evaluate(args, cfg, mesh) -> list[dict]:
+    device = mesh.device
     model = build_model(cfg, device=device, generator=torch.Generator().manual_seed(0))
     cfg_name = os.path.splitext(os.path.basename(args.cfg))[0]
-    logger, _ = create_logger(cfg.output_path, cfg_name, cfg.dataset.test_image_set)
+    logger, _ = create_logger(cfg.output_path, cfg_name, cfg.dataset.test_image_set, mesh.rank)
+    logger.info(mesh.describe())
 
     dataset = Cityscape if cfg.dataset.dataset.lower().startswith("city") else CamVid
     imdb = dataset(cfg.dataset.test_image_set, cfg.dataset.root_path, cfg.dataset.dataset_path)
@@ -182,6 +197,7 @@ def main(argv=None) -> list[dict]:
         logger.warning(f"PROVENANCE: {msg}")
     intervals = ([int(x) for x in args.sweep.split(",")] if args.sweep
                  else [int(cfg.TEST.KEY_FRAME_INTERVAL)])
+    rows = batch_rows(mesh, int(cfg.TEST.BATCH_IMAGES), clamp=True, logger=logger)
     results = []
     for interval in intervals:
         cfg.TEST.KEY_FRAME_INTERVAL = interval
@@ -190,11 +206,11 @@ def main(argv=None) -> list[dict]:
         for key_offset in offsets:
             cfg.TEST.KEY_FRAME_OFFSET = key_offset
             loader = TestClipLoader(imdb, cfg, batch_clips=int(cfg.TEST.BATCH_IMAGES),
-                                    max_items=args.max_items)
+                                    max_items=args.max_items, rows=rows)
             batches = PrefetchingIter(iter(loader), transform=lambda b: to_device(b, device))
             miou, iou, stats = pred_eval_clips(
                 model, batches, int(cfg.dataset.NUM_CLASSES), interval, propagate, logger,
-                upsample=str(cfg.TEST.upsample))
+                upsample=str(cfg.TEST.upsample), mesh=mesh)
             if len(intervals) == 1 and len(offsets) == 1:
                 for n, v in zip(imdb.class_names, iou):
                     logger.info(f"{n:20s} IU {v * 100:6.2f}")

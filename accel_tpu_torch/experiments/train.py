@@ -2,6 +2,7 @@
 
     python3 -m accel_tpu_torch.experiments.train --cfg experiments/cfgs/accel18_cityscapes.yaml
     python3 -m accel_tpu_torch.experiments.train --cfg <yaml> --device cpu
+    torchrun --standalone --nproc_per_node=N -m accel_tpu_torch.experiments.train --cfg <yaml>
 
 Loads the cfg, builds the imdb and the loader of ``TRAIN.objective``
 (``TrainClipLoader`` for 'clip', ``TrainPairLoader`` for 'pair'), builds the
@@ -15,9 +16,16 @@ point (``accel_tpu_torch.experiments.test``) reads those checkpoints.
 
 It runs on the card (``--device cuda``, the default) and raises where there
 is none; ``--device cpu`` runs the plain PyTorch versions of the kernels.
-One card has no mesh: the reference's ``tpu.*`` keys (mesh, prefetch
-depth, donation) are read by no part of this entry point, and
-``TRAIN.BATCH_IMAGES`` is the batch of the one card. Pretrained
+Plain ``python3 -m`` runs one process. Under ``torchrun`` each rank is a
+data-parallel process on its card (``parallel/mesh.py``: NCCL where each
+rank has a card of its own, gloo where ranks share one, and on the CPU;
+``tpu.mesh.data`` -1 or the world size): ``TRAIN.BATCH_IMAGES`` stays the
+global batch, which must divide by the ranks; each rank trains on its rows
+of the batch a one-process run with the same seed draws, the weights and
+master state start from rank 0's, the step sums the gradients over the
+ranks, and only rank 0 logs and writes metrics, provenance and
+checkpoints. The reference's other ``tpu.*`` keys (prefetch depth,
+donation) are read by no part of this entry point. Pretrained
 initialisation (``network.pretrained``, ``pretrained_update``,
 ``pretrained_flow``: MXNet ``.params``, ``.npz`` or torchvision ``.pth``)
 merges the files into the seeded weights before training
@@ -32,6 +40,7 @@ ignores it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 import torch
@@ -54,6 +63,7 @@ from accel_tpu_torch.data.loader import TrainClipLoader, TrainPairLoader
 from accel_tpu_torch.data.prefetch import PrefetchingIter, to_device
 from accel_tpu_torch.experiments.test import apply_network_overrides
 from accel_tpu_torch.models.accel import build_model
+from accel_tpu_torch.parallel.mesh import batch_rows, mesh_from_cfg, replicated
 from accel_tpu_torch.utils.logger import create_logger
 from accel_tpu_torch.utils.metrics_writer import MetricsWriter
 
@@ -77,15 +87,25 @@ def main(argv=None):
     args = parse_args(argv)
     cfg = load_config(args.cfg)
     apply_network_overrides(cfg, args.set_network)
-    device = torch.device(args.device)
+    mesh = mesh_from_cfg(cfg, device=args.device)
+    try:
+        return _train(args, cfg, mesh)
+    finally:
+        mesh.close()
+
+
+def _train(args, cfg, mesh):
+    device = mesh.device
+    main_rank = mesh.rank == 0
     cfg_name = os.path.splitext(os.path.basename(args.cfg))[0]
-    logger, out_dir = create_logger(cfg.output_path, cfg_name, cfg.dataset.image_set)
-    logger.info(f"config {args.cfg} device {device}")
+    logger, out_dir = create_logger(cfg.output_path, cfg_name, cfg.dataset.image_set, mesh.rank)
+    logger.info(f"config {args.cfg} device {device}; {mesh.describe()}")
 
     dataset = Cityscape if cfg.dataset.dataset.lower().startswith("city") else CamVid
     imdb = dataset(cfg.dataset.image_set, cfg.dataset.root_path, cfg.dataset.dataset_path)
     objective = str(cfg.TRAIN.objective)
-    loader = (TrainClipLoader if objective == "clip" else TrainPairLoader)(imdb, cfg)
+    rows = batch_rows(mesh, int(cfg.TRAIN.BATCH_IMAGES))
+    loader = (TrainClipLoader if objective == "clip" else TrainPairLoader)(imdb, cfg, rows=rows)
     epoch_size = loader.epoch_size
 
     model = build_model(cfg, device=device, generator=torch.Generator().manual_seed(0))
@@ -105,7 +125,8 @@ def main(argv=None):
     prefix = os.path.join(out_dir, cfg.TRAIN.model_prefix)
     # the training semantics beside the checkpoints, before fit, so that an
     # interrupted run carries them too; the eval entry point checks them
-    save_provenance(prefix, provenance_from_cfg(cfg))
+    if main_rank:
+        save_provenance(prefix, provenance_from_cfg(cfg))
     begin_epoch = int(cfg.TRAIN.begin_epoch)
     if cfg.TRAIN.RESUME:
         le = latest_epoch(prefix)
@@ -113,12 +134,13 @@ def main(argv=None):
             restore_train_state(state, load_checkpoint(prefix, le))
             begin_epoch = le + 1
             logger.info(f"resumed epoch {le}")
+    replicated(mesh, model, state)
 
     ohem = float(cfg.TRAIN.ohem_fraction) or None
     step = make_train_step(tx, int(cfg.dataset.NUM_CLASSES), float(cfg.TRAIN.loss_scale),
                            ohem_fraction=ohem, aux_weight=float(cfg.TRAIN.aux_loss_weight),
                            objective=objective, propagate=str(cfg.network.propagate),
-                           remat=bool(cfg.TRAIN.remat))
+                           remat=bool(cfg.TRAIN.remat), mesh=mesh)
     data_iter = PrefetchingIter(iter(loader),
                                 transform=lambda b: to_device(b, device, keys=tuple(b)))
     end_epoch = int(cfg.TRAIN.end_epoch)
@@ -129,11 +151,12 @@ def main(argv=None):
             save_checkpoint(prefix, epoch, train_checkpoint(s, epoch))
 
     try:
-        with MetricsWriter(os.path.join(out_dir, "metrics.jsonl")) as metrics_writer:
+        with (MetricsWriter(os.path.join(out_dir, "metrics.jsonl")) if main_rank
+              else contextlib.nullcontext()) as metrics_writer:
             state = fit(state, step, data_iter, epochs=end_epoch, epoch_size=epoch_size,
                         logger=logger, frequent=args.frequent or int(cfg.default.frequent),
                         epoch_end_callback=on_epoch_end, begin_epoch=begin_epoch,
-                        metrics_writer=metrics_writer)
+                        metrics_writer=metrics_writer, mesh=mesh)
     finally:
         data_iter.close()
     logger.info("training done")

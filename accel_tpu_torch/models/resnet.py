@@ -12,6 +12,7 @@ the model after each step.
 from __future__ import annotations
 
 import torch
+import torch.distributed.nn.functional as dist_nn
 from torch import nn
 import torch.nn.functional as F
 
@@ -101,7 +102,14 @@ class BatchNorm(nn.Module):
     the step's forward passes are done, so passes in ``eval()`` mode during
     the step (the pair objective's auxiliary losses) read the statistics
     the step started from, as flax's ``model.apply`` without ``train``
-    does. In ``eval()`` mode it normalizes by the running statistics."""
+    does. In ``eval()`` mode it normalizes by the running statistics.
+
+    ``group`` (a data-parallel process group, set by the pair objective for
+    its forward): the batch statistics are those of the global batch, the
+    ranks' sums of x and x^2 and their counts all-reduced with autograd,
+    so the statistics' gradient reaches every rank's inputs (what
+    ``SyncBatchNorm`` does); the running statistics follow the global
+    statistics, equal on every rank."""
 
     def __init__(self, c: int, *, device=None):
         super().__init__()
@@ -112,12 +120,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(c, **kw))
         self.momentum, self.eps = 0.9, 1e-5
         self._pending: list[tuple[torch.Tensor, torch.Tensor]] = []
+        self.group = None
 
     def forward(self, x):
         xf = x.to(torch.float32)
-        if self.training:
+        if self.training and self.group is not None:
+            C = xf.shape[1]
+            count = xf.new_full((1,), xf.numel() // C)
+            sums = torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), count])
+            sums = dist_nn.all_reduce(sums, group=self.group)
+            mean = sums[:C] / sums[-1]
+            var = (sums[C:2 * C] / sums[-1] - mean * mean).clamp_min(0.0)
+        elif self.training:
             mean = xf.mean(dim=(0, 2, 3))
             var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if self.training:
             self._pending.append((mean.detach(), var.detach()))
         else:
             mean, var = self.running_mean, self.running_var

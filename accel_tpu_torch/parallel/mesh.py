@@ -1,0 +1,206 @@
+"""Data parallelism over processes (counterpart of ``accel_tpu/parallel/mesh.py``).
+
+The reference shards a global batch over a ``jax.sharding.Mesh`` with a
+``data`` and a ``spatial`` axis; its train step is the unsharded program
+(``jit`` semantics), so W chips compute the loss and the gradient of the
+whole global batch. Here each rank is a process with one card (or the
+CPU), started by ``torchrun`` or by a caller that gives the rendezvous,
+and the global-batch semantics are kept by hand:
+
+- each rank takes its rows of the global batch (``batch_rows``,
+  ``shard_batch``);
+- the loss functions divide by global counts, all-reduced
+  (``core/metrics.py``, ``core/pipeline.py``), and running-stat BatchNorm
+  takes its statistics over the global batch, with their gradient across
+  ranks (``models/resnet.py``); each rank's loss is its share of the
+  global loss;
+- the trainer sums the shares' f32 gradients over the ranks
+  (``all_reduce_``) before the optimizer, so every rank applies the same
+  update and the master weights stay bit-equal across ranks.
+
+The ``spatial`` axis (H split over chips, with halo exchanges for the
+convolutions) has no counterpart yet: ``tpu.mesh.spatial`` > 1 raises.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import os
+from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
+
+# elements of one all-reduce bucket of f32 gradients (256 MB)
+BUCKET_NUMEL = 1 << 26
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """One rank's view of the data-parallel world: ``data`` ranks (the
+    world size), ``spatial`` 1, this process's ``rank`` and ``local_rank``,
+    its ``device``, and the process group (None for a world of one with no
+    group asked for)."""
+    data: int
+    spatial: int
+    rank: int
+    local_rank: int
+    device: torch.device
+    group: object | None = None
+
+    @property
+    def loss_group(self):
+        """The group the loss functions reduce their counts over: None in a
+        world of one, where every path runs as it does with no mesh."""
+        return self.group if self.data > 1 else None
+
+    def describe(self) -> str:
+        """One line for the log: the ranks, the backend and this rank's device."""
+        if self.group is None:
+            return f"one process on {self.device}"
+        return (f"data parallel: {self.data} ranks, backend {dist.get_backend(self.group)}, "
+                f"rank {self.rank} on {self.device}")
+
+    def close(self) -> None:
+        """Destroy the process group this mesh made, if any."""
+        if self.group is not None and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _device(cfg, local_rank: int, local_world: int, device) -> torch.device:
+    """The caller's device where it names the CPU or an indexed card; else
+    ``cuda:<gpus[local_rank]>`` (the reference's device-by-index rule) where
+    ``cfg.gpus`` lists a valid card for every local rank, and otherwise,
+    the reference's default, every card: local rank r takes card r, the
+    ranks past the last card sharing the cards in turn. So the cfgs'
+    default ``gpus: '0'`` puts one process on card 0 and N ranks on N
+    cards, and two ranks on a one-card machine share it."""
+    if device is not None:
+        device = torch.device(device)
+        if device.type != "cuda" or device.index is not None:
+            return device
+    n = torch.cuda.device_count()
+    ids = [int(x) for x in str(cfg.get("gpus", "") or "").split(",") if x.strip()]
+    if len(ids) < local_world or not all(i < n for i in ids):
+        ids = list(range(max(n, 1)))
+    return torch.device("cuda", ids[local_rank % len(ids)])
+
+
+def mesh_from_cfg(cfg, device=None, init_method: str | None = None, rank: int | None = None,
+                  world_size: int | None = None) -> Mesh:
+    """The mesh of this process, from ``cfg.tpu.mesh`` and the launch.
+
+    The world comes from the caller's ``init_method``/``rank``/``world_size``
+    where given, else from ``torchrun``'s ``RANK``/``WORLD_SIZE``/
+    ``LOCAL_RANK`` (with ``MASTER_ADDR``/``MASTER_PORT``), else it is one
+    process and no group is made. ``tpu.mesh.data`` must be -1 or the world
+    size; ``tpu.mesh.spatial`` must be 1. ``device``: 'cpu' for the CPU;
+    otherwise the card of ``_device``. The backend is NCCL where each local
+    rank has a card of its own, gloo where ranks share a card (NCCL refuses
+    two ranks on one device) or run on the CPU."""
+    m = cfg.tpu.mesh
+    if int(m.spatial) != 1:
+        raise ValueError(
+            f"tpu.mesh.spatial={m.spatial}: the spatial axis (H split over ranks with halo "
+            "exchanges) is not ported; ROADMAP.md Queue 1 lists it")
+    env = os.environ
+    if init_method is not None:
+        if rank is None or world_size is None:
+            raise ValueError("init_method needs rank and world_size")
+        local_rank, local_world = rank, world_size
+    elif "RANK" in env and "WORLD_SIZE" in env:
+        init_method, rank, world_size = "env://", int(env["RANK"]), int(env["WORLD_SIZE"])
+        local_rank = int(env.get("LOCAL_RANK", rank))
+        local_world = int(env.get("LOCAL_WORLD_SIZE", world_size))
+    else:
+        rank, world_size, local_rank, local_world = 0, 1, 0, 1
+    if int(m.data) not in (-1, world_size):
+        raise ValueError(f"tpu.mesh.data={m.data} but the world has {world_size} ranks "
+                         "(-1 takes every rank)")
+    dev = _device(cfg, local_rank, local_world, device)
+    if init_method is None:
+        return Mesh(data=1, spatial=1, rank=0, local_rank=0, device=dev)
+    cards = {_device(cfg, r, local_world, device).index for r in range(local_world)}
+    backend = "nccl" if dev.type == "cuda" and len(cards) == local_world else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world_size)
+    return Mesh(data=world_size, spatial=1, rank=rank, local_rank=local_rank, device=dev,
+                group=dist.group.WORLD)
+
+
+def batch_rows(mesh: Mesh | None, batch_size: int, clamp: bool = False, logger=None) -> slice:
+    """This rank's rows of a global batch of ``batch_size``. The batch must
+    divide by the world (``ValueError``); with ``clamp`` (eval) a batch that
+    does not is split over gcd(batch, world) ranks with a warning, as the
+    reference's eval clamps its mesh, and the other ranks get no rows."""
+    if mesh is None or mesh.data == 1:
+        return slice(0, batch_size)
+    ranks = mesh.data
+    if batch_size % ranks:
+        if not clamp:
+            raise ValueError(f"batch {batch_size} does not divide by the {ranks} ranks")
+        ranks = math.gcd(batch_size, mesh.data)
+        if mesh.rank == 0:
+            (logger or logging.getLogger(__name__)).warning(
+                f"TEST.BATCH_IMAGES={batch_size} not divisible by the {mesh.data} ranks; "
+                f"splitting each batch over {ranks} (raise BATCH_IMAGES to a multiple of "
+                f"{mesh.data} to use every rank)")
+        if mesh.rank >= ranks:
+            return slice(0, 0)
+    per = batch_size // ranks
+    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+
+def shard_batch(mesh: Mesh | None, batch: dict, rows: slice | None = None) -> dict:
+    """This rank's rows (``rows``, default ``batch_rows``) of every entry of
+    ``batch`` that has a leading batch dimension: tensors, arrays and lists
+    of the batch's length; other entries as they are."""
+    n = next(len(v) for v in batch.values() if hasattr(v, "shape") and len(v.shape))
+    rows = batch_rows(mesh, n) if rows is None else rows
+    return {k: v[rows] if (hasattr(v, "shape") and len(v.shape) or isinstance(v, list))
+            and len(v) == n else v for k, v in batch.items()}
+
+
+def replicated(mesh: Mesh | None, model: torch.nn.Module, state=None) -> None:
+    """Broadcast rank 0's weights and buffers of ``model`` and, where given,
+    the ``TrainState``'s master copy and momentum, to every rank, once at
+    the start. Each tensor takes rank 0's values by ``copy_``, which bumps
+    the version the packed-weight caches key on (a collective writing into
+    a parameter would not)."""
+    if mesh is None or mesh.group is None:
+        return
+    tensors = list(model.state_dict().values())
+    if state is not None:
+        tensors += list(state.master.values()) + list(state.opt_state["trace"].values())
+    with torch.no_grad():
+        for t in tensors:
+            received = t.clone()
+            dist.broadcast(received, src=0, group=mesh.group)
+            t.copy_(received)
+
+
+@torch.no_grad()
+def all_reduce_(tensors: list[torch.Tensor], group) -> None:
+    """Sum each f32 tensor over the ranks of ``group``, in place: the
+    tensors packed into flat buckets of at most ``BUCKET_NUMEL`` elements,
+    one all-reduce per bucket."""
+    bucket: list[torch.Tensor] = []
+
+    def flush():
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat, group=group)
+        for t, part in zip(bucket, flat.split([t.numel() for t in bucket]), strict=True):
+            t.copy_(part.view_as(t))
+        bucket.clear()
+
+    numel = 0
+    for t in tensors:
+        if bucket and numel + t.numel() > BUCKET_NUMEL:
+            flush()
+            numel = 0
+        bucket.append(t)
+        numel += t.numel()
+    if bucket:
+        flush()

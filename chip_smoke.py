@@ -74,6 +74,9 @@ Phases, one JSON line each:
     ``pred_eval_clips`` on the same batches: mIoU within 1 point and
     confusion matrices within an L1 of 2*(1-0.99) of the valid pixels
     (0.98 for DFF), the overall class-map limits of ``compare_paths``.
+    The loader's ms per frame through its C++ host ops (``native/``) and
+    through the numpy ops, whose batches must be equal, and each op's ms
+    both ways (``loader_breakdown``).
 
 13. grad_warp, grad_dilated_conv, grad_fused_stem, grad_warp_onehot: each
     kernel's ``torch.autograd.Function`` on the card, at the training
@@ -139,13 +142,24 @@ Phases, one JSON line each:
     ``push_group``'s after it (the kernels' packings are traced).
 20. e2e_export_dff: the DFF row, direct, exported and loaded (B=1): one
     #4 with the scale fused, one #3, one #2; class maps against
-    ``push_group``.
+    ``push_group``. e2e_export_deeplab_pallas: per-frame DeepLab-101 with
+    ``dilated_conv: pallas`` exported and served frame by frame: #5
+    through its op, 4 launches a frame; class maps against ``push_group``.
 21. e2e_noscale: ``use_scale_field: false``: Accel-18 incremental through
     ``push_group`` and ``push_frame`` and DFF direct (#4 with no scale),
     against the plain path, with the exact launches.
 22. e2e_quant_small: the int8 row at B=1 on 64x64 frames (GEMMs of 16
     rows) and with ``head_channels`` 1020 (k and n not multiples of 8),
     against the plain int8 path within ``QUANT_OVERALL``/``QUANT_CLEAR``.
+23. e2e_dp_nccl, e2e_dp_train, e2e_dp_train_bn, e2e_dp_eval: data
+    parallelism (``parallel/mesh.py``) on the training tree: the flagship
+    step under an NCCL group of one (bit-equal to no group), then two gloo
+    ranks on the one card (processes of this script, ``--dp-rank``)
+    against one process: the flagship step (f32 at section 2's train
+    limits; bf16 as shipped), the batchnorm pair step, and the flagship
+    cfg's eval through the eval entry point (the confusion matrix
+    exactly); the ranks' masters bit-equal, their launches exact, their
+    step and all-reduce ms (``e2e_dp``).
 
 Then the ``{"kernels": [...]}`` line (each kernel's first row, with its
 launches on one path it serves and per group there, and its launches on
@@ -164,7 +178,10 @@ import functools
 import json
 import logging
 import math
+import os
 import re
+import shutil
+import socket
 import statistics
 import struct
 import subprocess
@@ -174,24 +191,30 @@ import time
 import zlib
 from pathlib import Path
 
+import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-from accel_tpu_torch import kernels
+from accel_tpu_torch import kernels, native
 from accel_tpu_torch.config import load_config
 from accel_tpu_torch.core.checkpoint import load_checkpoint
 from accel_tpu_torch.core.export import export_serving, load_serving
+from accel_tpu_torch.core import trainer as trainer_module
 from accel_tpu_torch.core.pipeline import (
     clip_logits,
     clip_loss_and_stats,
     clip_predictions,
     pair_loss_and_stats,
+    running_stats,
 )
 from accel_tpu_torch.core.predictor import pred_eval_clips
 from accel_tpu_torch.core.pretrained import apply_pretrained_cfg, caffe_resnet_table
 from accel_tpu_torch.core.serving import VideoSegmenter
 from accel_tpu_torch.core.trainer import init_train_state, make_optimizer, make_train_step
 from accel_tpu_torch.data.cityscapes import ANNOTATED_FRAME, Cityscape
+from accel_tpu_torch.data import image as image_module
+from accel_tpu_torch.data import png
 from accel_tpu_torch.data.image import transform
 from accel_tpu_torch.data.loader import TestClipLoader, TrainClipLoader, TrainPairLoader
 from accel_tpu_torch.data.prefetch import to_device
@@ -206,6 +229,7 @@ from accel_tpu_torch.ops import upsample_argmax as ua_ops
 from accel_tpu_torch.ops import warp as warp_module
 from accel_tpu_torch.ops import warp_cuda as warp_ops
 from accel_tpu_torch.ops import warp_onehot as onehot_ops
+from accel_tpu_torch.parallel.mesh import mesh_from_cfg, replicated, shard_batch
 
 SEED = 0
 H, W = 1024, 2048
@@ -1616,6 +1640,51 @@ def e2e_export_dff(tmp: Path) -> dict[str, int]:
     return launched
 
 
+def e2e_export_deeplab_pallas(tmp: Path) -> dict[str, int]:
+    """Phase 20b: per-frame DeepLab-101 with every dilated conv on #5
+    (``DEEPLAB_NET``, ``dilated_conv: pallas``) exported (symbolic batch,
+    weights embedded), loaded and served frame by frame on a 5-frame clip,
+    each frame a call at the shapes ``push_group`` runs it: #5 runs through
+    ``torch.ops.accel_tpu_torch.conv3x3_dilated``, 4 launches a frame (3
+    layer4 conv2 + fc6, ``e2e_deeplab``'s count), 1 #3 and 1 #2 a frame
+    (``push_group`` runs one #2 for the clip's 5 frames); the class maps
+    against ``push_group``'s (``held_to_push_group``). Returns the launches
+    of the clip."""
+    model = build_model(dict(DEEPLAB_NET, dilated_conv="pallas"), device="cuda",
+                        generator=torch.Generator().manual_seed(SEED))
+    clip = moving_clip(K, (H, W), SEED + 130, "cuda")
+    serve, sizes = export_and_load(model, tmp / "deeplab101_pallas.pt2", "b")
+    ops = sorted({str(n.target) for n in serve.exported.graph.nodes
+                  if str(n.target).startswith("accel_tpu_torch.")})
+    seg = VideoSegmenter(model, K, propagate="direct")
+
+    def frame_by_frame():
+        return torch.cat([serve(clip[:, f:f + 1]) for f in range(K)], dim=1)
+
+    frame_by_frame(), seg.push_group(clip)  # warm-up
+    reset_counts()
+    got = frame_by_frame()
+    torch.cuda.synchronize()
+    launched = counts()
+    reset_counts()
+    want = seg.push_group(clip)
+    torch.cuda.synchronize()
+    eager = counts()
+    held = held_to_push_group("e2e_export_deeplab_pallas", got, want, model, clip, "direct")
+    (_, loaded_ms), (_, group_ms) = cuda_ms(frame_by_frame), cuda_ms(lambda: seg.push_group(clip))
+    emit(dict(phase="e2e_export_deeplab_pallas", config="deeplab101 frozenbn fused7 bf16 "
+              "dilated_conv=pallas, frame by frame", hw=[H, W], frames=K, **sizes, ops=ops,
+              launches=launched, push_group_launches=eager, vs_push_group=held,
+              loaded_ms=loaded_ms, push_group_ms=group_ms, card=card()))
+    check("accel_tpu_torch.conv3x3_dilated.default" in ops,
+          f"e2e_export_deeplab_pallas: #5 is not an op of the program: {ops}")
+    expected = launches_of(dilated_conv=4 * K, fused_stem=K, upsample_argmax=K)
+    check(launched == expected, f"e2e_export_deeplab_pallas launches {launched} != {expected}")
+    check(eager == dict(expected, upsample_argmax=1),
+          f"e2e_export_deeplab_pallas push_group launches {eager}")
+    return launched
+
+
 @contextlib.contextmanager
 def unmodulated_onehot_warps():
     """Record, for each one-hot warp that ``bilinear_warp`` dispatches in
@@ -1845,14 +1914,36 @@ def median_host_ms(fn, turns: int = 3) -> float:
 
 def loader_breakdown(imdb, cfg) -> dict:
     """Host ms of the loader's steps on the tree's first annotated frame:
-    the PNG read (``cv2.imread``), the normalize, and the annotation
-    (read + label LUT)."""
+    the PNG read (``cv2.imread``), the normalize, the annotation (read +
+    label LUT), and the normalize, the LUT and a bilinear resize to half
+    size alone, each through the C++ ops the loader runs
+    (``native.native_ops``) and through the numpy ops (``numpy_ops``)."""
     entry = imdb.segdb[0]
     im = imdb.load_image(entry["image"])
-    means, stds = cfg.network.PIXEL_MEANS, cfg.network.PIXEL_STDS
-    return dict(read=median_host_ms(lambda: imdb.load_image(entry["image"])),
-                normalize=median_host_ms(lambda: transform(im, means, stds)),
-                annotation=median_host_ms(lambda: imdb.load_annotation(entry)))
+    label = png.imread(entry["annotation"], png.IMREAD_UNCHANGED)
+    means = np.asarray(cfg.network.PIXEL_MEANS, np.float32)
+    stds = np.asarray(cfg.network.PIXEL_STDS, np.float32)
+    out = dict(read=median_host_ms(lambda: imdb.load_image(entry["image"])),
+               normalize=median_host_ms(lambda: transform(im, means, stds)),
+               annotation=median_host_ms(lambda: imdb.load_annotation(entry)))
+    h, w = im.shape[0] // 2, im.shape[1] // 2
+    for name, ops in (("native", native.native_ops), ("numpy", native.numpy_ops)):
+        out[name] = dict(normalize=median_host_ms(lambda: ops.normalize(im, means, stds)),
+                         label_lut=median_host_ms(lambda: ops.map_labels(label, imdb.lut)),
+                         resize_half=median_host_ms(lambda: ops.resize_bilinear(im, h, w)))
+    return out
+
+
+@contextlib.contextmanager
+def numpy_host_ops():
+    """The data path's resize, normalize and LUT through the numpy ops for
+    the duration (the loader's C++ ops replaced)."""
+    ops = image_module.native_ops
+    image_module.native_ops = native.numpy_ops
+    try:
+        yield
+    finally:
+        image_module.native_ops = ops
 
 
 def e2e_eval(phase: str, cfg_name: str, root: Path, data: Path, valid_per_clip: int,
@@ -1881,6 +1972,14 @@ def e2e_eval(phase: str, cfg_name: str, root: Path, data: Path, valid_per_clip: 
     t0 = time.perf_counter()
     host_batches = list(TestClipLoader(imdb, cfg, max_items=EVAL_SNIPPETS))
     loader_ms_per_frame = (time.perf_counter() - t0) * 1e3 / (EVAL_SNIPPETS * K)
+    with numpy_host_ops():
+        t0 = time.perf_counter()
+        numpy_batches = list(TestClipLoader(imdb, cfg, max_items=EVAL_SNIPPETS))
+        loader_ms_per_frame_numpy = (time.perf_counter() - t0) * 1e3 / (EVAL_SNIPPETS * K)
+    check(all(np.array_equal(a["clip"], b["clip"]) and np.array_equal(a["label"], b["label"])
+              for a, b in zip(host_batches, numpy_batches, strict=True)),
+          f"{phase}: the C++ and numpy loaders' batches differ (unit stds, no resize)")
+    del numpy_batches
     loader_split_ms = loader_breakdown(imdb, cfg)
     batches = [to_device(b, "cuda") for b in host_batches]
     del host_batches
@@ -1921,7 +2020,9 @@ def e2e_eval(phase: str, cfg_name: str, root: Path, data: Path, valid_per_clip: 
                                net_ms_per_frame=1e3 / stats["fps"],
                                data_wait_ms_per_frame=stats["t_data"] * 1e3 / stats["frames"],
                                wall_s=wall_s, launches=launched),
-              loader_ms_per_frame=loader_ms_per_frame, loader_split_ms=loader_split_ms,
+              loader_ms_per_frame=loader_ms_per_frame,
+              loader_ms_per_frame_numpy_ops=loader_ms_per_frame_numpy,
+              loader_split_ms=loader_split_ms,
               max_abs_flow=max_flow,
               kernels_miou=runs["kernels"]["miou"], plain_miou=runs["plain"]["miou"],
               kernels_fps=runs["kernels"]["stats"]["fps"],
@@ -2313,6 +2414,391 @@ def e2e_train_bn(root: Path, data: Path) -> dict[str, int]:
     return launched
 
 
+# ---- phase 23: data parallelism over two ranks on the one card ------------------
+
+DP_RANKS = 2
+# val clips of the data-parallel eval: two batches of one clip a rank, so
+# that each rank times one (the first batch is left out of fps)
+DP_EVAL_CLIPS = 4
+# the least per-tensor gradient cosine of the f32 batchnorm pair step on two
+# ranks against one process: a BatchNorm bias or scale followed by a conv and
+# another BatchNorm gets a gradient that nearly cancels (the next BatchNorm
+# removes per-channel shifts), so f32 summation order alone moves it; on an
+# NVIDIA H100 80GB HBM3 (700 W) the worst was 0.9982-0.9987 (35-37 of 422
+# tensors under 0.999) with the loss within 2.2e-7 and the statistics
+# within 5.2e-6 (PERF.md). The all-parameter cosine is held at 0.999.
+DP_BN_TENSOR_COSINE = 0.99
+
+
+def free_port() -> int:
+    """A TCP port on localhost that is free now."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def all_reduces_recorded():
+    """The trainer's gradient all-reduce with, for each call, the ms it
+    took (synchronized on both sides) and, for the first call, copies of
+    the tensors it was given, for the duration."""
+    reduce, seen = trainer_module.all_reduce_, []
+
+    def recorded(tensors, group):
+        before = None if seen else [t.clone() for t in tensors]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce(tensors, group)
+        torch.cuda.synchronize()
+        seen.append(dict(ms=(time.perf_counter() - t0) * 1e3, before=before,
+                         numel=sum(t.numel() for t in tensors)))
+
+    trainer_module.all_reduce_ = recorded
+    try:
+        yield seen
+    finally:
+        trainer_module.all_reduce_ = reduce
+
+
+def dp_train_state(case: dict, device):
+    """The model of ``case``'s cfg (with its ``set_network``) holding the
+    case's weights on ``device``, its optimizer and train state."""
+    cfg = load_config(case["cfg"])
+    eval_entry.apply_network_overrides(cfg, case["set_network"])
+    model = build_model(cfg, device=device, generator=torch.Generator().manual_seed(SEED))
+    model.load_state_dict(torch.load(case["weights"], map_location=device))
+    tx, _ = make_optimizer(cfg, 1, model)
+    return cfg, tx, init_train_state(model, tx)
+
+
+def dp_step(case: dict, mesh, steps: int = 2) -> dict:
+    """``steps`` train steps of ``case`` on this rank's rows of its global
+    batch: the first step's loss (the global batch's), launches, gradients
+    (the summed f32 ones the update takes) and running statistics, the last
+    step's ms and all-reduce ms (CUDA synchronized), and whether the masters
+    equal rank 0's bit for bit after the steps."""
+    cfg, tx, state = dp_train_state(case, mesh.device if mesh else "cuda")
+    replicated(mesh, state.model, state)
+    tr = cfg.TRAIN
+    grads, update = [], tx.update
+
+    def recording(g, opt_state, params):
+        grads.append(g)
+        update(g, opt_state, params)
+
+    tx.update = recording
+    step = make_train_step(tx, int(cfg.dataset.NUM_CLASSES),
+                           ohem_fraction=float(tr.ohem_fraction) or None,
+                           aux_weight=float(tr.aux_loss_weight), objective=str(tr.objective),
+                           propagate=str(cfg.network.propagate), remat=bool(tr.remat), mesh=mesh)
+    host = case["batch"] if mesh is None else shard_batch(mesh, case["batch"])
+    batch = to_device(host, "cuda" if mesh is None else mesh.device, keys=tuple(host))
+    out = dict(rows=int(batch["label"].shape[0]))
+    with all_reduces_recorded() as reduces:
+        for i in range(steps):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            out["step_ms"] = (time.perf_counter() - t0) * 1e3
+            if i == 0:
+                out.update(loss=float(metrics["loss"]), launches=counts(), grads=grads[0],
+                           first_step_ms=out["step_ms"],
+                           stats={k: v.cpu() for k, v in running_stats(state.model).items()})
+    out["all_reduce_ms"] = reduces[-1]["ms"] if reduces else None
+    out["all_reduce_numel"] = reduces[-1]["numel"] if reduces else None
+    out["reduces"] = reduces[:1]
+    flat = torch.cat([p.reshape(-1) for p in state.master.values()])
+    out["masters_equal_rank0"] = True
+    if mesh is not None and mesh.data > 1:
+        rank0 = flat.clone()
+        dist.broadcast(rank0, src=0, group=mesh.group)
+        out["masters_equal_rank0"] = torch.equal(rank0, flat)
+    out["state"] = state
+    return out
+
+
+def dp_rank(spec_path: str, rank: str, world: str) -> int:
+    """One rank of ``e2e_dp`` (``python3 chip_smoke.py --dp-rank SPEC RANK
+    WORLD``): each train case of the spec (two steps) under a gloo group of
+    the ranks on the one card, then the flagship cfg's eval through the
+    eval entry point under ``torchrun``'s variables. Writes its results to
+    ``SPEC.rank<RANK>``."""
+    rank, world = int(rank), int(world)
+    spec = torch.load(spec_path, weights_only=False)
+    results = {}
+    cfg = load_config(spec["cases"]["train"]["cfg"])
+    mesh = mesh_from_cfg(cfg, device="cuda", init_method=spec["init"], rank=rank,
+                         world_size=world)
+    try:
+        results["backend"] = dist.get_backend(mesh.group)
+        for name, case in spec["cases"].items():
+            out = dp_step(case, mesh)
+            if rank == 0:
+                torch.save({n: g.cpu() for n, g in out["grads"].items()}, case["grads_out"])
+            results[name] = {k: v for k, v in out.items()
+                             if k not in ("grads", "state", "reduces")}
+            del out
+            torch.cuda.empty_cache()
+    finally:
+        mesh.close()
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(spec["eval"]["port"]))
+    reset_counts()
+    (result,) = eval_entry.main(spec["eval"]["argv"])
+    results["eval"] = dict(miou=result["miou"], stats=result["stats"], launches=counts())
+    torch.save(results, f"{spec_path}.rank{rank}")
+    return 0
+
+
+def run_ranks(spec_path: Path, world: int, timeout: float = 600.0) -> list[dict]:
+    """``world`` processes of ``dp_rank`` on ``spec_path``; each one's
+    results. A rank that fails fails the phase; every rank is stopped
+    before this returns."""
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank",
+                               str(spec_path), str(r), str(world)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"e2e_dp rank {r} exited {p.returncode}:\n{log[-6000:]}")
+    return [torch.load(f"{spec_path}.rank{r}", weights_only=False) for r in range(world)]
+
+
+def dp_case(root: Path, data: Path, name: str, cfg_name: str, set_network: tuple,
+            seed: int) -> dict:
+    """A train case of ``e2e_dp``: the cfg as shipped (with ``set_network``)
+    on the train tree, the model's seeded weights with live flow heads and
+    the loader's first global batch, written where the ranks read them."""
+    path = eval_cfg(cfg_name, root, data, stem=name, end_epoch=1)
+    cfg = load_config(str(path))
+    eval_entry.apply_network_overrides(cfg, set_network)
+    imdb = Cityscape(cfg.dataset.image_set, str(root / f"cache_{name}"), str(data))
+    objective = str(cfg.TRAIN.objective)
+    host = next(iter((TrainClipLoader if objective == "clip" else TrainPairLoader)(
+        imdb, cfg, seed=1)))
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    batch = to_device(host, "cuda", keys=tuple(host))
+    frames = (batch["clip"] if objective == "clip" else torch.stack(
+        [batch["data_ref"], batch["data"]], dim=1)).permute(0, 1, 3, 4, 2)
+    max_flow = live_flow_heads(model, frames, seed)
+    check(max_flow > 0.5, f"{name}: flow {max_flow} too small to exercise the warp")
+    weights = root / f"{name}.weights.pt"
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, weights)
+    del model, batch
+    return dict(cfg=str(path), set_network=tuple(set_network), weights=str(weights),
+                batch=host, grads_out=str(root / f"{name}.grads.pt"), max_abs_flow=max_flow,
+                global_batch={k: list(v.shape) for k, v in host.items()})
+
+
+def dp_agreement(grads: dict, loss: float, ref: dict) -> dict:
+    """A step's gradients and loss against another's (``ref``): the loss's
+    relative difference, each gradient's cosine (``grad_agreement``) and
+    the cosine of all the gradients as one vector (``cosine_all``)."""
+    out = grad_agreement((loss, grads, None), (ref["loss"], ref["grads"], None))
+    dot = sum((grads[n].double() * ref["grads"][n].double()).sum() for n in grads)
+    na = sum(grads[n].double().square().sum() for n in grads)
+    nb = sum(ref["grads"][n].double().square().sum() for n in grads)
+    out["cosine_all"] = float(dot / (na * nb).sqrt())
+    return out
+
+
+def e2e_dp(root: Path, data: Path) -> dict[str, dict[str, int]]:
+    """Phase 23: data parallelism (``parallel/mesh.py``) at full width.
+
+    e2e_dp_nccl: the flagship clip step (``accel18_cityscapes.yaml`` as
+    shipped: R101 + R18, groupnorm, bf16, B=2 x 5 frames at 768x768,
+    remat, aux 0.5) in this process under an NCCL group of one rank: the
+    all-reduce leaves every gradient and the loss bit-equal, and the
+    masters equal the same SGD update applied to the unreduced gradients
+    with no group, bit for bit.
+
+    Two processes then join a gloo group (NCCL refuses two ranks on one
+    card), each on its rows of the same global batches, two steps a case,
+    against one process on the whole batch:
+
+    e2e_dp_train: the flagship step, B=2 split 1 + 1. In f32 (the cfg with
+    ``dtype=float32``): the loss within 1e-3 and every gradient at cosine
+    >= 0.999 (section 2's train limits), where rounding is not in the way.
+    In bf16 as shipped the ranks' convs run at N=1 where the one process
+    runs N=2, so cuDNN rounds them another way (per-tensor cosines down to
+    0.86-0.88 in R101's first GroupNorms, printed): the loss is held within
+    1e-2 and the cosine of all the gradients as one vector at 0.999. Both:
+    the two ranks' masters bit-equal after the steps, each rank's exact #1
+    launches (4 forward + 4 recomputed), step ms (the second step) and
+    all-reduce ms per rank.
+
+    e2e_dp_train_bn: the pair cfg with ``norm: batchnorm`` (conv7 stem) in
+    f32, B=4 split 2 + 2: the loss and every running statistic within
+    1e-3, the cosine of all the gradients at 0.999 and of each at
+    ``DP_BN_TENSOR_COSINE``, the masters bit-equal across the ranks, 1 #1
+    launch a rank; the one-process step rerun from the same start is
+    printed beside it (the card's own spread).
+
+    e2e_dp_eval: the flagship cfg's eval through the eval entry point
+    under ``torchrun``'s variables, ``TEST.BATCH_IMAGES: 2`` (one clip a
+    rank), on a val split of DP_EVAL_CLIPS clips: the confusion matrix
+    equal to the one-process entry point's exactly (run with the cfg's 1
+    clip a batch, each clip at the ranks' shapes), each rank's 4 #1 and 1
+    #2 a clip.
+
+    Returns each phase's launches (rank 0's for the two-rank phases)."""
+    write_city_split(data, "val", DP_EVAL_CLIPS, 1 - K, 0, SEED + 30)
+    # the entry points' segdb caches list the val split's 1 snippet of phase 14
+    shutil.rmtree(root / "cache", ignore_errors=True)
+    f32 = ("dtype=float32",)
+    cases = dict(
+        train=dp_case(root, data, "e2e_dp_train", "accel18_cityscapes", f32, SEED + 140),
+        train_bf16=dp_case(root, data, "e2e_dp_train_bf16", "accel18_cityscapes", (),
+                           SEED + 140),
+        bn=dp_case(root, data, "e2e_dp_train_bn", "accel18_cityscapes_pair",
+                   ("norm=batchnorm", "stem=conv7", *f32), SEED + 141))
+    eval_path = eval_cfg("accel18_cityscapes", root, data, stem="e2e_dp_eval")
+    text, n = re.subn(r"(?m)^(TEST:\n(?:  .*\n)*?)  BATCH_IMAGES: 1$", r"\g<1>  BATCH_IMAGES: 2",
+                      eval_path.read_text())
+    check(n == 1, "e2e_dp_eval: TEST.BATCH_IMAGES not set")
+    eval_path.write_text(text)
+    spec_path = root / "dp_spec.pt"
+    torch.save(dict(init=f"file://{root / 'dp_rendezvous'}", cases=cases,
+                    eval=dict(argv=["--cfg", str(eval_path), "--random-weights",
+                                    "--max-items", str(DP_EVAL_CLIPS)], port=free_port())),
+               spec_path)
+
+    # e2e_dp_nccl on the shipped bf16 step, which is also its one-process reference
+    torch.cuda.empty_cache()
+    shipped = cases["train_bf16"]
+    mesh = mesh_from_cfg(load_config(shipped["cfg"]), device="cuda",
+                         init_method=f"file://{root / 'nccl_rendezvous'}", rank=0, world_size=1)
+    try:
+        backend = dist.get_backend(mesh.group)
+        _, tx, start = dp_train_state(shipped, "cuda")
+        initial = {n: p.clone() for n, p in start.master.items()}
+        trace = {n: t.clone() for n, t in start.opt_state["trace"].items()}
+        del start
+        torch.cuda.empty_cache()
+        refs = {"train_bf16": dp_step(shipped, mesh, steps=1)}
+    finally:
+        mesh.close()
+    ref = refs["train_bf16"]
+    (reduce,) = ref.pop("reduces")
+    *before, loss_before = reduce["before"]
+    same_grads = all(torch.equal(a, b)
+                     for a, b in zip(before, ref["grads"].values(), strict=True))
+    same_loss = float(loss_before[0]) == ref["loss"]
+    # the same update with no group, on the unreduced gradients
+    opt_state = {"count": 0, "trace": trace}
+    tx.update(dict(zip(ref["grads"], before)), opt_state, initial)
+    same_masters = all(torch.equal(initial[n], p) for n, p in ref["state"].master.items())
+    del initial, trace, opt_state, before, reduce, ref["state"]
+    torch.cuda.empty_cache()
+    emit(dict(phase="e2e_dp_nccl", cfg="experiments/cfgs/accel18_cityscapes.yaml", backend=backend,
+              world=1, batch=shipped["global_batch"], loss=ref["loss"],
+              all_reduce_ms=ref["all_reduce_ms"], all_reduce_numel=ref["all_reduce_numel"],
+              first_step_ms=ref["first_step_ms"], launches=ref["launches"],
+              reduced_equal_unreduced=same_grads, loss_equal=same_loss,
+              masters_equal_no_group_update=same_masters, card=card()))
+    check(backend == "nccl", f"e2e_dp_nccl: backend {backend}")
+    check(same_grads and same_loss and same_masters,
+          f"e2e_dp_nccl: grads {same_grads}, loss {same_loss}, masters {same_masters}")
+    check(ref["launches"] == launches_of(warp=2 * (K - 1)),
+          f"e2e_dp_nccl launches {ref['launches']}")
+    for name in ("train", "bn"):
+        refs[name] = dp_step(cases[name], None, steps=1)
+        refs[name].pop("state")
+        torch.cuda.empty_cache()
+    # the card's own spread: the one-process batchnorm step again from the same start
+    rerun = dp_step(cases["bn"], None, steps=1)
+    bn_rerun = dp_agreement(rerun["grads"], rerun["loss"], refs["bn"])
+    del rerun
+    torch.cuda.empty_cache()
+    reset_counts()
+    (one_eval,) = eval_entry.main(["--cfg", str(eval_cfg("accel18_cityscapes", root, data,
+                                                         stem="e2e_dp_eval_one")),
+                                   "--random-weights", "--max-items", str(DP_EVAL_CLIPS)])
+    one_eval_launched = counts()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(spec_path, DP_RANKS)
+    wall_s = time.perf_counter() - t0
+    compared = {}
+    for name, case in cases.items():
+        per_rank, one = [r[name] for r in ranks], refs[name]
+        agreement = dp_agreement(torch.load(case["grads_out"], map_location="cuda"),
+                                 per_rank[0]["loss"], one)
+        stat_err = max([((per_rank[0]["stats"][k] - one["stats"][k]).abs().max()
+                         / one["stats"][k].abs().max().clamp_min(1e-12)).item()
+                        for k in one["stats"]], default=0.0)
+        compared[name] = dict(
+            cfg=Path(case["cfg"]).name, set_network=list(case["set_network"]),
+            global_batch=case["global_batch"], rows_per_rank=[r["rows"] for r in per_rank],
+            max_abs_flow=case["max_abs_flow"], losses=[r["loss"] for r in per_rank],
+            one_process_loss=one["loss"], vs_one_process=agreement,
+            running_stats=len(one["stats"]), running_stats_max_rel_err=stat_err,
+            masters_equal_across_ranks=[r["masters_equal_rank0"] for r in per_rank],
+            step_ms_per_rank=[r["step_ms"] for r in per_rank],
+            first_step_ms_per_rank=[r["first_step_ms"] for r in per_rank],
+            all_reduce_ms_per_rank=[r["all_reduce_ms"] for r in per_rank],
+            all_reduce_numel=per_rank[0]["all_reduce_numel"],
+            one_process_first_step_ms=one["first_step_ms"],
+            launches_per_rank=[r["launches"] for r in per_rank])
+        expected = launches_of(warp=1 if name == "bn" else 2 * (K - 1))
+        for r, out in enumerate(per_rank):
+            check(out["launches"] == expected, f"e2e_dp {name} rank {r} launches {out['launches']}")
+            check(out["masters_equal_rank0"], f"e2e_dp {name}: rank {r}'s masters differ")
+            check(out["loss"] == per_rank[0]["loss"], f"e2e_dp {name}: the ranks' losses differ")
+        check(bool(one["stats"]) == (name == "bn"), f"e2e_dp {name}: {len(one['stats'])} stats")
+    emit(dict(phase="e2e_dp_train", backend=ranks[0]["backend"], ranks=DP_RANKS,
+              f32=compared["train"], bf16_as_shipped=compared["train_bf16"], ranks_wall_s=wall_s,
+              card=card()))
+    emit(dict(phase="e2e_dp_train_bn", backend=ranks[0]["backend"], ranks=DP_RANKS,
+              **compared["bn"], one_process_rerun=bn_rerun, card=card()))
+    check(ranks[0]["backend"] == "gloo", f"e2e_dp: backend {ranks[0]['backend']}")
+    for name in ("train", "bn"):
+        agreement = compared[name]["vs_one_process"]
+        check(agreement["loss_rel_diff"] <= 1e-3, f"e2e_dp {name}: loss {agreement}")
+        check(agreement["cosine_all"] >= 0.999, f"e2e_dp {name}: gradient {agreement}")
+        check(agreement["cosine_min"] >= (0.999 if name == "train" else DP_BN_TENSOR_COSINE),
+              f"e2e_dp {name}: gradient cosines {agreement}")
+        check(compared[name]["running_stats_max_rel_err"] <= 1e-3,
+              f"e2e_dp {name}: running statistics {compared[name]['running_stats_max_rel_err']}")
+    bf16 = compared["train_bf16"]["vs_one_process"]
+    check(bf16["loss_rel_diff"] <= 1e-2 and bf16["cosine_all"] >= 0.999,
+          f"e2e_dp train_bf16: {bf16}")
+
+    cm_one = one_eval["stats"]["confusion"]
+    per_rank = [r["eval"] for r in ranks]
+    emit(dict(phase="e2e_dp_eval", cfg="experiments/cfgs/accel18_cityscapes.yaml",
+              test_batch_images=2, ranks=DP_RANKS, clips=DP_EVAL_CLIPS,
+              miou=[r["miou"] for r in per_rank], one_process_miou=one_eval["miou"],
+              frames=[r["stats"]["frames"] for r in per_rank],
+              fps=[r["stats"]["fps"] for r in per_rank], one_process_fps=one_eval["stats"]["fps"],
+              confusion_equal=[bool((r["stats"]["confusion"] == cm_one).all()) for r in per_rank],
+              launches_per_rank=[r["launches"] for r in per_rank],
+              one_process_launches=one_eval_launched, card=card()))
+    for r, out in enumerate(per_rank):
+        check((out["stats"]["confusion"] == cm_one).all() and out["miou"] == one_eval["miou"],
+              f"e2e_dp_eval rank {r}: confusion differs from the one-process eval's")
+        check(out["stats"]["frames"] == DP_EVAL_CLIPS * K, f"e2e_dp_eval frames {out['stats']}")
+        per_rank_clips = DP_EVAL_CLIPS // DP_RANKS
+        check(out["launches"] == launches_of(warp=(K - 1) * per_rank_clips,
+                                             upsample_argmax=per_rank_clips),
+              f"e2e_dp_eval rank {r} launches {out['launches']}")
+    return {"e2e_dp_nccl": ref["launches"], "e2e_dp_train": ranks[0]["train_bf16"]["launches"],
+            "e2e_dp_train_bn": ranks[0]["bn"]["launches"],
+            "e2e_dp_eval": per_rank[0]["launches"]}
+
+
 @functools.cache
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
@@ -2329,6 +2815,8 @@ def main() -> int:
     # f32 convs and matmuls in full f32 on both sides of every comparison
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if sys.argv[1:2] == ["--dp-rank"]:
+        return dp_rank(*sys.argv[2:5])
 
     t0 = time.perf_counter()
     built = kernels.build()
@@ -2404,6 +2892,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         export_dff = e2e_export_dff(Path(tmp))
         torch.cuda.empty_cache()
+        export_deeplab = e2e_export_deeplab_pallas(Path(tmp))
+        torch.cuda.empty_cache()
     noscale_launched = e2e_noscale()
     torch.cuda.empty_cache()
     quant_small_launched = e2e_quant_small()
@@ -2442,6 +2932,8 @@ def main() -> int:
             launches_of(warp=2 * (K - 1), dilated_conv=38 + 29, dilated_conv_dx=38), None,
             set_network=("dilated_conv=pallas",))
         bn_launched = e2e_train_bn(root, data)
+        torch.cuda.empty_cache()
+        dp_launched = e2e_dp(root, data)
     # each kernel with the launches of one path it serves: (path, launches, groups)
     paths = {name: ("accel18", accel_launched[name], accel_groups)
              for name in ("warp", "upsample_argmax", "fused_stem")}
@@ -2459,8 +2951,15 @@ def main() -> int:
                "accel18 pair train batchnorm pretrained": bn_launched,
                "accel18 exported B=1": export_b1, "accel18 exported B=4": export_b4,
                "accel18 exported, weights as argument": export_args,
-               "dff exported": export_dff, "use_scale_field false": noscale_launched,
-               "accel18 int8 small GEMMs": quant_small_launched}
+               "dff exported": export_dff,
+               "deeplab101 pallas exported, frame by frame": export_deeplab,
+               "use_scale_field false": noscale_launched,
+               "accel18 int8 small GEMMs": quant_small_launched,
+               "accel18 clip train, NCCL group of one": dp_launched["e2e_dp_nccl"],
+               "accel18 clip train, 2 gloo ranks (per rank)": dp_launched["e2e_dp_train"],
+               "accel18 pair train batchnorm, 2 gloo ranks (per rank)":
+                   dp_launched["e2e_dp_train_bn"],
+               "accel18 cfg eval, 2 gloo ranks (per rank)": dp_launched["e2e_dp_eval"]}
 
     keys = ("max_abs_err", "shape", "ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "library_call")

@@ -1,7 +1,11 @@
 """The port's data layer (``accel_tpu_torch/data``) against ``accel_tpu.data``
 on Cityscapes- and CamVid-layout trees written by the test: the segdb,
 frames, annotations, sequence paths and ``TestClipLoader`` batches, bit for
-bit; the PNG reader against ``cv2.imread``; the prefetcher."""
+bit; the PNG reader against ``cv2.imread``; the prefetcher.
+
+The port's resize, normalize and label LUT run its C++ (``native/``); the
+JAX side runs the JAX package's own C++, built from its source for this
+module (``torch_parity.jax_native_ops``), so the batches stay bit-equal."""
 
 import os
 
@@ -9,9 +13,8 @@ import cv2
 import numpy as np
 import pytest
 import torch
-from torch_parity import write_camvid_tree, write_cityscapes_tree, write_png
+from torch_parity import jax_native_ops, write_camvid_tree, write_cityscapes_tree, write_png
 
-import accel_tpu.native as jnative
 from accel_tpu.config import default_config as j_default_config
 from accel_tpu.data import image as jimage
 from accel_tpu.data.camvid import CamVid as JCamVid
@@ -27,6 +30,13 @@ from accel_tpu_torch.data.prefetch import PrefetchingIter, to_device
 
 torch.set_num_threads(2)
 H, W = 128, 256
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_side_native(tmp_path_factory):
+    with pytest.MonkeyPatch.context() as mp:
+        jax_native_ops(mp, tmp_path_factory.mktemp("jax_native"))
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -61,8 +71,7 @@ def test_clip_loader_batches_match(cityscapes, scales):
     """Batches of 3 clips (the last one padded) at interval 3, key offset
     1, with SCALES at the frames' size, half of it, and a size whose
     padding to 128 is ragged: clip, label, ann_pos, entry_idx and the
-    native annotations bit for bit (1e-4 where ``accel_tpu``'s C++
-    resize is built)."""
+    native annotations bit for bit."""
     jds, ds = cityscapes
     loaders = []
     for cfg, imdb, cls in ((j_default_config(), jds, JTestClipLoader),
@@ -74,15 +83,11 @@ def test_clip_loader_batches_match(cityscapes, scales):
     jl, tl = loaders
     assert len(tl) == len(jl) == 2 and tl.ann_pos == jl.ann_pos == 1
     resized = scales != [[H, W]]
-    exact = not (resized and jnative.available())
     n = 0
     for jb, tb in zip(jl, tl, strict=True):
         assert sorted(tb) == sorted(jb)
         assert tb["clip"].dtype == np.float32 and tb["clip"].shape == jb["clip"].shape
-        if exact:
-            np.testing.assert_array_equal(tb["clip"], jb["clip"])
-        else:
-            np.testing.assert_allclose(tb["clip"], jb["clip"], atol=1e-4, rtol=0)
+        np.testing.assert_array_equal(tb["clip"], jb["clip"])
         np.testing.assert_array_equal(tb["label"], jb["label"])
         np.testing.assert_array_equal(tb["entry_idx"], jb["entry_idx"])
         assert tb["ann_pos"] == jb["ann_pos"]
@@ -116,7 +121,7 @@ def test_image_ops_match():
             got, gs = image.resize(im, *args, interp=interp)
             want, ws = jimage.resize(im, *args, interp=interp)
             assert gs == ws and got.shape == want.shape
-            np.testing.assert_allclose(got, want, atol=0 if not jnative.available() else 1e-4)
+            np.testing.assert_array_equal(got, want)
     means, stds = (103.06, 115.9, 123.15), (1.0, 2.0, 0.5)
     t = image.transform(im, means, stds)
     np.testing.assert_array_equal(t, jimage.transform(im, means, stds))

@@ -20,7 +20,9 @@ flip.
 
 The JAX package's CPU warp does not clamp the flow; the port clamps it to
 ``warp_max_disp`` as the TPU kernel does, so the tests hold the flow under
-that bound.
+that bound. The JAX side's resize, normalize and LUT run its own C++
+(``torch_parity.jax_native_ops``), as the port's do, so both packages'
+batches are the same.
 """
 
 import jax
@@ -28,7 +30,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import port_checkpoint_from_jax, seeded_variables, write_cityscapes_tree
+from torch_parity import (
+    jax_native_ops,
+    port_checkpoint_from_jax,
+    seeded_variables,
+    write_cityscapes_tree,
+)
 
 from accel_tpu.config import load_config as j_load_config
 from accel_tpu.core import checkpoint as jck
@@ -84,6 +91,13 @@ TEST:
   KEY_FRAME_INTERVAL: {interval}
   test_epoch: 1
 """
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_side_native(tmp_path_factory):
+    with pytest.MonkeyPatch.context() as mp:
+        jax_native_ops(mp, tmp_path_factory.mktemp("jax_native"))
+        yield
 
 
 @pytest.fixture(scope="module")

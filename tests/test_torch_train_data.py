@@ -9,7 +9,10 @@ accel_tpu_torch.experiments.train --device cpu`` trains a tiny model
 (R18 / R18, head 32, f32, 128x128 crops) for an epoch, its checkpoint is
 evaluated by the port's eval entry point, and ``TRAIN.RESUME`` carries it
 on from there; a cfg that names pretrained weights (an MXNet ``.params``)
-starts from them.
+starts from them. A split with fewer annotated entries than a batch is
+refused by both loaders and the entry point, which would otherwise wait
+forever for a batch. The JAX side's resize, normalize and LUT run its own
+C++ (``torch_parity.jax_native_ops``), as the port's do.
 """
 
 import json
@@ -17,7 +20,7 @@ import json
 import numpy as np
 import pytest
 import torch
-from torch_parity import write_cityscapes_tree
+from torch_parity import jax_native_ops, write_cityscapes_tree
 
 from accel_tpu.config import load_config as j_load_config
 from accel_tpu.data import loader as jloader
@@ -71,6 +74,13 @@ TEST:
 """
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_side_native(tmp_path_factory):
+    with pytest.MonkeyPatch.context() as mp:
+        jax_native_ops(mp, tmp_path_factory.mktemp("jax_native"))
+        yield
+
+
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory):
     root = tmp_path_factory.mktemp("train")
@@ -119,6 +129,27 @@ def test_train_loaders_match_jax(tree, objective):
             assert ours.dtype == ref.dtype and ours.shape == ref.shape, key
             np.testing.assert_array_equal(ours, ref, err_msg=key)
     assert got["label"].shape[-2:] == (128, 128)
+
+
+@pytest.mark.parametrize("objective", ["pair", "clip"])
+def test_train_loaders_refuse_fewer_entries_than_a_batch(tree, objective):
+    """4 annotated entries and ``TRAIN.BATCH_IMAGES: 5``: the loader raises,
+    naming both numbers, where its endless iterator would yield no batch
+    (the reference's loops so, ``accel_tpu/data/loader.py``), and so does
+    the train entry point instead of waiting for one."""
+    root, data = tree
+    path = write_cfg(tree, f"few_{objective}", objective)
+    with open(path) as f:
+        text = f.read().replace("BATCH_IMAGES: 2", "BATCH_IMAGES: 5")
+    with open(path, "w") as f:
+        f.write(text)
+    cfg = load_config(path)
+    cls = tloader.TrainClipLoader if objective == "clip" else tloader.TrainPairLoader
+    imdb = Cityscape(cfg.dataset.image_set, f"{root}/few", str(data))
+    with pytest.raises(ValueError, match=r"4 annotated entries.*BATCH_IMAGES=5"):
+        cls(imdb, cfg)
+    with pytest.raises(ValueError, match=r"4 annotated entries.*BATCH_IMAGES=5"):
+        t_train.main(["--cfg", path, "--device", "cpu"])
 
 
 def _step_state(cfg, seed: int):

@@ -1,0 +1,109 @@
+"""One rank of ``test_torch_parallel.py``'s data-parallel cases, on the CPU.
+
+    python tests/torch_dp_worker.py SPEC RANK WORLD
+
+``SPEC`` is a ``torch.save``d dict the test writes: ``init`` (a ``file://``
+rendezvous), ``train`` (cases of train steps: cfg path, the port's
+``state_dict``, the global batch, the steps), ``subgroup`` (a train case
+rank 0 runs again under a group of one), ``eval`` (a model's
+``state_dict``, its cfg path and global clip batches), ``entry`` and
+``train_entry`` (argv for the eval and the train entry points under
+``torchrun``'s variables, each with a port for their rendezvous). The rank
+writes its results to ``SPEC.rank<RANK>``.
+Imports torch and the port only.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import torch
+import torch.distributed as dist
+
+from accel_tpu_torch.config import load_config
+from accel_tpu_torch.core.pipeline import running_stats
+from accel_tpu_torch.core.predictor import pred_eval_clips
+from accel_tpu_torch.core.trainer import init_train_state, make_optimizer, make_train_step
+from accel_tpu_torch.experiments import test as eval_entry
+from accel_tpu_torch.experiments import train as train_entry
+from accel_tpu_torch.models.accel import build_model
+from accel_tpu_torch.parallel.mesh import Mesh, batch_rows, mesh_from_cfg, replicated, shard_batch
+
+torch.set_num_threads(2)
+
+
+def _model(cfg_path: str, state_dict: dict):
+    cfg = load_config(cfg_path)
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(state_dict)
+    return cfg, model
+
+
+def train_case(case: dict, mesh: Mesh | None) -> dict:
+    """``case['steps']`` train steps on this rank's rows of the global
+    batch (all of it without a mesh): the losses, the master weights, the
+    running statistics and whether the masters equal rank 0's bit for bit."""
+    cfg, model = _model(case["cfg"], case["state_dict"])
+    tx, _ = make_optimizer(cfg, 2, model)
+    state = init_train_state(model, tx)
+    replicated(mesh, model, state)
+    tr = cfg.TRAIN
+    step = make_train_step(tx, 19, ohem_fraction=float(tr.ohem_fraction) or None,
+                           aux_weight=float(tr.aux_loss_weight), objective=str(tr.objective),
+                           propagate=str(cfg.network.propagate), remat=bool(tr.remat),
+                           mesh=mesh)
+    batch = case["batch"] if mesh is None else shard_batch(mesh, case["batch"])
+    losses = []
+    for _ in range(case["steps"]):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    flat = torch.cat([p.reshape(-1) for p in state.master.values()])
+    equal = True
+    if mesh is not None and mesh.group is not None and mesh.data > 1:
+        rank0 = flat.clone()
+        dist.broadcast(rank0, src=0, group=mesh.group)
+        equal = torch.equal(rank0, flat)
+    return {"losses": losses, "master": dict(state.master), "rows": len(batch["label"]),
+            "stats": {k: v.clone() for k, v in running_stats(model).items()},
+            "masters_equal_rank0": equal}
+
+
+def main(spec_path: str, rank: int, world: int) -> None:
+    spec = torch.load(spec_path, weights_only=False)
+    out = {}
+    first = spec["train"][0]["cfg"]
+    mesh = mesh_from_cfg(load_config(first), device="cpu", init_method=spec["init"], rank=rank,
+                         world_size=world)
+    try:
+        assert mesh.data == world and mesh.rank == rank and mesh.device.type == "cpu"
+        out["backend"] = dist.get_backend(mesh.group)
+        for case in spec["train"]:
+            out[case["name"]] = train_case(case, mesh)
+        # a group of one: the step through the all-reduce, and without a group
+        sub = dist.new_group([0])
+        if rank == 0:
+            case = spec["subgroup"]
+            one = Mesh(data=1, spatial=1, rank=0, local_rank=0, device=mesh.device, group=sub)
+            out["subgroup"] = {"group": train_case(case, one), "none": train_case(case, None)}
+        ev = spec["eval"]
+        cfg, model = _model(ev["cfg"], ev["state_dict"])
+        rows = batch_rows(mesh, len(ev["items"][0]["clip"]))
+        miou, iou, stats = pred_eval_clips(
+            model, [shard_batch(mesh, item, rows) for item in ev["items"]], 19,
+            int(cfg.TEST.KEY_FRAME_INTERVAL), "direct", mesh=mesh)
+        out["eval"] = {"miou": miou, "iou": iou, "stats": stats}
+    finally:
+        mesh.close()
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost")
+    os.environ["MASTER_PORT"] = str(spec["entry"]["port"])
+    (out["entry"],) = eval_entry.main(spec["entry"]["argv"])
+    os.environ["MASTER_PORT"] = str(spec["train_entry"]["port"])
+    state = train_entry.main(spec["train_entry"]["argv"])
+    out["train_entry"] = {"step": state.step, "master": dict(state.master)}
+    torch.save(out, f"{spec_path}.rank{rank}")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))

@@ -123,6 +123,25 @@ def assert_argmax_agrees(ours: np.ndarray, ref: np.ndarray, logits: np.ndarray,
 
 # ---- data fixtures and checkpoints for the eval parity tests ------------------
 
+
+def jax_native_ops(mp, build_dir) -> None:
+    """Give the JAX package's data path its C++ host ops, as the port's
+    runs: ``accel_tpu/native/_accel_native.cpp`` built from its own source
+    into ``build_dir`` and set, with the ``MonkeyPatch`` ``mp``, as
+    ``accel_tpu.native``'s extension and ``accel_tpu.data.image``'s
+    ``native_ops`` (no file of ``accel_tpu`` changes). Without it the JAX
+    package runs its numpy fallback where ``init.sh`` has not built the
+    extension, whose resize rounds otherwise."""
+    from pathlib import Path
+
+    import accel_tpu.native as jnative
+    from accel_tpu.data import image as jimage
+    from accel_tpu_torch import native
+
+    source = Path(jnative.__file__).with_name("_accel_native.cpp")
+    mp.setattr(jnative, "_ext", native.load(source, Path(build_dir)))
+    mp.setattr(jimage, "native_ops", jnative._NativeOps)
+
 CITYSCAPES_BANDS = ((23, (180, 130, 70)), (7, (90, 90, 90)), (26, (40, 40, 160)))  # sky, road, car
 
 
