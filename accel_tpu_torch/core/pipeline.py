@@ -35,6 +35,12 @@ batch's loss: every count they divide by (valid pixels, annotated frames,
 OHEM's kept pixels) is reduced over the ranks, and running-stat BatchNorm
 normalizes by the global batch's statistics. No collective runs inside
 ``train_clip_logits``, whose remat would run it again in the backward.
+
+Under spatial sharding (``parallel/spatial.py``: inside
+``spatial_sharding(mesh, model)``) the serving entry points take this
+rank's rows of every frame and return its rows of the logits and class
+maps; the ops exchange their halos, and mean1's renormalization averages
+over the whole frame.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from accel_tpu_torch.models.resnet import BatchNorm
 from accel_tpu_torch.ops.upsample import resize_bilinear
 from accel_tpu_torch.ops.upsample_argmax import upsample_argmax, upsample_argmax_plain
 from accel_tpu_torch.ops.warp import bilinear_warp
+from accel_tpu_torch.parallel import spatial
 
 # Max full-resolution frames per batched call inside a group step; B*k
 # beyond this runs in equal chunks (the largest divisor of B*k up to this),
@@ -156,7 +163,7 @@ def _cascade_post(acc_s, mode):
     'mean1' renormalizes each sample to mean 1, 'clamp' clips to
     [1/_CASCADE_CLAMP, _CASCADE_CLAMP]; 'product' and 'last' leave it."""
     if mode == "mean1":
-        m = acc_s.mean(dim=(1, 2, 3), keepdim=True)
+        m = spatial.mean(acc_s, (1, 2, 3), keepdim=True)
         return acc_s / (m.abs() + 1e-6)
     if mode == "clamp":
         return acc_s.clamp(1.0 / _CASCADE_CLAMP, _CASCADE_CLAMP)
@@ -387,6 +394,7 @@ def train_clip_logits(model, clip: torch.Tensor, interval: int,
     which gives the same logits and gradients with one frame's activations
     kept at a time."""
     k = _check_groups(model, clip, interval)
+    spatial.check_rows(clip.shape[-2], model.row_stride, f"the {model.family} model")
     step = _group_step_remat if remat else _group_step
     return torch.cat([step(model, clip[:, g:g + k], propagate, input_scale)
                       for g in range(0, clip.shape[1], k)], dim=1)

@@ -24,6 +24,7 @@ from accel_tpu_torch.core.metrics import SegConfusionAccumulator
 from accel_tpu_torch.core.pipeline import clip_predictions, propagate_step
 from accel_tpu_torch.data.image import resize_to
 from accel_tpu_torch.ops.upsample_argmax import upsample_argmax
+from accel_tpu_torch.parallel import spatial
 
 
 class DataBatch:
@@ -199,8 +200,18 @@ def pred_eval_clips(model, clip_iter, num_classes: int, interval: int,
     split), and the results are the global ones: the confusion matrix
     summed over the ranks (so the mIoU is the one-process mIoU exactly),
     the frames summed, and fps the global timed frames over the slowest
-    rank's net time. Every rank of the mesh must call it. The reference's
-    ``shard_spatial`` has no counterpart (``parallel/mesh.py``).
+    rank's net time. Every rank of the mesh must call it.
+
+    A mesh with a spatial axis (the reference's ``shard_spatial``) also
+    splits every frame's rows over the ranks of a data index
+    (``parallel/spatial.py``): each batch's 'clip' holds this rank's rows
+    of the frames (``spatial.frame_rows``; the eval entry point's
+    prefetcher cuts them) and its labels whole; the ranks' class-map rows
+    are gathered within the spatial group after the model, so
+    ``on_preds`` and the scoring see whole maps, and only
+    spatial index 0 scores them and counts the frames (the others add
+    zeros to the reductions). 'halo' in the stats holds this rank's
+    exchange counters (``SpatialShard.counters``).
 
     Net time runs from the batch in hand, its copy to the card included,
     to its class maps on the card (synchronized); the first batch, which pays the allocator's and
@@ -213,47 +224,65 @@ def pred_eval_clips(model, clip_iter, num_classes: int, interval: int,
     t_net = t_data = 0.0
     n_frames = n_timed = 0
     first = True
-    t0 = time.perf_counter()
-    for item in clip_iter:
-        t_data += time.perf_counter() - t0
-        t1 = time.perf_counter()
-        clip = torch.as_tensor(item["clip"], device=device)
-        preds = clip_predictions(model, clip, interval, propagate, upsample=upsample)
-        _sync(device)
-        if first:
-            first = False
-        else:
-            t_net += time.perf_counter() - t1
-            n_timed += clip.shape[0] * clip.shape[1]
-        n_frames += clip.shape[0] * clip.shape[1]
-        if on_preds is not None:
-            on_preds(item, preds)
-        label = item.get("label")
-        natives = item.get("label_native")
-        if natives is not None:
-            ann_pos = int(item["ann_pos"])
-            preds_host = preds.cpu().numpy()
-            for b, nat in enumerate(natives):
-                if nat is None:
-                    # this clip's annotation had the frames' size already
-                    if label is not None:
-                        acc.update(preds[b:b + 1], torch.as_tensor(label[b:b + 1], device=device))
-                    continue
-                ann, scaled_hw = nat
-                p = preds_host[b, ann_pos, : scaled_hw[0], : scaled_hw[1]]
-                p = resize_to(p, *ann.shape[:2], interp="nearest")
-                acc.update(torch.from_numpy(p)[None], torch.from_numpy(ann)[None])
-        elif label is not None:
-            acc.update(preds, torch.as_tensor(label, device=device))
+    # without a spatial axis every rank scores its own rows; with one, the
+    # first rank of each spatial group scores the gathered maps
+    scores = mesh is None or mesh.spatial_index == 0
+    with spatial.spatial_sharding(mesh, model) as shard:
         t0 = time.perf_counter()
+        for item in clip_iter:
+            t_data += time.perf_counter() - t0
+            t1 = time.perf_counter()
+            clip = torch.as_tensor(item["clip"], device=device)
+            preds = clip_predictions(model, clip, interval, propagate, upsample=upsample)
+            if shard is not None:
+                preds = shard.gather_rows(preds)
+            _sync(device)
+            frames = clip.shape[0] * clip.shape[1] if scores else 0
+            if first:
+                first = False
+            else:
+                t_net += time.perf_counter() - t1
+                n_timed += frames
+            n_frames += frames
+            if on_preds is not None:
+                on_preds(item, preds)
+            if scores:
+                _score(acc, item, preds, device)
+            t0 = time.perf_counter()
     if mesh is not None and mesh.group is not None:
         acc.cm, (n_frames, n_timed), t_net = _reduce_eval(mesh, acc.cm, n_frames, n_timed, t_net)
     miou, iou = acc.result()
     fps = n_timed / max(t_net, 1e-9)
     if mesh is None or mesh.rank == 0:
         log(f"frames {n_frames}  net fps {fps:.2f}  mIoU {miou * 100:.2f}")
-    return miou, iou, {"t_net": t_net, "t_data": t_data, "frames": n_frames, "fps": fps,
-                       "confusion": acc.cm.copy()}
+    out = {"t_net": t_net, "t_data": t_data, "frames": n_frames, "fps": fps,
+           "confusion": acc.cm.copy()}
+    if shard is not None:
+        out["halo"] = shard.counters()
+    return miou, iou, out
+
+
+def _score(acc: SegConfusionAccumulator, item: dict, preds: torch.Tensor, device) -> None:
+    """A batch's class maps into the confusion: each clip's annotated frame
+    at its annotation's resolution where the batch holds 'label_native',
+    else against 'label' (if any)."""
+    label = item.get("label")
+    natives = item.get("label_native")
+    if natives is not None:
+        ann_pos = int(item["ann_pos"])
+        preds_host = preds.cpu().numpy()
+        for b, nat in enumerate(natives):
+            if nat is None:
+                # this clip's annotation had the frames' size already
+                if label is not None:
+                    acc.update(preds[b:b + 1], torch.as_tensor(label[b:b + 1], device=device))
+                continue
+            ann, scaled_hw = nat
+            p = preds_host[b, ann_pos, : scaled_hw[0], : scaled_hw[1]]
+            p = resize_to(p, *ann.shape[:2], interp="nearest")
+            acc.update(torch.from_numpy(p)[None], torch.from_numpy(ann)[None])
+    elif label is not None:
+        acc.update(preds, torch.as_tensor(label, device=device))
 
 
 def _reduce_eval(mesh, cm: np.ndarray, n_frames: int, n_timed: int, t_net: float):

@@ -40,6 +40,7 @@ from torch import nn
 
 from accel_tpu_torch.core.lr_schedule import lr_steps_from_epochs, warmup_multifactor_schedule
 from accel_tpu_torch.core.pipeline import clip_loss_and_stats, pair_loss_and_stats
+from accel_tpu_torch.parallel import spatial
 from accel_tpu_torch.parallel.mesh import all_reduce_
 
 
@@ -155,9 +156,12 @@ def make_train_step(tx: SGD, num_classes: int, loss_scale: float = 1.0,
     ``mesh`` (``parallel.mesh.Mesh``): the batch is this rank's rows of the
     global batch; the gradients (and the loss returned, the global batch's)
     are summed over the mesh's group before the update. A mesh of one rank
-    with a group runs the one-process step and the all-reduce."""
+    with a group runs the one-process step and the all-reduce. A mesh with
+    a spatial axis raises ``ValueError``: training under it is not ported."""
     if objective not in ("pair", "clip"):
         raise ValueError(f"unknown objective {objective!r} (pair | clip)")
+    if mesh is not None and mesh.spatial > 1:
+        raise ValueError(f"tpu.mesh.spatial={mesh.spatial}: {spatial.TRAINING}")
     group = mesh.loss_group if mesh is not None else None
     reduce_group = mesh.group if mesh is not None else None
 

@@ -21,6 +21,10 @@ share a card, and on the CPU), loading only those clips, and the confusion
 matrices are summed over the ranks: the mIoU is the one-process mIoU. A
 batch that does not divide by the ranks is split over gcd(batch, ranks)
 of them with a warning, as the reference clamps its mesh's data axis.
+With ``tpu.mesh.spatial: S`` > 1 the world is ``data x S`` ranks and each
+frame's rows are split over the S ranks of a data index, with halo
+exchanges (``parallel/spatial.py``); the clamp keeps the spatial axis and
+the result is again the one-process result.
 Plain ``python3 -m`` runs one process. The reference's ``--vis`` and
 ``--ignore_cache``, which change nothing there, are not taken, and an
 unknown flag is an error here, where the reference ignores it.
@@ -47,6 +51,7 @@ from accel_tpu_torch.data.loader import TestClipLoader
 from accel_tpu_torch.data.prefetch import PrefetchingIter, to_device
 from accel_tpu_torch.models.accel import build_model
 from accel_tpu_torch.parallel.mesh import batch_rows, mesh_from_cfg
+from accel_tpu_torch.parallel.spatial import frame_rows
 from accel_tpu_torch.utils.logger import create_logger
 
 
@@ -207,7 +212,9 @@ def _evaluate(args, cfg, mesh) -> list[dict]:
             cfg.TEST.KEY_FRAME_OFFSET = key_offset
             loader = TestClipLoader(imdb, cfg, batch_clips=int(cfg.TEST.BATCH_IMAGES),
                                     max_items=args.max_items, rows=rows)
-            batches = PrefetchingIter(iter(loader), transform=lambda b: to_device(b, device))
+            # under a spatial axis each rank moves only its rows of the frames
+            batches = PrefetchingIter(iter(loader), transform=lambda b: to_device(
+                dict(b, clip=b["clip"][:, :, frame_rows(mesh, b["clip"].shape[2])]), device))
             miou, iou, stats = pred_eval_clips(
                 model, batches, int(cfg.dataset.NUM_CLASSES), interval, propagate, logger,
                 upsample=str(cfg.TEST.upsample), mesh=mesh)

@@ -19,7 +19,8 @@ is none; ``--device cpu`` runs the plain PyTorch versions of the kernels.
 Plain ``python3 -m`` runs one process. Under ``torchrun`` each rank is a
 data-parallel process on its card (``parallel/mesh.py``: NCCL where each
 rank has a card of its own, gloo where ranks share one, and on the CPU;
-``tpu.mesh.data`` -1 or the world size): ``TRAIN.BATCH_IMAGES`` stays the
+``tpu.mesh.data`` -1 or the world size; ``tpu.mesh.spatial`` > 1 raises,
+as training under the spatial axis is not ported): ``TRAIN.BATCH_IMAGES`` stays the
 global batch, which must divide by the ranks; each rank trains on its rows
 of the batch a one-process run with the same seed draws, the weights and
 master state start from rank 0's, the step sums the gradients over the
@@ -63,6 +64,7 @@ from accel_tpu_torch.data.loader import TrainClipLoader, TrainPairLoader
 from accel_tpu_torch.data.prefetch import PrefetchingIter, to_device
 from accel_tpu_torch.experiments.test import apply_network_overrides
 from accel_tpu_torch.models.accel import build_model
+from accel_tpu_torch.parallel import spatial
 from accel_tpu_torch.parallel.mesh import batch_rows, mesh_from_cfg, replicated
 from accel_tpu_torch.utils.logger import create_logger
 from accel_tpu_torch.utils.metrics_writer import MetricsWriter
@@ -87,6 +89,9 @@ def main(argv=None):
     args = parse_args(argv)
     cfg = load_config(args.cfg)
     apply_network_overrides(cfg, args.set_network)
+    if int(cfg.tpu.mesh.spatial) != 1:
+        # the reference's train entry point shards only the data axis
+        raise ValueError(f"tpu.mesh.spatial={cfg.tpu.mesh.spatial}: {spatial.TRAINING}")
     mesh = mesh_from_cfg(cfg, device=args.device)
     try:
         return _train(args, cfg, mesh)

@@ -25,6 +25,7 @@ from accel_tpu_torch.models.resnet import BatchNorm, FrozenBatchNorm
 from accel_tpu_torch.ops.upsample import resize_bilinear
 from accel_tpu_torch.ops.warp import bilinear_warp, flow_to_feature_res
 from accel_tpu_torch.ops.warp_onehot import warp_onehot
+from accel_tpu_torch.parallel import spatial
 
 FAMILIES = ("deeplab", "dff", "accel")
 SCALE_CASCADES = ("last", "product", "mean1", "clamp")
@@ -94,6 +95,12 @@ class AccelNet(nn.Module):
         self.fold_flow_downscale = fold_flow_downscale
         self.norm = norm
         self.dtype = dtype
+        # the largest row stride of any branch: the trunks' output stride
+        # (the update branch's times its input downscale) and FlowNet's 64
+        # on its downscaled input
+        update_stride = (update_feat_stride or feat_stride) * update_input_downscale
+        self.row_stride = max(feat_stride, update_stride if family == "accel" else 1,
+                              64 * flow_input_downscale if family != "deeplab" else 1)
         self.use_kernels = use_kernels
         branch = dict(num_classes=num_classes, output_stride=feat_stride,
                       head_channels=head_channels, head_dilation=head_dilation, norm=norm,
@@ -195,8 +202,9 @@ class AccelNet(nn.Module):
         return self.flow_pair(self.downscale_for_flow(cur), self.downscale_for_flow(anchor))
 
     def norm_scale_gain(self, scale):
-        """mean1's per-sample gain 1/(|mean|+eps), shape (N,) f32."""
-        m = scale.mean(dim=(1, 2, 3))
+        """mean1's per-sample gain 1/(|mean|+eps), shape (N,) f32 (the mean
+        over the whole frame under spatial sharding)."""
+        m = spatial.mean(scale, (1, 2, 3))
         return 1.0 / (m.abs().to(torch.float32) + 1e-6)
 
     def norm_scale(self, scale):

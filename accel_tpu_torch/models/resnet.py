@@ -24,6 +24,7 @@ from accel_tpu_torch.ops.dilated_cuda import (
 from accel_tpu_torch.ops.fold_downscale import fold_downscale_conv
 from accel_tpu_torch.ops.fused_stem import fused_stem, stem_kernel_weight
 from accel_tpu_torch.ops.quant import QuantizedWeight, int8_conv2d
+from accel_tpu_torch.parallel import spatial
 
 STAGE_PLANS = {
     18: ("basic", (2, 2, 2, 2)),
@@ -72,7 +73,9 @@ class GroupNorm16(nn.GroupNorm):
     The statistics are two f32-accumulating reductions over the (N, G, -1)
     view rather than ``F.group_norm``, whose CUDA kernel gives each of the
     N*G rows one thread block: at N=1 and 4-32 groups over a 1024x2048
-    frame's feature maps that leaves the card nearly idle."""
+    frame's feature maps that leaves the card nearly idle. Under spatial
+    sharding the sums are summed over the spatial group, and the count is
+    the shard's times its ranks (every shard holds as many rows)."""
 
     def __init__(self, c: int, *, device=None):
         super().__init__(c // 16, c, eps=1e-5, device=device, dtype=torch.float32)
@@ -80,9 +83,12 @@ class GroupNorm16(nn.GroupNorm):
     def forward(self, x):
         N, C = x.shape[:2]
         xg = x.reshape(N, self.num_groups, -1)
-        n = xg.shape[-1]
-        mean = xg.sum(-1, dtype=torch.float32) / n
-        sq = torch.linalg.vector_norm(xg, 2, dim=-1, dtype=torch.float32) ** 2 / n
+        total, squares = spatial.row_sum(
+            xg.sum(-1, dtype=torch.float32),
+            torch.linalg.vector_norm(xg, 2, dim=-1, dtype=torch.float32) ** 2)
+        n = xg.shape[-1] * spatial.ranks()
+        mean = total / n
+        sq = squares / n
         rstd = torch.rsqrt((sq - mean * mean).clamp_min(0.0) + self.eps)
         scale = (rstd.repeat_interleave(C // self.num_groups, dim=1) * self.weight)
         shift = self.bias - mean.repeat_interleave(C // self.num_groups, dim=1) * scale
@@ -356,6 +362,17 @@ def embed_conv7_as_s2d(w7: torch.Tensor) -> torch.Tensor:
 STEMS = ("conv7", "fused7", "s2d")
 
 
+def _max_pool(x: torch.Tensor) -> torch.Tensor:
+    return F.max_pool2d(x, 3, stride=2, padding=1)
+
+
+# the input rows the fused stem and the max pool after it read beyond a
+# shard: the stem's (window_halo(7, 2)) and twice the pool's (window_halo(3,
+# 2), in stem-output rows), at their joint stride 4
+STEM_POOL_HALO = tuple(a + 2 * b for a, b in zip(spatial.window_halo(7, 2),
+                                                  spatial.window_halo(3, 2)))
+
+
 class DilatedResNet(nn.Module):
     """ResNet v1 trunk with DeepLab dilation; returns the C5 feature map.
 
@@ -415,17 +432,27 @@ class DilatedResNet(nn.Module):
         if self.stem == "fused7":
             inv, shift = self.bn.folded()
             plain = not self.use_kernels or x.device.type == "cpu"
-            x = fused_stem(x, self.conv1.weight, inv, shift, plain=plain,
-                           packed=None if plain else self._stem_packed(self.conv1.weight, x.dtype))
+            packed = None if plain else self._stem_packed(self.conv1.weight, x.dtype)
+
+            def stem_pool(t):
+                return _max_pool(fused_stem(t, self.conv1.weight, inv, shift, plain=plain,
+                                            packed=packed))
+
+            # under spatial sharding the stem and the max pool run on one
+            # extended shard (the pool's halo doubled through the stride-2
+            # stem): a crop between them would be a view of the stem's
+            # output, which the pool would copy whole
+            return self._blocks(spatial.halo_apply(stem_pool, x, *STEM_POOL_HALO, stride=4))
+        if self.input_downscale > 1:
+            x = fold_downscale_conv(x, self.conv1.weight, self.input_downscale, 2, 3)
+        elif self.stem == "s2d":
+            x = self.conv1_s2d(F.pad(space_to_depth(x, 2), (2, 1, 2, 1)))
         else:
-            if self.input_downscale > 1:
-                x = fold_downscale_conv(x, self.conv1.weight, self.input_downscale, 2, 3)
-            elif self.stem == "s2d":
-                x = self.conv1_s2d(F.pad(space_to_depth(x, 2), (2, 1, 2, 1)))
-            else:
-                x = self.conv1(x)
-            x = torch.relu(self.bn(x))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+            x = self.conv1(x)
+        x = torch.relu(self.bn(x))
+        return self._blocks(spatial.windowed(_max_pool, x, 3, 2))
+
+    def _blocks(self, x):
         for name in self.block_names:
             x = getattr(self, name)(x)
         return x

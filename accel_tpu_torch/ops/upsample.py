@@ -11,6 +11,10 @@ plain resize, which is the one ported here.
 PyTorch's CPU antialiased resize has no 16-bit kernels, so a CPU tensor of
 a 16-bit type that is downscaled is resized in f32 and rounded back once;
 a CUDA tensor keeps its own dtype throughout.
+
+Under spatial sharding (``parallel/spatial.py``) the rows of a resize by
+an integer factor read a halo: one row each side for an upscale, the
+downscale's taps (``_down_taps``) for a downscale (:func:`resize_halo`).
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from accel_tpu_torch.parallel import spatial
 
 
 @functools.lru_cache(maxsize=None)
@@ -37,14 +43,42 @@ def _down_taps(f: int) -> tuple[np.ndarray, np.ndarray]:
     return offs, w / w.sum()
 
 
+def resize_halo(h: int, oh: int) -> tuple[int, int, int]:
+    """(top, bottom, stride) input rows a resize of ``h`` rows to ``oh``
+    reads beyond a shard: 0 where the rows keep their size; one row each
+    side for an upscale by an integer factor (half-pixel centres clamp to
+    the neighbours); for a downscale by an integer factor f the taps'
+    reach ``_down_taps(f)`` spans, at stride f. Raises for other ratios."""
+    if oh == h:
+        return 0, 0, 1
+    if oh % h == 0:
+        return 1, 1, 1
+    if h % oh == 0:
+        f = h // oh
+        offs, _ = _down_taps(f)
+        return -int(offs[0]), int(offs[-1]) - (f - 1), f
+    raise ValueError(f"spatial sharding resizes rows by integer factors only: {h} -> {oh}")
+
+
 def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """Bilinear-resize NCHW ``x`` to spatial size ``out_hw``, in x's dtype."""
+    """Bilinear-resize NCHW ``x`` to spatial size ``out_hw``, in x's dtype.
+    Under spatial sharding ``x`` holds the rank's rows and ``out_hw`` its
+    rows of the output."""
     if x.dim() != 4:
         raise ValueError(f"expected 4D NCHW, got {tuple(x.shape)}")
     h, w = x.shape[-2:]
     oh, ow = int(out_hw[0]), int(out_hw[1])
     if (h, w) == (oh, ow):
         return x
+    if spatial.active() is not None:
+        top, bottom, stride = resize_halo(h, oh)
+        return spatial.halo_apply(
+            lambda t: _resize(t, t.shape[-2] * oh // h, ow), x, top, bottom, stride)
+    return _resize(x, oh, ow)
+
+
+def _resize(x: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
+    h, w = x.shape[-2:]
     antialias = oh < h or ow < w
     if antialias and x.device.type == "cpu" and x.dtype in (torch.bfloat16, torch.float16):
         return F.interpolate(x.to(torch.float32), size=(oh, ow), mode="bilinear",

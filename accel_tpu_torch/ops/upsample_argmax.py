@@ -20,6 +20,7 @@ import torch
 
 from accel_tpu_torch import kernels
 from accel_tpu_torch.ops.upsample import resize_bilinear
+from accel_tpu_torch.parallel import spatial
 
 
 def upscale_taps(n_in: int, n_out: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -105,7 +106,17 @@ def upsample_argmax(logits: torch.Tensor, out_hw: tuple[int, int],
     """``argmax(resize_bilinear(logits, out_hw), dim=1)`` as uint8: the
     kernel for a CUDA tensor, the plain version for a CPU tensor or when
     ``plain`` is set (``accel_tpu``'s ``upsample_argmax_or_oracle``);
-    ``upsample_argmax_op`` while a program is traced."""
+    ``upsample_argmax_op`` while a program is traced. Under spatial
+    sharding ``logits`` and ``out_hw`` are the rank's rows: the logits
+    extended by a row each side, upscaled by the global row factor
+    ``out_hw[0] / h`` and cropped (``parallel/spatial.py``)."""
+    if spatial.active() is not None:
+        factor, rem = divmod(int(out_hw[0]), logits.shape[-2])
+        if rem or factor < 1:
+            raise ValueError(f"spatial sharding upscales rows by an integer factor, got "
+                             f"{logits.shape[-2]} -> {out_hw[0]}")
+        return spatial.halo_apply(
+            lambda t: upsample_argmax(t, (factor * t.shape[-2], out_hw[1]), plain), logits, 1, 1)
     if not plain and torch.compiler.is_compiling():
         return upsample_argmax_op(logits, [int(out_hw[0]), int(out_hw[1])])
     if plain or logits.device.type == "cpu":

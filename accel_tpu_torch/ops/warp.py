@@ -15,13 +15,21 @@ wide-feature warp (``ops/warp_onehot.py``: flow_y clamped to
 displacement-bounded kernel (``ops/warp_cuda.py``), whose flow is clamped
 to ``±max_disp`` on both axes; wider maps, or ``use_pallas=False``, take
 the unbounded plain form.
+
+Under spatial sharding (``parallel/spatial.py``) a bounded warp reads
+ceil(max_disp) + 1 rows beyond the rank's rows (its flow and any scale
+are zero-padded there: those output rows are cropped); the unbounded plain
+form reads the whole frame.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from accel_tpu_torch.ops.upsample import resize_bilinear
+from accel_tpu_torch.parallel import spatial
 from accel_tpu_torch.ops.warp_cuda import warp
 from accel_tpu_torch.ops.warp_onehot import warp_onehot
 
@@ -78,8 +86,10 @@ def bilinear_warp(
     if gather == "onehot":
         return warp_onehot(feat, flow, None, max_disp, plain=plain)
     if use_pallas and feat.shape[1] <= 64:
-        return warp(feat, flow, max_disp, plain=plain)
-    return bilinear_warp_plain(feat, flow)
+        halo = math.ceil(max_disp) + 1
+        return spatial.halo_apply(lambda f, fl: warp(f, fl, max_disp, plain=plain), feat,
+                                  halo, halo, padded=(flow,))
+    return spatial.halo_apply(bilinear_warp_plain, feat, None, None, padded=(flow,))
 
 
 def flow_to_feature_res(flow: torch.Tensor, feat_hw: tuple[int, int],

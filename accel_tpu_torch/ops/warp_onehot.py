@@ -40,6 +40,7 @@ import torch
 
 from accel_tpu_torch import kernels
 from accel_tpu_torch.ops.autograd import needs_grad, plain_vjp
+from accel_tpu_torch.parallel import spatial
 
 _WEIGHTS_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -284,7 +285,16 @@ def warp_onehot(feat: torch.Tensor, flow: torch.Tensor, scale: torch.Tensor | No
     """Warp [* scale * gain]: the kernel for a CUDA tensor (through
     ``WarpOnehotFunction`` where autograd records it), the plain version for
     a CPU tensor or when ``plain`` is set; ``warp_onehot_op`` while a
-    program is traced."""
+    program is traced. Under spatial sharding on the rank's rows extended
+    by ceil(max_disp) + 1 rows each side (flow_y is clamped; W is whole),
+    flow and scale zero-padded there (``parallel/spatial.py``)."""
+    halo = math.ceil(max_disp) + 1
+    return spatial.halo_apply(
+        lambda f, fl, s: _warp_onehot(f, fl, s, max_disp, gain, weights_dtype, plain),
+        feat, halo, halo, padded=(flow, scale))
+
+
+def _warp_onehot(feat, flow, scale, max_disp, gain, weights_dtype, plain):
     if not plain and torch.compiler.is_compiling():
         return warp_onehot_op(feat, flow, scale, float(max_disp), gain, weights_dtype)
     if plain or feat.device.type == "cpu":

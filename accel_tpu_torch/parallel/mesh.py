@@ -1,11 +1,15 @@
-"""Data parallelism over processes (counterpart of ``accel_tpu/parallel/mesh.py``).
+"""The ``data x spatial`` mesh over processes (counterpart of
+``accel_tpu/parallel/mesh.py``).
 
 The reference shards a global batch over a ``jax.sharding.Mesh`` with a
 ``data`` and a ``spatial`` axis; its train step is the unsharded program
 (``jit`` semantics), so W chips compute the loss and the gradient of the
 whole global batch. Here each rank is a process with one card (or the
-CPU), started by ``torchrun`` or by a caller that gives the rendezvous,
-and the global-batch semantics are kept by hand:
+CPU), started by ``torchrun`` or by a caller that gives the rendezvous.
+The world is ``data x spatial`` ranks: rank r has data index ``r //
+spatial`` and spatial index ``r % spatial``, the reference's
+``devices.reshape(data, spatial)`` layout. The data axis keeps the
+global-batch semantics by hand:
 
 - each rank takes its rows of the global batch (``batch_rows``,
   ``shard_batch``);
@@ -18,8 +22,10 @@ and the global-batch semantics are kept by hand:
   (``all_reduce_``) before the optimizer, so every rank applies the same
   update and the master weights stay bit-equal across ranks.
 
-The ``spatial`` axis (H split over chips, with halo exchanges for the
-convolutions) has no counterpart yet: ``tpu.mesh.spatial`` > 1 raises.
+The ``spatial`` axis splits each frame's rows over the ranks of a data
+index (``parallel/spatial.py``: halo exchanges within each spatial group,
+one ``new_group`` per data index) for clip inference and eval; training
+under it raises (``core/trainer.py``, ``experiments/train.py``).
 """
 
 from __future__ import annotations
@@ -38,16 +44,26 @@ BUCKET_NUMEL = 1 << 26
 
 @dataclass(frozen=True)
 class Mesh:
-    """One rank's view of the data-parallel world: ``data`` ranks (the
-    world size), ``spatial`` 1, this process's ``rank`` and ``local_rank``,
-    its ``device``, and the process group (None for a world of one with no
-    group asked for)."""
+    """One rank's view of the world of ``data x spatial`` ranks: this
+    process's ``rank`` and ``local_rank``, its ``device``, the world's
+    process group (None for a world of one with no group asked for) and,
+    with more than one spatial rank, the group of the ranks that share this
+    rank's data index (``spatial_group``)."""
     data: int
     spatial: int
     rank: int
     local_rank: int
     device: torch.device
     group: object | None = None
+    spatial_group: object | None = None
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.spatial
+
+    @property
+    def spatial_index(self) -> int:
+        return self.rank % self.spatial
 
     @property
     def loss_group(self):
@@ -59,7 +75,9 @@ class Mesh:
         """One line for the log: the ranks, the backend and this rank's device."""
         if self.group is None:
             return f"one process on {self.device}"
-        return (f"data parallel: {self.data} ranks, backend {dist.get_backend(self.group)}, "
+        ranks = (f"{self.data} ranks" if self.spatial == 1
+                 else f"{self.data} data x {self.spatial} spatial ranks")
+        return (f"data parallel: {ranks}, backend {dist.get_backend(self.group)}, "
                 f"rank {self.rank} on {self.device}")
 
     def close(self) -> None:
@@ -94,16 +112,17 @@ def mesh_from_cfg(cfg, device=None, init_method: str | None = None, rank: int | 
     The world comes from the caller's ``init_method``/``rank``/``world_size``
     where given, else from ``torchrun``'s ``RANK``/``WORLD_SIZE``/
     ``LOCAL_RANK`` (with ``MASTER_ADDR``/``MASTER_PORT``), else it is one
-    process and no group is made. ``tpu.mesh.data`` must be -1 or the world
-    size; ``tpu.mesh.spatial`` must be 1. ``device``: 'cpu' for the CPU;
-    otherwise the card of ``_device``. The backend is NCCL where each local
-    rank has a card of its own, gloo where ranks share a card (NCCL refuses
-    two ranks on one device) or run on the CPU."""
+    process and no group is made. ``tpu.mesh.spatial`` (>= 1) must divide
+    the world (``ValueError``, as the reference's ``make_mesh`` asserts),
+    and ``tpu.mesh.data`` must be -1 or world / spatial. ``device``: 'cpu'
+    for the CPU; otherwise the card of ``_device``. The backend is NCCL
+    where each local rank has a card of its own, gloo where ranks share a
+    card (NCCL refuses two ranks on one device) or run on the CPU. Every
+    rank makes the spatial group of each data index (``new_group``)."""
     m = cfg.tpu.mesh
-    if int(m.spatial) != 1:
-        raise ValueError(
-            f"tpu.mesh.spatial={m.spatial}: the spatial axis (H split over ranks with halo "
-            "exchanges) is not ported; ROADMAP.md Queue 1 lists it")
+    spatial = int(m.spatial)
+    if spatial < 1:
+        raise ValueError(f"tpu.mesh.spatial={spatial} must be >= 1")
     env = os.environ
     if init_method is not None:
         if rank is None or world_size is None:
@@ -115,9 +134,13 @@ def mesh_from_cfg(cfg, device=None, init_method: str | None = None, rank: int | 
         local_world = int(env.get("LOCAL_WORLD_SIZE", world_size))
     else:
         rank, world_size, local_rank, local_world = 0, 1, 0, 1
-    if int(m.data) not in (-1, world_size):
+    if world_size % spatial:
+        raise ValueError(f"tpu.mesh.spatial={spatial} does not divide the world of "
+                         f"{world_size} ranks")
+    data = world_size // spatial
+    if int(m.data) not in (-1, data):
         raise ValueError(f"tpu.mesh.data={m.data} but the world has {world_size} ranks "
-                         "(-1 takes every rank)")
+                         f"(-1 takes every rank over spatial={spatial})")
     dev = _device(cfg, local_rank, local_world, device)
     if init_method is None:
         return Mesh(data=1, spatial=1, rank=0, local_rank=0, device=dev)
@@ -126,18 +149,25 @@ def mesh_from_cfg(cfg, device=None, init_method: str | None = None, rank: int | 
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world_size)
-    return Mesh(data=world_size, spatial=1, rank=rank, local_rank=local_rank, device=dev,
-                group=dist.group.WORLD)
+    spatial_group = None
+    if spatial > 1:
+        groups = [dist.new_group(list(range(d * spatial, (d + 1) * spatial)))
+                  for d in range(data)]
+        spatial_group = groups[rank // spatial]
+    return Mesh(data=data, spatial=spatial, rank=rank, local_rank=local_rank, device=dev,
+                group=dist.group.WORLD, spatial_group=spatial_group)
 
 
 def batch_rows(mesh: Mesh | None, batch_size: int, clamp: bool = False, logger=None) -> slice:
-    """This rank's rows of a global batch of ``batch_size``. The batch must
-    divide by the world (``ValueError``); with ``clamp`` (eval) a batch that
-    does not is split over gcd(batch, world) ranks with a warning, as the
-    reference's eval clamps its mesh, and the other ranks get no rows."""
+    """This rank's rows of a global batch of ``batch_size``, by its data
+    index (the spatial ranks of one data index take the same rows). The
+    batch must divide by the data axis (``ValueError``); with ``clamp``
+    (eval) a batch that does not is split over gcd(batch, data) data
+    indices with a warning, as the reference's eval clamps its mesh's data
+    axis and keeps its spatial axis, and the other ranks get no rows."""
     if mesh is None or mesh.data == 1:
         return slice(0, batch_size)
-    ranks = mesh.data
+    ranks, index = mesh.data, mesh.data_index
     if batch_size % ranks:
         if not clamp:
             raise ValueError(f"batch {batch_size} does not divide by the {ranks} ranks")
@@ -147,10 +177,10 @@ def batch_rows(mesh: Mesh | None, batch_size: int, clamp: bool = False, logger=N
                 f"TEST.BATCH_IMAGES={batch_size} not divisible by the {mesh.data} ranks; "
                 f"splitting each batch over {ranks} (raise BATCH_IMAGES to a multiple of "
                 f"{mesh.data} to use every rank)")
-        if mesh.rank >= ranks:
+        if index >= ranks:
             return slice(0, 0)
     per = batch_size // ranks
-    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+    return slice(index * per, (index + 1) * per)
 
 
 def shard_batch(mesh: Mesh | None, batch: dict, rows: slice | None = None) -> dict:

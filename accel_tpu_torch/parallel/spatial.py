@@ -1,0 +1,321 @@
+"""The spatial axis of the mesh: each frame's rows split over ranks, with
+halo exchanges (counterpart of the ``spatial`` axis of
+``accel_tpu/parallel/mesh.py``, where XLA's SPMD partitioner inserts the
+convolutions' halo exchanges).
+
+Each rank of a spatial group of S ranks holds rows ``[s*h, (s+1)*h)`` of
+every tensor of the model's inference path, h = H/S at each level. The
+module is active only inside ``with spatial_sharding(mesh, model):``,
+which the callers open around the model call; outside it every op runs as
+it does without a mesh.
+
+One rule serves every op that reads a window of rows:
+
+1. extend: the rank gathers ``top`` rows from the ranks above it and
+   ``bottom`` rows from the ranks below (both rounded up to the op's row
+   stride; where a halo is taller than a shard, from further ranks), and
+   none past the frame's top or bottom;
+2. run the op as it is, with its own padding and edge rule, on the
+   extended shard, so that at the frame's edges its zero padding, -inf,
+   edge clamp or renormalised taps give the global answer;
+3. crop the output rows that belong to the halo.
+
+No kernel changes and no op needs a global row offset. The convs run the
+rule through forward pre- and post-hooks on every ``nn.Conv2d`` of the
+model; the functional ops (resizes, warps, the fused stem, the max pool,
+the upsample+argmax tail) call :func:`halo_apply`, and the reductions
+over H (GroupNorm's statistics, mean1's per-sample mean) :func:`row_sum`.
+Both pass their arguments through outside a context, so an op calls them
+unconditionally; only the resizes (``resize_bilinear``,
+``upsample_argmax``) branch on :func:`active`, because the integer row
+ratio a halo needs is a condition of sharding alone: outside it any ratio
+resizes.
+
+The exchange is one ``all_gather`` of every rank's boundary rows within
+its spatial group, as bytes, so NCCL and gloo serve it alike. It runs
+under ``torch.inference_mode``: a gradient through it raises (training
+under the spatial axis is ROADMAP.md's next item).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import math
+from collections.abc import Callable, Iterator
+
+import torch
+import torch.distributed as dist
+from torch import nn
+import torch.nn.functional as F
+
+_ACTIVE: contextvars.ContextVar[SpatialShard | None] = contextvars.ContextVar(
+    "accel_tpu_torch_spatial", default=None)
+
+TRAINING = ("training under the spatial axis (the halo exchange's backward) is not ported; "
+            "ROADMAP.md Queue 1 lists it")
+
+
+def _ceil_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def window_halo(k: int, stride: int = 1, dilation: int = 1,
+                padding: int | None = None) -> tuple[int, int]:
+    """(top, bottom) input rows an op with a k-row window, ``stride``,
+    ``dilation`` and top ``padding`` (default 'same': dilation*(k//2))
+    needs from beyond its shard: ``padding`` above and ``dilation*(k-1) -
+    padding`` below, each rounded up to a multiple of the stride so that
+    the crop starts on an output row."""
+    p = dilation * (k // 2) if padding is None else padding
+    return _ceil_to(p, stride), _ceil_to(max(dilation * (k - 1) - p, 0), stride)
+
+
+def conv_halo(conv: nn.Conv2d) -> tuple[int, int, int]:
+    """(top, bottom, stride) of a conv's rows, from its kernel size,
+    dilation, stride and padding."""
+    if isinstance(conv.padding, str) or conv.padding_mode != "zeros":
+        raise ValueError(f"spatial sharding takes zero-padded convs with integer padding, got "
+                         f"padding={conv.padding!r}, padding_mode={conv.padding_mode!r}")
+    s = conv.stride[0]
+    return (*window_halo(conv.kernel_size[0], s, conv.dilation[0], conv.padding[0]), s)
+
+
+class SpatialShard:
+    """One rank's part of a spatial group: the group, its size S and this
+    rank's ``index`` s, and what its exchanges moved: ``exchanges`` (halo
+    all-gathers), ``halo_bytes`` (bytes of the halo rows received),
+    ``reductions`` (all-reduces over H) and ``gathers`` (whole maps
+    assembled by :func:`gather_rows`)."""
+
+    def __init__(self, group, size: int, index: int):
+        self.group, self.size, self.index = group, size, index
+        self.exchanges = self.halo_bytes = self.reductions = self.gathers = 0
+        self._pending: dict[int, tuple[int, int, int]] = {}
+
+    def counters(self) -> dict[str, int]:
+        return dict(exchanges=self.exchanges, halo_bytes=self.halo_bytes,
+                    reductions=self.reductions, gathers=self.gathers)
+
+    def _all_gather(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """Every rank's ``t`` (the same shape and dtype on each), as bytes."""
+        if torch.is_grad_enabled() and t.requires_grad:
+            raise RuntimeError(TRAINING)
+        flat = t.contiguous().reshape(-1).view(torch.uint8)
+        parts = [torch.empty_like(flat) for _ in range(self.size)]
+        dist.all_gather(parts, flat, group=self.group)
+        return [p.view(t.dtype).view(t.shape) for p in parts]
+
+    def extend(self, x: torch.Tensor, top: int | None, bottom: int | None,
+               stride: int = 1) -> tuple[torch.Tensor, int, int]:
+        """``x`` (..., h, W), this rank's rows, with ``top`` rows of the
+        ranks above and ``bottom`` rows of the ranks below it (None: every
+        row there), each rounded up to ``stride``; fewer at the frame's top
+        and bottom. Returns the extended tensor (contiguous; ``x`` itself
+        where there is no halo) and the rows it took above and below.
+        Raises where h does not divide by the stride: the rank's first row
+        would not start an output row."""
+        h = x.shape[-2]
+        if h % stride:
+            raise ValueError(f"spatial sharding: a shard of {h} rows at a stride-{stride} op "
+                             f"starts at row {self.index * h}, not a multiple of {stride}")
+        S, s = self.size, self.index
+        top = (S - 1) * h if top is None else _ceil_to(top, stride)
+        bottom = (S - 1) * h if bottom is None else _ceil_to(bottom, stride)
+        if top == 0 and bottom == 0:
+            return x, 0, 0
+        # every rank sends its last min(top, h) rows (the halo of the ranks
+        # below) and its first min(bottom, h) rows (of the ranks above)
+        last, first = min(top, h), min(bottom, h)
+        parts = self._all_gather(torch.cat([x[..., h - last:, :], x[..., :first, :]], dim=-2))
+        t, b = min(top, s * h), min(bottom, (S - 1 - s) * h)
+        pieces = []
+        if t:
+            above = [p[..., :last, :] for p in parts[s - math.ceil(t / h):s]]
+            pieces.append(torch.cat(above, dim=-2)[..., -t:, :])
+        pieces.append(x)
+        if b:
+            below = [p[..., last:, :] for p in parts[s + 1:s + 1 + math.ceil(b / h)]]
+            pieces.append(torch.cat(below, dim=-2)[..., :b, :])
+        self.exchanges += 1
+        self.halo_bytes += (t + b) * x[..., :1, :].numel() * x.element_size()
+        return torch.cat(pieces, dim=-2), t, b
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole of ``t`` (..., h, W) from the rows every rank of the
+        group holds."""
+        self.gathers += 1
+        return torch.cat(self._all_gather(t), dim=-2)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the group (a new tensor)."""
+        if torch.is_grad_enabled() and t.requires_grad:
+            raise RuntimeError(TRAINING)
+        out = t.clone()
+        dist.all_reduce(out, group=self.group)
+        self.reductions += 1
+        return out
+
+    # ---- the conv hooks ---------------------------------------------------
+
+    def _pre_hook(self, conv: nn.Conv2d, args):
+        if _ACTIVE.get() is not self:
+            return None
+        top, bottom, stride = conv_halo(conv)
+        x = args[0]
+        ext, t, _ = self.extend(x, top, bottom, stride)
+        if ext is x:
+            return None
+        self._pending[id(conv)] = (t, x.shape[-2], ext.shape[-2])
+        return (ext, *args[1:])
+
+    def _post_hook(self, conv: nn.Conv2d, args, out):
+        if _ACTIVE.get() is not self:
+            return None
+        rows = self._pending.pop(id(conv), None)
+        return None if rows is None else crop(out, *rows)
+
+    @contextlib.contextmanager
+    def serving(self, model: nn.Module) -> Iterator[SpatialShard]:
+        """This shard active, with its hooks on every ``nn.Conv2d`` of
+        ``model`` (subclasses included), for the duration."""
+        handles = []
+        token = _ACTIVE.set(self)
+        try:
+            for m in model.modules():
+                if isinstance(m, nn.Conv2d):
+                    handles.append(m.register_forward_pre_hook(self._pre_hook))
+                    handles.append(m.register_forward_hook(self._post_hook))
+            yield self
+        finally:
+            for handle in handles:
+                handle.remove()
+            _ACTIVE.reset(token)
+
+
+def crop(y: torch.Tensor, t: int, h: int, ext_h: int) -> torch.Tensor:
+    """The rows of ``y`` (an op's output on an extended shard of ``ext_h``
+    rows, ``t`` of them from above) that belong to the ``h`` rows of the
+    shard: the op's row ratio out/in maps both."""
+    n = y.shape[-2]
+    if t * n % ext_h or h * n % ext_h:
+        raise RuntimeError(f"spatial sharding: {n} output rows of {ext_h} input rows do not "
+                           f"map the shard's {h} rows ({t} above) onto whole rows")
+    start = t * n // ext_h
+    return y[..., start:start + h * n // ext_h, :]
+
+
+def active() -> SpatialShard | None:
+    """The spatial shard of the running ``spatial_sharding`` context, or None."""
+    return _ACTIVE.get()
+
+
+def halo_apply(fn: Callable[..., torch.Tensor], x: torch.Tensor, top: int | None,
+               bottom: int | None, stride: int = 1,
+               padded: tuple[torch.Tensor | None, ...] = ()) -> torch.Tensor:
+    """``fn(x, *padded)`` for an op whose output rows read ``top``/``bottom``
+    rows beyond them (None: every row of the frame there) at a row
+    ``stride``: outside a spatial context, ``fn`` as it is; inside, on the
+    extended shard (each of ``padded``, per-row inputs whose halo rows do
+    not matter, zero-padded by as many rows; None stays None), with the
+    context suspended, then cropped to the shard's rows."""
+    shard = _ACTIVE.get()
+    if shard is None:
+        return fn(x, *padded)
+    ext, t, b = shard.extend(x, top, bottom, stride)
+    extra = [None if p is None else F.pad(p, (0, 0, t, b)) for p in padded]
+    token = _ACTIVE.set(None)
+    try:
+        y = fn(ext, *extra)
+    finally:
+        _ACTIVE.reset(token)
+    return crop(y, t, x.shape[-2], ext.shape[-2])
+
+
+def windowed(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor, k: int,
+             stride: int = 1, dilation: int = 1, padding: int | None = None) -> torch.Tensor:
+    """``halo_apply`` for a windowed op (``window_halo``)."""
+    return halo_apply(fn, x, *window_halo(k, stride, dilation, padding), stride)
+
+
+def row_sum(*tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Partial sums over rows, summed over the spatial group inside a
+    context (one all-reduce for all of them, in f32); as they are outside."""
+    shard = _ACTIVE.get()
+    if shard is None:
+        return tensors
+    flat = shard.sum(torch.cat([t.to(torch.float32).reshape(-1) for t in tensors]))
+    return tuple(p.view(t.shape).to(t.dtype)
+                 for p, t in zip(flat.split([t.numel() for t in tensors]), tensors, strict=True))
+
+
+def ranks() -> int:
+    """The ranks a frame's rows are split over: the spatial group's size
+    inside a context, 1 outside."""
+    shard = _ACTIVE.get()
+    return 1 if shard is None else shard.size
+
+
+def mean(x: torch.Tensor, dim: tuple[int, ...], keepdim: bool = False) -> torch.Tensor:
+    """``x.mean(dim)`` over dims that include H (-2): over the whole frame
+    inside a context (the f32 sum all-reduced, over the global count)."""
+    if _ACTIVE.get() is None:
+        return x.mean(dim=dim, keepdim=keepdim)
+    (total,) = row_sum(x.sum(dim=dim, keepdim=keepdim, dtype=torch.float32))
+    count = math.prod(x.shape[d] for d in dim) * ranks()
+    return (total / count).to(x.dtype)
+
+
+def check_rows(h: int, stride: int, what: str) -> None:
+    """Inside a context: a shard's ``h`` rows must divide by ``stride``, the
+    model's largest row stride (``ValueError`` naming ``what``)."""
+    shard = _ACTIVE.get()
+    if shard is not None and h % stride:
+        raise ValueError(f"spatial sharding: a frame of {h * shard.size} rows over "
+                         f"{shard.size} ranks gives shards of {h} rows, which do not divide "
+                         f"by {what}'s row stride {stride}")
+
+
+def _refuse_unported(model: nn.Module) -> None:
+    from accel_tpu_torch.models.resnet import DilatedResNet, Int8Conv2d
+
+    for m in model.modules():
+        missing = None
+        if isinstance(m, Int8Conv2d):
+            missing = "quantize (int8 convs take per-call absmax scales: a max over the group)"
+        elif isinstance(m, DilatedResNet) and m.stem == "s2d":
+            missing = "stem: s2d"
+        elif isinstance(m, DilatedResNet) and m.input_downscale > 1:
+            missing = "fold_update_downscale"
+        elif getattr(m, "fold_flow_downscale", False):
+            missing = "fold_flow_downscale"
+        if missing:
+            raise ValueError(f"spatial sharding does not serve {missing} yet; "
+                             "ROADMAP.md Queue 1 lists it")
+
+
+@contextlib.contextmanager
+def spatial_sharding(mesh, model: nn.Module) -> Iterator[SpatialShard | None]:
+    """Run ``model`` on this rank's rows for the duration: the conv hooks
+    registered on every ``nn.Conv2d`` of ``model`` (subclasses included),
+    the functional ops and reductions active. Yields the
+    ``SpatialShard`` (None, and nothing changes, where ``mesh`` is None or
+    has one spatial rank). Raises ``ValueError`` for a model whose knobs
+    the spatial axis does not serve yet."""
+    if mesh is None or mesh.spatial == 1:
+        yield None
+        return
+    _refuse_unported(model)
+    with SpatialShard(mesh.spatial_group, mesh.spatial, mesh.spatial_index).serving(model) as shard:
+        yield shard
+
+
+def frame_rows(mesh, h: int) -> slice:
+    """This rank's rows of a frame of ``h`` rows: all of them without a
+    spatial axis. ``ValueError`` where h does not divide by the ranks."""
+    if mesh is None or mesh.spatial == 1:
+        return slice(0, h)
+    if h % mesh.spatial:
+        raise ValueError(f"a frame of {h} rows does not split over {mesh.spatial} ranks")
+    per = h // mesh.spatial
+    return slice(mesh.spatial_index * per, (mesh.spatial_index + 1) * per)

@@ -160,6 +160,21 @@ Phases, one JSON line each:
     cfg's eval through the eval entry point (the confusion matrix
     exactly); the ranks' masters bit-equal, their launches exact, their
     step and all-reduce ms (``e2e_dp``).
+24. e2e_spatial, e2e_spatial_eval: the spatial axis (``parallel/spatial.py``):
+    two gloo ranks on the one card (``--dp-rank``), ``tpu.mesh.spatial:
+    2``, each on its 512 rows of every 1024x2048 frame, against one
+    process: a B=1 group of the Accel-18 bench row (incremental; #1-#3),
+    of it with the flagship norm in bf16 and in f32, the DFF row (direct;
+    #4) and one DeepLab-101 frame with ``dilated_conv: pallas`` (#5); every
+    kernel launch of a rank held against its plain version on the
+    halo-extended shard it was given; each rank's class-map rows held to
+    the one-process rows by ``check_class_maps`` over the shard and over
+    its band at the shard boundary (the bf16 flagship through the same
+    weights in f32), its launches exactly, its halo exchanges and bytes,
+    peak memory and ms a group printed beside one process's; then the
+    flagship cfg's eval through the eval entry point with
+    ``tpu.mesh.spatial: 2`` against the one-process entry point
+    (``e2e_spatial``).
 
 Then the ``{"kernels": [...]}`` line (each kernel's first row, with its
 launches on one path it serves and per group there, and its launches on
@@ -229,6 +244,7 @@ from accel_tpu_torch.ops import upsample_argmax as ua_ops
 from accel_tpu_torch.ops import warp as warp_module
 from accel_tpu_torch.ops import warp_cuda as warp_ops
 from accel_tpu_torch.ops import warp_onehot as onehot_ops
+from accel_tpu_torch.parallel import spatial
 from accel_tpu_torch.parallel.mesh import mesh_from_cfg, replicated, shard_batch
 
 SEED = 0
@@ -436,8 +452,10 @@ def kernel_warp(results: dict) -> None:
     group (k-1 frames at once), that shape in bf16 (``warp_dtype:
     native``), CamVid's ragged stride-16 map, os8-mixed's stride-8 map
     ((1,19,128,256) per frame, (4,...) per direct group), and composed
-    propagation's final warp at D=8*(k-1)=32 and its 2-channel flow fields
-    at D=8. |flow| up to 1.5 D, uniform per pixel."""
+    propagation's final warp at D=8*(k-1)=32, its 2-channel flow fields
+    at D=8, and a spatial rank's halo-extended shard of the score map
+    (``e2e_spatial``: 32 rows and 9 beyond). |flow| up to 1.5 D, uniform
+    per pixel."""
     rows = []
     for shape, dtype, d in (((1, 19, 64, 128), torch.float32, 8),
                             ((4, 19, 64, 128), torch.float32, 8),
@@ -446,7 +464,8 @@ def kernel_warp(results: dict) -> None:
                             ((1, 19, 128, 256), torch.float32, 8),
                             ((4, 19, 128, 256), torch.float32, 8),
                             ((4, 19, 64, 128), torch.float32, 8 * (K - 1)),
-                            ((1, 2, 64, 128), torch.float32, 8)):
+                            ((1, 2, 64, 128), torch.float32, 8),
+                            ((1, 19, 41, 128), torch.float32, 8)):
         g = _gen(SEED + 1)
         N, _, h, w = shape
         max_flow = 1.5 * d
@@ -488,13 +507,15 @@ def kernel_upsample_argmax(results: dict) -> None:
     """The serving tail at the shapes it launches: one group's 5 frames at
     B=1 (once per group), the bench's B=4 group of 20, one frame (once per
     ``push_frame``), os8-mixed's stride-8 group, CamVid's 45x60 ->
-    720x960, and a non-integer ratio whose bands change inside a thread's
-    run of rows. Each row's class map agrees with the plain version's on
+    720x960, a non-integer ratio whose bands change inside a thread's
+    run of rows, and a spatial rank's extended shard of a group (33 rows
+    to 528, cropped to 512 by ``e2e_spatial``). Each row's class map agrees with the plain version's on
     >= 0.9999 of the pixels, every disagreement at a near-tie."""
     rows = []
     for shape, out_hw in (((5, 19, 64, 128), (H, W)), ((20, 19, 64, 128), (H, W)),
                           ((1, 19, 64, 128), (H, W)), ((5, 19, 128, 256), (H, W)),
-                          ((2, 19, 45, 60), (720, 960)), ((3, 11, 12, 20), (128, 256))):
+                          ((2, 19, 45, 60), (720, 960)), ((3, 11, 12, 20), (128, 256)),
+                          ((5, 19, 33, 128), (528, W))):
         logits = torch.randn(shape, generator=_gen(SEED + 2), device="cuda")
         got = ua_ops.upsample_argmax_cuda(logits, out_hw)
         ref = ua_ops.upsample_argmax_plain(logits, out_hw)
@@ -533,12 +554,15 @@ def kernel_fused_stem(results: dict) -> None:
     folded into the weights and shift as the bias, without the relu. The
     bf16 rows: the bench's B=4 keyframes, one frame (every keyframe at B=1
     and every ``push_frame``), the fast row's update branch on a group's 5
-    half-resolution frames, CamVid's frame and an unaligned one."""
+    half-resolution frames, CamVid's frame, an unaligned one and a spatial
+    rank's extended shard of a frame (512 rows and 8 beyond, stem and max
+    pool on one shard)."""
     rows = []
     for shape, dtype in (((4, 3, H, W), torch.bfloat16), ((1, 3, H, W), torch.bfloat16),
                          ((5, 3, H // 2, W // 2), torch.bfloat16),
                          ((1, 3, 720, 960), torch.bfloat16),
-                         ((1, 3, 30, 34), torch.bfloat16), ((1, 3, H, W), torch.float32)):
+                         ((1, 3, 30, 34), torch.bfloat16), ((1, 3, H, W), torch.float32),
+                         ((1, 3, H // 2 + 8, W), torch.bfloat16)):
         g = _gen(SEED + 3)
         x = torch.randn(shape, generator=g, device="cuda").to(dtype)
         w = torch.randn((64, 3, 7, 7), generator=g, device="cuda") * 0.1
@@ -583,7 +607,9 @@ def kernel_warp_onehot(results: dict) -> None:
     map (staged without TMA); then composed propagation's final feature
     warp at D=4*(k-1)=16 and the f32 fields it composes at D=4 (the
     2-channel flow, and the 1024-channel scale product of the mean1/clamp
-    cascades). |flow_y| up to 1.5 D (clamped), |flow_x| up to 3 D (not
+    cascades), and a spatial rank's extended shard of the DFF direct warp
+    (32 rows and 5 beyond: a band that is not a multiple of the kernel's
+    band rows, on the TMA path). |flow_y| up to 1.5 D (clamped), |flow_x| up to 3 D (not
     clamped), uniform per pixel; the bf16 DFF rows also time a smooth flow
     of that range (``smooth_flow_device_ms``). At most 1e-5 * max|ref| for
     f32 outputs, one bf16 ulp at max|ref| for bf16 outputs."""
@@ -597,7 +623,8 @@ def kernel_warp_onehot(results: dict) -> None:
             ((2, 1024, 45, 60), torch.bfloat16, True, False, 4),
             ((4, 1024, 64, 128), torch.bfloat16, True, False, 4 * (K - 1)),
             ((1, 2, 64, 128), torch.float32, False, False, 4),
-            ((1, 1024, 64, 128), torch.float32, False, False, 4)):
+            ((1, 1024, 64, 128), torch.float32, False, False, 4),
+            ((4, 1024, 37, 128), torch.bfloat16, True, False, 4)):
         g = _gen(SEED + 10)
         N, C, h, w = shape
         fx, fy = 3.0 * d, 1.5 * d
@@ -667,12 +694,14 @@ def kernel_dilated_conv(results: dict) -> None:
     packed beforehand (as ``DilatedConv3x3`` keeps them) on an NCHW x, so
     it includes the bf16 path's channels-last copy of x; ``pack_ms`` is the
     packing alone, ``channels_last_ms`` the kernel on an x that is already
-    channels-last. The plain version is the library call."""
+    channels-last. The plain version is the library call. The last row is
+    a spatial rank's extended shard of fc6 (32 rows and 6 beyond)."""
     rows = []
     for shape, cout, d, dtype in (((1, 2048, 64, 128), 1024, 6, torch.bfloat16),  # fc6
                                   ((1, 512, 64, 128), 512, 2, torch.bfloat16),    # layer4 conv2
                                   ((1, 2048, 45, 60), 1024, 6, torch.bfloat16),   # not TPU-tileable
-                                  ((1, 128, 16, 32), 128, 8, torch.float32)):
+                                  ((1, 128, 16, 32), 128, 8, torch.float32),
+                                  ((1, 2048, 38, 128), 1024, 6, torch.bfloat16)):  # fc6 shard
         g = _gen(SEED + 11)
         x = torch.randn(shape, generator=g, device="cuda").to(dtype)
         w = (torch.randn((cout, shape[1], 3, 3), generator=g, device="cuda")
@@ -920,14 +949,28 @@ def compare_class_maps(pred: torch.Tensor, ref: torch.Tensor, ref_model, frames:
     tensor-core stem against the f32 conv, which differ on ~0.004% of the
     stem's outputs) flip those pixels: agreement ~0.994 overall, >= 0.9999
     on the clear pixels."""
+    clear, peak, ref_logits = clear_pixels(ref_model, frames, propagate, interval)
+    return dict(class_map_agreement(pred[0], ref[0], clear), logits_max_abs=peak), ref_logits
+
+
+@torch.inference_mode()
+def clear_pixels(ref_model, frames: torch.Tensor, propagate: str,
+                 interval: int = K) -> tuple[torch.Tensor, float, torch.Tensor]:
+    """The pixels of ``frames`` (1, F, H, W, 3) whose top-2 margin in
+    ``ref_model``'s stride-level logits, upsampled as the tail does,
+    exceeds 1e-2 * max|logits| (F, H, W); that max; the logits."""
     ref_logits = clip_logits(ref_model, frames.permute(0, 1, 4, 2, 3), interval, propagate)[0]
     peak = ref_logits.abs().max().item()
-    up = F.interpolate(ref_logits, size=pred.shape[-2:], mode="bilinear", align_corners=False)
+    up = F.interpolate(ref_logits, size=frames.shape[2:4], mode="bilinear", align_corners=False)
     top2 = up.topk(2, dim=1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 1e-2 * peak
-    eq = pred[0] == ref[0]
+    return (top2[:, 0] - top2[:, 1]) > 1e-2 * peak, peak, ref_logits
+
+
+def class_map_agreement(pred: torch.Tensor, ref: torch.Tensor, clear: torch.Tensor) -> dict:
+    """Two class maps' agreement overall and on the ``clear`` pixels."""
+    eq = pred == ref
     return dict(agreement=eq.float().mean().item(), clear_share=clear.float().mean().item(),
-                clear_agreement=eq[clear].float().mean().item(), logits_max_abs=peak), ref_logits
+                clear_agreement=eq[clear].float().mean().item())
 
 
 @torch.inference_mode()
@@ -2527,6 +2570,8 @@ def dp_rank(spec_path: str, rank: str, world: str) -> int:
     ``SPEC.rank<RANK>``."""
     rank, world = int(rank), int(world)
     spec = torch.load(spec_path, weights_only=False)
+    if "spatial" in spec:
+        return spatial_rank(spec, spec_path, rank, world)
     results = {}
     cfg = load_config(spec["cases"]["train"]["cfg"])
     mesh = mesh_from_cfg(cfg, device="cuda", init_method=spec["init"], rank=rank,
@@ -2570,8 +2615,9 @@ def run_ranks(spec_path: Path, world: int, timeout: float = 600.0) -> list[dict]
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        check(p.returncode == 0, f"e2e_dp rank {r} exited {p.returncode}:\n{log[-6000:]}")
+    failed = [f"rank {r} exited {p.returncode}:\n{log[-6000:]}"
+              for r, (p, log) in enumerate(zip(procs, logs)) if p.returncode != 0]
+    check(not failed, "ranks of " + spec_path.name + " failed: " + "\n".join(failed))
     return [torch.load(f"{spec_path}.rank{r}", weights_only=False) for r in range(world)]
 
 
@@ -2799,6 +2845,455 @@ def e2e_dp(root: Path, data: Path) -> dict[str, dict[str, int]]:
             "e2e_dp_eval": per_rank[0]["launches"]}
 
 
+# ---- phase 24: the spatial axis over two ranks on the one card -------------------
+
+SPATIAL_RANKS = 2
+# the spatial cases: (net, propagate, frames, interval, seed of the frames and
+# the flow heads, each rank's launches a group)
+SPATIAL_CASES = {
+    "accel18_incremental": (BENCH_NET, "incremental", K, K, SEED + 150,
+                            dict(fused_stem=2, warp=K - 1, upsample_argmax=1)),
+    # the flagship norm and stem as shipped: groupnorm (its sums over the
+    # group), conv7, mean1, bf16. Its random-weight logits (max ~2.6) put
+    # more pixels within bf16 rounding of a flip than the clear-margin rule
+    # allows for, so it is held through the same weights in f32
+    # (SPATIAL_WITNESSED)
+    "flagship_incremental": (FLAGSHIP_NET, "incremental", K, K, SEED + 156,
+                             dict(warp=K - 1, upsample_argmax=1)),
+    # the same in f32, on the same frames
+    "flagship_f32_incremental": (dict(FLAGSHIP_NET, dtype="float32"), "incremental", K, K,
+                                 SEED + 156, dict(warp=K - 1, upsample_argmax=1)),
+    "dff_direct": (DFF_NET, "direct", K, K, SEED + 152,
+                   dict(fused_stem=1, warp_onehot=1, upsample_argmax=1)),
+    # one frame of DeepLab-101 with every dilated conv on #5: 3 layer4 conv2 + fc6
+    "deeplab101_pallas": (dict(DEEPLAB_NET, dilated_conv="pallas"), "direct", 1, 1, SEED + 154,
+                          dict(fused_stem=1, dilated_conv=4, upsample_argmax=1)),
+}
+# bf16 cases held through their weights in f32 (TF32 off, one process), the
+# witness of how far bf16 rounding alone moves their class maps: a rank's
+# rows differ from the one process's rows at most SPATIAL_WITNESS_RATIO
+# times as much as the one process's rows differ from the f32 rows (two bf16
+# runs, each that far from f32, differ by about twice that at most), over
+# the shard and its boundary band, and on the shard's clear pixels
+SPATIAL_WITNESSED = ("flagship_incremental",)
+SPATIAL_WITNESS_RATIO = 2.0
+# a shard's rows within this many rows of a shard boundary (4 rows of the
+# stride-16 maps), where a fault in a halo shows first
+SPATIAL_BAND = 64
+# the spatial eval's confusion matrices against one process: an L1 of at
+# most twice this share of the valid pixels (about 4x the share PERF.md
+# records for an H100)
+SPATIAL_EVAL_MOVED = 0.003
+# each kernel's plain version and the leading arguments of its wrapper it takes
+PLAINS = {
+    "warp": (warp_ops.warp_plain, 3),
+    "upsample_argmax": (ua_ops.upsample_argmax_plain, 2),
+    "fused_stem": (stem_ops.fused_stem_plain, 4),
+    "warp_onehot": (onehot_ops.warp_onehot_plain, 6),
+    "dilated_conv": (dilated_ops.conv3x3_dilated_plain, 3),
+}
+
+def measured_group(model, frames: torch.Tensor, interval: int, propagate: str) -> dict:
+    """One group through ``clip_predictions`` (after the caller's warm-up):
+    its class maps, host ms (ending in a synchronize), launches, and the
+    peak memory allocated during it, all of it and above what was
+    allocated before it (the weights and the frames)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    pred = clip_predictions(model, frames, interval, propagate)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    return dict(pred=pred, ms=ms, launches=counts(), peak_bytes=peak,
+                peak_bytes_above_inputs=peak - base)
+
+
+@contextlib.contextmanager
+def cudnn_tf32(enabled: bool):
+    """cuDNN's f32 convs on TF32 (PyTorch's default) or not, for the duration."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def spatial_group(model, frames: torch.Tensor, interval: int, propagate: str,
+                  shard=None) -> dict:
+    """A measured group (``measured_group``) after a warm-up, under
+    PyTorch's default cuDNN TF32 flag, as the port serves (with ``shard``:
+    the halo counters of the measured group, held equal to the warm-up's);
+    then, with TF32 off as the rest of this script runs, the peak memory of
+    another group (``*_tf32_off``): at a shard's shapes cuDNN may pick an
+    algorithm for an f32 conv (FlowNet's flow heads) with a large workspace."""
+    with cudnn_tf32(True):
+        before = shard.counters() if shard else {}
+        clip_predictions(model, frames, interval, propagate)
+        warm = shard.counters() if shard else {}
+        out = measured_group(model, frames, interval, propagate)
+        if shard:
+            out["halo"] = {k: v - warm[k] for k, v in shard.counters().items()}
+            check(out["halo"] == {k: warm[k] - before[k] for k in warm},
+                  f"e2e_spatial: the groups exchanged {out['halo']} and {warm}")
+    with cudnn_tf32(False):
+        clip_predictions(model, frames, interval, propagate)
+        strict = measured_group(model, frames, interval, propagate)
+    out.update(peak_bytes_tf32_off=strict["peak_bytes"],
+               peak_bytes_above_inputs_tf32_off=strict["peak_bytes_above_inputs"])
+    return out
+
+
+@contextlib.contextmanager
+def launches_recorded():
+    """Every launch of each kernel's wrapper, for the duration: (kernel,
+    copies of the arguments its plain version takes, a copy of the
+    output), in order. A wrapper counts its launches on the function its
+    module's name holds, the recording one for the duration: the counts
+    pass to it and back."""
+    seen = []
+
+    def recording(name: str, launch):
+        arity = PLAINS[name][1]
+
+        def recorded(*args):
+            out = launch(*args)
+            seen.append((name, tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                     for a in args[:arity]), out.clone()))
+            return out
+
+        recorded.__dict__.update(launch.__dict__)
+        return recorded
+
+    modules = {name: sys.modules[fn.__module__] for name, fn in LAUNCHERS.items()}
+    for name, fn in LAUNCHERS.items():
+        setattr(modules[name], fn.__name__, recording(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in LAUNCHERS.items():
+            fn.__dict__.update(getattr(modules[name], fn.__name__).__dict__)
+            setattr(modules[name], fn.__name__, fn)
+
+
+def held_to_plain(name: str, args: tuple, got: torch.Tensor) -> dict:
+    """One launch's output ``got`` against its kernel's plain version on the
+    same ``args``, at the kernel's limit in phase 2: a max error within
+    ``tol`` (f32: 1e-5 for #1, 1e-5 * max|ref| for #4, 1e-4 * max|ref| for
+    #3 and #5; bf16: 1e-2 * max|ref| for #1, one ulp at max|ref| for #4,
+    2e-2 * max|ref| for #3 and #5, and at most 0.1% of #3's outputs other
+    than the plain version's); #2's class maps equal on >= 0.9999 of the
+    pixels, each disagreement within 1e-5 * max|upscaled logits| of a tie."""
+    ref = PLAINS[name][0](*args)
+    row = dict(kernel=name, shape=list(args[0].shape), dtype=str(args[0].dtype))
+    if name == "upsample_argmax":
+        logits, out_hw = args
+        up = F.interpolate(logits.float(), size=tuple(out_hw), mode="bilinear",
+                           align_corners=False)
+        gap = (up.gather(1, ref[:, None].long()) - up.gather(1, got[:, None].long()))[:, 0]
+        agree = (got == ref).float().mean().item()
+        err, tol = gap.abs().max().item(), 1e-5 * up.abs().max().item()
+        return dict(row, agreement=agree, max_abs_err=err, tol=tol,
+                    ok=got.shape == ref.shape and agree >= 0.9999 and err <= tol)
+    err = (got.float() - ref.float()).abs().max().item()
+    peak = ref.float().abs().max().item()
+    bf16 = got.dtype == torch.bfloat16
+    if name == "warp":
+        tol = 1e-2 * peak if bf16 else 1e-5
+    elif name == "warp_onehot":
+        tol = 2.0 ** (math.floor(math.log2(max(peak, 2.0 ** -126))) - 7) if bf16 else 1e-5 * peak
+    else:
+        tol = (2e-2 if bf16 else 1e-4) * peak
+    differ = (got != ref).float().mean().item()
+    ok = (got.shape == ref.shape and got.dtype == ref.dtype and err <= tol
+          and (name != "fused_stem" or not bf16 or differ <= 1e-3))
+    return dict(row, max_abs_err=err, tol=tol, differ_share=differ, ok=ok)
+
+
+def held_launches(model, frames: torch.Tensor, interval: int, propagate: str, mesh) -> list:
+    """One group, as the measured groups run it (``spatial_sharding`` of
+    ``mesh``, TF32 on), with every kernel launch recorded; then each launch
+    held against its kernel's plain version on the very inputs it was given
+    (on a spatial rank, the halo-extended shards), outside the context with
+    TF32 off (``held_to_plain``)."""
+    with (launches_recorded() as launched, cudnn_tf32(True),
+          spatial.spatial_sharding(mesh, model)):
+        clip_predictions(model, frames, interval, propagate)
+    return [held_to_plain(*launch) for launch in launched]
+
+
+def held_summary(held: list) -> dict:
+    """Per kernel: the launches held, all within their limits (``ok``), the
+    worst ``max_abs_err / tol``, the least agreement (#2) and the shapes."""
+    out = {}
+    for row in held:
+        k = out.setdefault(row["kernel"], dict(launches=0, ok=True, worst_err_over_tol=0.0,
+                                               shapes=[]))
+        k["launches"] += 1
+        k["ok"] = k["ok"] and row["ok"]
+        k["worst_err_over_tol"] = max(k["worst_err_over_tol"], (
+            row["max_abs_err"] / row["tol"] if row["tol"] else float(row["max_abs_err"] > 0)))
+        if "agreement" in row:
+            k["min_agreement"] = min(k.get("min_agreement", 1.0), row["agreement"])
+        if row["shape"] not in k["shapes"]:
+            k["shapes"].append(row["shape"])
+    return out
+
+
+def check_held(phase: str, summary: dict, per_kernel: dict) -> None:
+    """Every launch of ``per_kernel`` {kernel: launches} was held, and
+    each within its kernel's limit."""
+    check({k: v["launches"] for k, v in summary.items()} == per_kernel,
+          f"{phase}: launches held {summary}, expected {per_kernel}")
+    check(all(v["ok"] for v in summary.values()), f"{phase}: a kernel against plain {summary}")
+
+
+def boundary_band(index: int, rows: int) -> torch.Tensor:
+    """The rows of spatial rank ``index``'s shard of ``rows`` rows within
+    SPATIAL_BAND rows of a shard boundary."""
+    band = torch.zeros(rows, dtype=torch.bool)
+    if index > 0:
+        band[:SPATIAL_BAND] = True
+    if index < SPATIAL_RANKS - 1:
+        band[-SPATIAL_BAND:] = True
+    return band
+
+
+def shard_agreement(index: int, pred: torch.Tensor, want: torch.Tensor,
+                    clear: torch.Tensor) -> dict:
+    """Spatial rank ``index``'s class-map rows ``pred`` (F, h, W) against
+    its rows of the whole maps ``want`` (F, H, W), with the clear pixels
+    ``clear`` (F, H, W) (``class_map_agreement``), over the shard and over
+    its boundary band (``band``)."""
+    h = pred.shape[-2]
+    rows = slice(index * h, (index + 1) * h)
+    want, clear, band = want[:, rows], clear[:, rows], boundary_band(index, h)
+    return dict(class_map_agreement(pred, want, clear),
+                band=class_map_agreement(pred[:, band], want[:, band], clear[:, band]))
+
+
+def spatial_rank(spec: dict, spec_path: str, rank: int, world: int) -> int:
+    """One rank of ``e2e_spatial``: each case's group on this rank's rows of
+    the frames under a ``data=1 x spatial=world`` mesh (gloo), with every
+    launch of a group held against its plain version (``held_launches``),
+    then the flagship cfg's eval through the eval entry point under
+    ``torchrun``'s variables with ``tpu.mesh.spatial: world``, its launches
+    held the same way. Writes its results to ``SPEC.rank<RANK>``."""
+    results = {}
+    mesh = mesh_from_cfg(load_config(spec["cfg"]), device="cuda", init_method=spec["init"],
+                         rank=rank, world_size=world)
+    try:
+        results["backend"] = dist.get_backend(mesh.spatial_group)
+        for name, case in spec["cases"].items():
+            net, propagate, _, interval, _, _ = SPATIAL_CASES[name]
+            model = build_model(net, device="cuda", generator=torch.Generator().manual_seed(SEED))
+            model.load_state_dict(torch.load(case["weights"], map_location="cuda"))
+            frames = torch.load(case["frames"])
+            mine = frames[:, :, spatial.frame_rows(mesh, frames.shape[2])].cuda()
+            held = held_summary(held_launches(model, mine, interval, propagate, mesh))
+            with spatial.spatial_sharding(mesh, model) as shard:
+                out = spatial_group(model, mine, interval, propagate, shard)
+            results[name] = dict(out, pred=out["pred"].cpu(), held=held)
+            del model, mine, out
+            torch.cuda.empty_cache()
+    finally:
+        mesh.close()
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(spec["eval"]["port"]))
+    reset_counts()
+    with launches_recorded() as launched:
+        (result,) = eval_entry.main(spec["eval"]["argv"])
+    results["eval"] = dict(miou=result["miou"], stats=result["stats"], launches=counts(),
+                           held=held_summary([held_to_plain(*launch) for launch in launched]))
+    torch.save(results, f"{spec_path}.rank{rank}")
+    return 0
+
+
+def e2e_spatial(root: Path, data: Path, valid_per_clip: int) -> dict[str, dict[str, int]]:
+    """Phase 24: the spatial axis (``parallel/spatial.py``) at 1024x2048:
+    two gloo ranks on the one card (processes of this script,
+    ``--dp-rank``), ``tpu.mesh.spatial: 2``, each on its 512 rows of every
+    frame, against one process on the whole frames.
+
+    e2e_spatial: the Accel-18 bench row, incremental, B=1, k=5 (#1, #2,
+    #3); the same with the flagship's groupnorm, conv7 and mean1 (#1, #2;
+    the sums over the group), in bf16 and in f32; the DFF row, direct (#3,
+    #4, #2); one DeepLab-101 frame with ``dilated_conv: pallas`` (#3, #5,
+    #2). On each rank every kernel launch of a group is held against its
+    plain version on the halo-extended shard it was given, at phase 2's
+    limits (``held_launches``). Each rank's class-map rows go against the
+    one-process ``push_group`` rows under ``check_class_maps``' limits
+    (the clear pixels of the one-process model's logits: cuDNN picks other
+    algorithms at the shards' shapes and bf16 near-ties flip), over the
+    shard and over its band of SPATIAL_BAND rows at the shard boundary; the
+    bf16 flagship, whose random-weight logits leave more near-ties than
+    those limits allow for, is held against the one process's rows through
+    its f32 witness instead (SPATIAL_WITNESSED: the one process's bf16 rows
+    against the same weights in f32 say how far bf16 rounding alone moves
+    them; the ranks' rows against f32 are printed too). Each rank's
+    launches exactly;
+    per rank its halo exchanges and their bytes a group, its peak memory
+    against one process's, and its ms a group (printed: the two ranks
+    share the card and their exchanges go through the host). These groups
+    run under PyTorch's default cuDNN TF32 flag, as the port serves; the
+    peak memory with TF32 off (this script's setting elsewhere) is printed
+    beside it (``spatial_group``).
+
+    e2e_spatial_eval: the flagship cfg (groupnorm, conv7, mean1; #1, #2)
+    through the eval entry point under ``torchrun``'s variables with
+    ``tpu.mesh.spatial: 2`` on the eval tree, against the one-process
+    entry point: every launch held against its plain version, the
+    confusion matrices within an L1 of 2 * SPATIAL_EVAL_MOVED of the valid
+    pixels (exact equality printed), the mIoU within 1 point, the global
+    frames, each rank's launches exactly.
+
+    Returns each part's launches per rank (rank 0's)."""
+    cases, one = {}, {}
+    for name, (net, propagate, n_frames, interval, seed, _) in SPATIAL_CASES.items():
+        model = build_model(net, device="cuda", generator=torch.Generator().manual_seed(SEED))
+        frames = moving_clip(n_frames, (H, W), seed, "cuda")
+        max_flow = (live_flow_heads(model, frames if n_frames > 1 else frames.repeat(1, 2, 1, 1, 1),
+                                    seed + 1) if hasattr(model, "flownet") else None)
+        out = spatial_group(model, frames, interval, propagate)
+        # push_group is clip_predictions of the group
+        with cudnn_tf32(True):
+            check(torch.equal(out["pred"], VideoSegmenter(model, interval, propagate=propagate)
+                              .push_group(frames)),
+                  f"e2e_spatial {name}: push_group and clip_predictions differ")
+            clear, logits_peak, _ = clear_pixels(model, frames, propagate, interval)
+        one[name] = dict(out, pred=out["pred"].cpu(), clear=clear.cpu(),
+                         logits_max_abs=logits_peak, max_abs_flow=max_flow)
+        if name in SPATIAL_WITNESSED:
+            exact = build_model(dict(net, dtype="float32"), device="cuda",
+                                generator=torch.Generator().manual_seed(SEED))
+            exact.load_state_dict(model.state_dict())
+            one[name]["f32_pred"] = clip_predictions(exact, frames, interval, propagate).cpu()
+            del exact
+        cases[name] = dict(weights=str(root / f"spatial_{name}.pt"),
+                           frames=str(root / f"spatial_{name}.frames.pt"))
+        torch.save(model.state_dict(), cases[name]["weights"])
+        torch.save(frames.cpu(), cases[name]["frames"])
+        del model, frames, out, clear
+        torch.cuda.empty_cache()
+
+    # the flagship cfg's eval, one process and on the spatial mesh
+    reset_counts()
+    argv = ["--random-weights", "--max-items", str(EVAL_SNIPPETS)]
+    (one_eval,) = eval_entry.main(["--cfg", str(eval_cfg("accel18_cityscapes", root, data,
+                                                         stem="e2e_spatial_eval_one")), *argv])
+    one_eval_launched = counts()
+    path = eval_cfg("accel18_cityscapes", root, data, stem="e2e_spatial_eval")
+    path.write_text(path.read_text().rstrip("\n")
+                    + f"\ntpu:\n  mesh:\n    spatial: {SPATIAL_RANKS}\n")
+    torch.cuda.empty_cache()
+    spec_path = root / "spatial_spec.pt"
+    torch.save(dict(spatial=SPATIAL_RANKS, init=f"file://{root / 'spatial_rendezvous'}",
+                    cfg=str(path), cases=cases,
+                    eval=dict(argv=["--cfg", str(path), *argv], port=free_port())), spec_path)
+    t0 = time.perf_counter()
+    ranks = run_ranks(spec_path, SPATIAL_RANKS)
+    wall_s = time.perf_counter() - t0
+
+    rows = H // SPATIAL_RANKS
+    parts = {}
+    for name, (net, propagate, n_frames, interval, _, per_group) in SPATIAL_CASES.items():
+        ref = one[name]
+        per_rank = [r[name] for r in ranks]
+        part = dict(
+            config=name, propagate=propagate, hw=[H, W], B=1, frames=n_frames,
+            max_abs_flow=ref["max_abs_flow"], logits_max_abs=ref["logits_max_abs"],
+            class_maps_per_rank=[shard_agreement(i, out["pred"][0], ref["pred"][0], ref["clear"])
+                                 for i, out in enumerate(per_rank)],
+            held_per_rank=[out["held"] for out in per_rank],
+            halo_per_rank=[out["halo"] for out in per_rank],
+            group_ms_per_rank=[out["ms"] for out in per_rank], one_process_group_ms=ref["ms"],
+            peak_mb_per_rank=[out["peak_bytes"] / 2**20 for out in per_rank],
+            one_process_peak_mb=ref["peak_bytes"] / 2**20,
+            peak_mb_above_inputs_per_rank=[out["peak_bytes_above_inputs"] / 2**20
+                                           for out in per_rank],
+            one_process_peak_mb_above_inputs=ref["peak_bytes_above_inputs"] / 2**20,
+            peak_mb_above_inputs_tf32_off_per_rank=[
+                out["peak_bytes_above_inputs_tf32_off"] / 2**20 for out in per_rank],
+            one_process_peak_mb_above_inputs_tf32_off=(
+                ref["peak_bytes_above_inputs_tf32_off"] / 2**20),
+            launches_per_rank=[out["launches"] for out in per_rank],
+            one_process_launches=ref["launches"])
+        if name in SPATIAL_WITNESSED:
+            part["f32_witness"] = dict(
+                one_process=[shard_agreement(i, ref["pred"][0, :, i * rows:(i + 1) * rows],
+                                             ref["f32_pred"][0], ref["clear"])
+                             for i in range(SPATIAL_RANKS)],
+                ranks=[shard_agreement(i, out["pred"][0], ref["f32_pred"][0], ref["clear"])
+                       for i, out in enumerate(per_rank)])
+        parts[name] = part
+    emit(dict(phase="e2e_spatial", backend=ranks[0]["backend"], ranks=SPATIAL_RANKS,
+              rows_per_rank=rows, band_rows=SPATIAL_BAND, ranks_wall_s=wall_s, **parts,
+              card=card()))
+    check(ranks[0]["backend"] == "gloo", f"e2e_spatial: backend {ranks[0]['backend']}")
+    for name, part in parts.items():
+        per_group = SPATIAL_CASES[name][5]
+        expected = launches_of(**per_group)
+        check(one[name]["launches"] == expected,
+              f"e2e_spatial {name}: one process launched {one[name]['launches']}")
+        for r, (launched, c) in enumerate(zip(part["launches_per_rank"],
+                                              part["class_maps_per_rank"], strict=True)):
+            phase = f"e2e_spatial {name} rank {r}"
+            check(launched == expected, f"{phase} launches {launched}")
+            check_held(f"{phase} kernels on its shards", part["held_per_rank"][r], per_group)
+            if name in SPATIAL_WITNESSED:
+                w = part["f32_witness"]["one_process"][r]
+                for what, got, want in (("shard", c["agreement"], w["agreement"]),
+                                        ("band", c["band"]["agreement"], w["band"]["agreement"]),
+                                        ("clear", c["clear_agreement"], w["clear_agreement"])):
+                    check(1 - got <= SPATIAL_WITNESS_RATIO * (1 - want),
+                          f"{phase} {what}: {got} of the one process's rows, which agree with "
+                          f"f32 on {want}")
+            else:
+                overall = 0.98 if name == "dff_direct" else 0.99
+                check_class_maps(f"{phase} vs one process", c, overall=overall)
+                check_class_maps(f"{phase} band vs one process", c["band"], overall=overall)
+            check(part["halo_per_rank"][r]["exchanges"] > 0, f"e2e_spatial {name}: no exchange")
+            check((part["halo_per_rank"][r]["reductions"] > 0) == name.startswith("flagship"),
+                  f"e2e_spatial {name}: {part['halo_per_rank'][r]['reductions']} reductions")
+
+    cm_one = one_eval["stats"]["confusion"]
+    valid = EVAL_SNIPPETS * valid_per_clip
+    limit = 2 * SPATIAL_EVAL_MOVED * valid
+    per_rank = [r["eval"] for r in ranks]
+    l1 = [float(abs(out["stats"]["confusion"] - cm_one).sum()) for out in per_rank]
+    emit(dict(phase="e2e_spatial_eval", cfg="experiments/cfgs/accel18_cityscapes.yaml",
+              ranks=SPATIAL_RANKS, clips=EVAL_SNIPPETS, miou=[out["miou"] for out in per_rank],
+              one_process_miou=one_eval["miou"],
+              frames=[out["stats"]["frames"] for out in per_rank],
+              confusion_equal=[bool((out["stats"]["confusion"] == cm_one).all())
+                               for out in per_rank],
+              confusion_l1=l1, confusion_l1_limit=limit, valid_pixels=valid,
+              held_per_rank=[out["held"] for out in per_rank],
+              halo_per_rank=[out["stats"]["halo"] for out in per_rank],
+              fps=[out["stats"]["fps"] for out in per_rank],
+              one_process_fps=one_eval["stats"]["fps"],
+              launches_per_rank=[out["launches"] for out in per_rank],
+              one_process_launches=one_eval_launched, card=card()))
+    per_clip = dict(warp=(K - 1) * EVAL_SNIPPETS, upsample_argmax=EVAL_SNIPPETS)
+    expected = launches_of(**per_clip)
+    check(one_eval_launched == expected, f"e2e_spatial_eval one process {one_eval_launched}")
+    for r, out in enumerate(per_rank):
+        check(out["launches"] == expected, f"e2e_spatial_eval rank {r} launches {out['launches']}")
+        check_held(f"e2e_spatial_eval rank {r} kernels on its shards", out["held"], per_clip)
+        check(out["stats"]["frames"] == EVAL_SNIPPETS * K, f"e2e_spatial_eval frames {out['stats']}")
+        check(float(out["stats"]["confusion"].sum()) == valid,
+              f"e2e_spatial_eval rank {r}: {out['stats']['confusion'].sum()} pixels scored")
+        check(l1[r] <= limit and abs(out["miou"] - one_eval["miou"]) <= 0.01,
+              f"e2e_spatial_eval rank {r}: confusion L1 {l1[r]} (limit {limit}), mIoU "
+              f"{out['miou']} against {one_eval['miou']}")
+    launched = {name: ranks[0][name]["launches"] for name in SPATIAL_CASES}
+    launched["eval"] = per_rank[0]["launches"]
+    return launched
+
 @functools.cache
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
@@ -2910,6 +3405,9 @@ def main() -> int:
         dff_eval_launched = e2e_eval("e2e_eval_dff", "dff_cityscapes", root, data,
                                      valid_per_clip, launches_of(warp_onehot=1, upsample_argmax=1),
                                      overall=0.98)
+        torch.cuda.empty_cache()
+        spatial_launched = e2e_spatial(root, data, valid_per_clip)
+        torch.cuda.empty_cache()
     # training from the cfg files, one epoch each. The flagship's clip step
     # (remat): 4 step warps, and the same 4 again when the backward recomputes
     # each checkpointed step. With every dilated conv on the kernel: a R101
@@ -2959,7 +3457,13 @@ def main() -> int:
                "accel18 clip train, 2 gloo ranks (per rank)": dp_launched["e2e_dp_train"],
                "accel18 pair train batchnorm, 2 gloo ranks (per rank)":
                    dp_launched["e2e_dp_train_bn"],
-               "accel18 cfg eval, 2 gloo ranks (per rank)": dp_launched["e2e_dp_eval"]}
+               "accel18 cfg eval, 2 gloo ranks (per rank)": dp_launched["e2e_dp_eval"],
+               "accel18 incremental, 2 spatial ranks (per rank)":
+                   spatial_launched["accel18_incremental"],
+               "dff direct, 2 spatial ranks (per rank)": spatial_launched["dff_direct"],
+               "deeplab101 pallas frame, 2 spatial ranks (per rank)":
+                   spatial_launched["deeplab101_pallas"],
+               "accel18 cfg eval, 2 spatial ranks (per rank)": spatial_launched["eval"]}
 
     keys = ("max_abs_err", "shape", "ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "library_call")

@@ -37,10 +37,6 @@ file and hands back its results; the JAX side runs here meanwhile, on the
   ``shard_batch`` and the train loaders' rows of the global batch.
 """
 
-import os
-import socket
-import subprocess
-import sys
 from pathlib import Path
 
 import jax
@@ -48,7 +44,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import assert_close, nchw, seeded_variables, write_cityscapes_tree
+from torch_parity import (Ranks, assert_close, free_port, nchw, seeded_variables,
+                          write_cityscapes_tree)
 
 from accel_tpu.config import load_config as j_load_config
 from accel_tpu.core import predictor as jpred
@@ -68,7 +65,6 @@ from accel_tpu_torch.models.accel import build_model
 from accel_tpu_torch.parallel import mesh as tmesh
 
 torch.set_num_threads(2)
-REPO = Path(__file__).resolve().parents[1]
 HW = 128
 CFG = """\
 network:
@@ -155,51 +151,6 @@ def weights(path: str, arrays: dict, seed: int):
     head["kernel"], head["bias"] = head["kernel"] * gain, head["bias"] * gain
     load_flax_variables(model, variables)
     return jmodel, variables, model
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-class Ranks:
-    """The two ranks, started once for the module; ``results()`` waits for
-    them (the JAX side runs meanwhile) and returns each rank's results."""
-
-    def __init__(self, spec_path: Path, world: int = 2):
-        self.spec_path, self.world = spec_path, world
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            [str(REPO), os.environ.get("PYTHONPATH", "")]))
-        for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
-            env.pop(key, None)
-        worker = Path(__file__).with_name("torch_dp_worker.py")
-        self.procs = [subprocess.Popen([sys.executable, str(worker), str(spec_path), str(r),
-                                        str(world)], env=env, cwd=str(REPO),
-                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-                      for r in range(world)]
-        self._results = None
-
-    def close(self) -> None:
-        """Stop a rank still running (a test that failed before waiting)."""
-        for p in self.procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-
-    def results(self) -> list[dict]:
-        if self._results is None:
-            logs = []
-            try:
-                for p in self.procs:
-                    logs.append(p.communicate(timeout=600)[0].decode(errors="replace"))
-            finally:
-                self.close()
-            for r, (p, log) in enumerate(zip(self.procs, logs)):
-                assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
-            self._results = [torch.load(f"{self.spec_path}.rank{r}", weights_only=False)
-                             for r in range(self.world)]
-        return self._results
 
 
 @pytest.fixture(scope="module")
@@ -403,10 +354,23 @@ def test_eval_entry_point_splits_an_indivisible_batch_over_the_gcd(dp):
 
 
 def test_mesh_refusals_and_rows(tmp_path):
-    cfg = load_config(write_cfg(tmp_path, "m", **CASES["clip_remat"]))
+    path = write_cfg(tmp_path, "m", **CASES["clip_remat"])
+    cfg = load_config(path)
     cfg.tpu.mesh.spatial = 2
-    with pytest.raises(ValueError, match="spatial=2.*ROADMAP.md Queue 1"):
+    with pytest.raises(ValueError, match="tpu.mesh.spatial=2 does not divide the world of 1 "):
         tmesh.mesh_from_cfg(cfg, device="cpu")
+    cfg.tpu.mesh.spatial = 3
+    with pytest.raises(ValueError, match="tpu.mesh.spatial=3 does not divide the world of 2 "):
+        tmesh.mesh_from_cfg(cfg, device="cpu", init_method=f"file://{tmp_path / 'x'}", rank=0,
+                            world_size=2)
+    # the train entry point and the train step refuse the spatial axis
+    spatial_cfg = tmp_path / "spatial.yaml"
+    spatial_cfg.write_text(Path(path).read_text() + "tpu:\n  mesh:\n    spatial: 2\n")
+    with pytest.raises(ValueError, match="training under the spatial axis.*ROADMAP.md"):
+        t_train.main(["--cfg", str(spatial_cfg), "--device", "cpu"])
+    split = tmesh.Mesh(data=1, spatial=2, rank=0, local_rank=0, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="training under the spatial axis"):
+        ttrainer.make_train_step(None, 19, mesh=split)
     cfg.tpu.mesh.spatial, cfg.tpu.mesh.data = 1, 4
     with pytest.raises(ValueError, match="tpu.mesh.data=4 but the world has 2 ranks"):
         tmesh.mesh_from_cfg(cfg, device="cpu", init_method=f"file://{tmp_path / 'x'}", rank=0,
@@ -421,6 +385,13 @@ def test_mesh_refusals_and_rows(tmp_path):
     with pytest.raises(ValueError, match="batch 3 does not divide by the 2 ranks"):
         tmesh.batch_rows(ranks[0], 3)
     assert [tmesh.batch_rows(m, 3, clamp=True) for m in ranks] == [slice(0, 3), slice(0, 0)]
+    # data x spatial: the rows go by data index, rank r = data index * spatial + spatial index
+    grid = [tmesh.Mesh(data=2, spatial=2, rank=r, local_rank=r, device=torch.device("cpu"))
+            for r in range(4)]
+    assert [(m.data_index, m.spatial_index) for m in grid] == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    assert [tmesh.batch_rows(m, 4) for m in grid] == [slice(0, 2)] * 2 + [slice(2, 4)] * 2
+    assert [tmesh.batch_rows(m, 3, clamp=True) for m in grid] == [slice(0, 3)] * 2 + [
+        slice(0, 0)] * 2
     # cards: gpus lists one for each local rank, else every card in turn
     def cards(gpus: str, world: int) -> list[int]:
         return [tmesh._device({"gpus": gpus}, r, world, None).index for r in range(world)]

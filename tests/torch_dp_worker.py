@@ -1,4 +1,6 @@
-"""One rank of ``test_torch_parallel.py``'s data-parallel cases, on the CPU.
+"""One rank of ``test_torch_parallel.py``'s data-parallel cases, or of
+``test_torch_spatial.py``'s spatial cases (a spec with ``spatial``), on
+the CPU.
 
     python tests/torch_dp_worker.py SPEC RANK WORLD
 
@@ -8,13 +10,16 @@ rendezvous), ``train`` (cases of train steps: cfg path, the port's
 rank 0 runs again under a group of one), ``eval`` (a model's
 ``state_dict``, its cfg path and global clip batches), ``entry`` and
 ``train_entry`` (argv for the eval and the train entry points under
-``torchrun``'s variables, each with a port for their rendezvous). The rank
-writes its results to ``SPEC.rank<RANK>``.
+``torchrun``'s variables, each with a port for their rendezvous). A
+spatial spec (``spatial_main``) holds instead a cfg with ``tpu.mesh.spatial``,
+models and their clips, an eval and an eval entry point. The rank writes
+its results to ``SPEC.rank<RANK>``.
 Imports torch and the port only.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import sys
 
@@ -22,12 +27,16 @@ import torch
 import torch.distributed as dist
 
 from accel_tpu_torch.config import load_config
-from accel_tpu_torch.core.pipeline import running_stats
+from accel_tpu_torch.core.pipeline import clip_logits, clip_predictions, running_stats
 from accel_tpu_torch.core.predictor import pred_eval_clips
 from accel_tpu_torch.core.trainer import init_train_state, make_optimizer, make_train_step
 from accel_tpu_torch.experiments import test as eval_entry
 from accel_tpu_torch.experiments import train as train_entry
-from accel_tpu_torch.models.accel import build_model
+from accel_tpu_torch.models import accel as accel_module
+from accel_tpu_torch.models.accel import AccelNet, build_model
+from accel_tpu_torch.ops import warp as warp_module
+from accel_tpu_torch.ops.warp_onehot import warp_onehot
+from accel_tpu_torch.parallel import spatial
 from accel_tpu_torch.parallel.mesh import Mesh, batch_rows, mesh_from_cfg, replicated, shard_batch
 
 torch.set_num_threads(2)
@@ -69,8 +78,63 @@ def train_case(case: dict, mesh: Mesh | None) -> dict:
             "masters_equal_rank0": equal}
 
 
+def spatial_model(case: dict) -> AccelNet:
+    """The f32 ``AccelNet`` of a spatial case (its knobs and weights)."""
+    model = AccelNet(**case["knobs"], device="cpu", dtype=torch.float32)
+    model.load_state_dict(case["state_dict"])
+    return model.eval()
+
+
+def f32_tap_weights() -> None:
+    """The one-hot warp with f32 tap weights in this process (as
+    ``torch_parity.f32_tap_weights`` sets it)."""
+    warp = functools.partial(warp_onehot, weights_dtype=torch.float32)
+    accel_module.warp_onehot = warp_module.warp_onehot = warp
+
+
+def spatial_main(spec: dict, spec_path: str, rank: int, world: int) -> None:
+    """Each model case's ``clip_logits`` and ``clip_predictions`` on this
+    rank's rows, ``pred_eval_clips`` under the spatial mesh, then the eval
+    entry point under ``torchrun``'s variables."""
+    out = {}
+    if spec["f32_taps"]:
+        f32_tap_weights()
+    mesh = mesh_from_cfg(load_config(spec["cfg"]), device="cpu", init_method=spec["init"],
+                         rank=rank, world_size=world)
+    try:
+        assert (mesh.data, mesh.spatial, mesh.spatial_index) == (1, world, rank)
+        out["backend"] = dist.get_backend(mesh.spatial_group)
+        for name, case in spec["models"].items():
+            model = spatial_model(case)
+            clip = case["clip"]
+            rows = spatial.frame_rows(mesh, clip.shape[2])
+            with spatial.spatial_sharding(mesh, model) as shard:
+                logits = clip_logits(model, clip[:, :, rows].movedim(-1, -3).contiguous(),
+                                     case["interval"], case["propagate"])
+                preds = clip_predictions(model, clip[:, :, rows], case["interval"],
+                                         case["propagate"])
+            out[name] = {"logits": logits, "preds": preds, "halo": shard.counters()}
+        ev = spec["eval"]
+        model = spatial_model(spec["models"][ev["model"]])
+        # each rank's rows of the frames, as the eval entry point cuts them
+        rows = spatial.frame_rows(mesh, ev["items"][0]["clip"].shape[2])
+        items = [dict(item, clip=item["clip"][:, :, rows]) for item in ev["items"]]
+        miou, iou, stats = pred_eval_clips(model, items, 19, ev["interval"], ev["propagate"],
+                                           mesh=mesh)
+        out["eval"] = {"miou": miou, "iou": iou, "stats": stats}
+    finally:
+        mesh.close()
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(spec["entry"]["port"]))
+    (out["entry"],) = eval_entry.main(spec["entry"]["argv"])
+    torch.save(out, f"{spec_path}.rank{rank}")
+
+
 def main(spec_path: str, rank: int, world: int) -> None:
     spec = torch.load(spec_path, weights_only=False)
+    if "spatial" in spec:
+        return spatial_main(spec, spec_path, rank, world)
     out = {}
     first = spec["train"][0]["cfg"]
     mesh = mesh_from_cfg(load_config(first), device="cpu", init_method=spec["init"], rank=rank,

@@ -206,3 +206,63 @@ def port_checkpoint_from_jax(variables, prefix_dir: str, epoch: int) -> None:
     from accel_tpu_torch.core.checkpoint import save_checkpoint
 
     save_checkpoint(prefix_dir, epoch, {"model": flax_to_torch(jax.device_get(variables))})
+
+
+# ---- ranks of ``torch_dp_worker.py`` -----------------------------------------
+
+
+def free_port() -> int:
+    """A TCP port on localhost that is free now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class Ranks:
+    """``world`` processes of ``torch_dp_worker.py`` on ``spec_path``,
+    started once for a test module; ``results()`` waits for them (the JAX
+    side runs meanwhile) and returns each rank's results."""
+
+    def __init__(self, spec_path, world: int = 2):
+        import os
+        import subprocess
+        import sys
+        from pathlib import Path
+
+        self.spec_path, self.world = spec_path, world
+        tests = Path(__file__).resolve().parent
+        repo = tests.parent
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(repo), os.environ.get("PYTHONPATH", "")]))
+        for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            env.pop(key, None)
+        self.procs = [subprocess.Popen([sys.executable, str(tests / "torch_dp_worker.py"),
+                                        str(spec_path), str(r), str(world)], env=env,
+                                       cwd=str(repo), stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT)
+                      for r in range(world)]
+        self._results = None
+
+    def close(self) -> None:
+        """Stop a rank still running (a test that failed before waiting)."""
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+    def results(self) -> list[dict]:
+        if self._results is None:
+            logs = []
+            try:
+                for p in self.procs:
+                    logs.append(p.communicate(timeout=600)[0].decode(errors="replace"))
+            finally:
+                self.close()
+            failed = [f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
+                      for r, (p, log) in enumerate(zip(self.procs, logs)) if p.returncode]
+            assert not failed, "\n".join(failed)
+            self._results = [torch.load(f"{self.spec_path}.rank{r}", weights_only=False)
+                             for r in range(self.world)]
+        return self._results
