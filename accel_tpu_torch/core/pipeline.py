@@ -33,24 +33,28 @@ Under data parallelism (``group``: ``parallel/mesh.py``) the objectives
 take this rank's rows of a global batch and return its share of the global
 batch's loss: every count they divide by (valid pixels, annotated frames,
 OHEM's kept pixels) is reduced over the ranks, and running-stat BatchNorm
-normalizes by the global batch's statistics. No collective runs inside
-``train_clip_logits``, whose remat would run it again in the backward.
+normalizes by the global batch's statistics. No collective of the data
+axis runs inside ``train_clip_logits``, whose remat would run it again in
+the backward.
 
 Under spatial sharding (``parallel/spatial.py``: inside
-``spatial_sharding(mesh, model)``) the serving entry points take this
-rank's rows of every frame and return its rows of the logits and class
-maps; the ops exchange their halos, and mean1's renormalization averages
-over the whole frame.
+``spatial_sharding(mesh, model)``) the serving entry points and the
+objectives take this rank's rows of every frame and return its rows of the
+logits and class maps, or its share of the loss (``group`` is then the
+world, which holds every rank's rows); the ops exchange their halos, and
+GroupNorm and mean1 sum over the whole frame. Those collectives do run
+inside ``train_clip_logits``: remat runs them again in the backward's
+recompute, under the shard of the call (``_remat``), and every rank runs
+the same graph, so they come in the same order on every rank.
 """
 
 from __future__ import annotations
 
 import contextlib
-import functools
 
 import torch
 import torch.distributed as dist
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from accel_tpu_torch.core.metrics import IGNORE_LABEL, softmax_cross_entropy
 from accel_tpu_torch.models.resnet import BatchNorm
@@ -304,8 +308,22 @@ def _group_step(model, frames_g, propagate: str, input_scale=None):
 def _remat(fn):
     """``fn`` recomputed in the backward instead of keeping its
     activations (``jax.checkpoint``); the model draws no random numbers, so
-    no RNG state is kept for the recompute."""
-    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
+    no RNG state is kept for the recompute. Under spatial sharding the
+    recompute runs under the shard of the call (``spatial.bound``: on the
+    card autograd recomputes in its own thread, which does not see the
+    caller's context, and the convs and warps would run on the bare shard)
+    and to its end (no early stop), so that every rank runs the same
+    exchanges again."""
+
+    def run(*args):
+        shard = spatial.active()
+        if shard is None:
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        with set_checkpoint_early_stop(False):
+            return checkpoint(spatial.bound(shard, fn), *args, use_reentrant=False,
+                              preserve_rng_state=False)
+
+    return run
 
 
 def _group_step_remat(model, frames_g, propagate: str, input_scale=None):
@@ -494,6 +512,7 @@ def pair_loss_and_stats(model, batch: dict, num_classes: int, loss_scale: float 
     if norms and not mutable_stats:
         raise ValueError("a running-stat BatchNorm model needs mutable_stats=True")
     label = batch["label"]
+    spatial.check_rows(label.shape[-2], model.row_stride, f"the {model.family} model")
     model.train(mutable_stats)
     try:
         with _global_batch_stats(norms, group):
@@ -539,7 +558,8 @@ def clip_loss_and_stats(model, batch: dict, num_classes: int, loss_scale: float 
     annotates one frame a clip). Running-stat BatchNorm raises, as in the
     reference. ``group``: this rank's share of the global batch's loss
     (module docstring); a frame is annotated where any rank has a valid
-    pixel of it."""
+    pixel of it, and each clip's aux frame is picked by its valid pixels
+    over the whole frame."""
     if mutable_stats:
         raise NotImplementedError("clip objective + running-stat BN: use frozenbn/groupnorm")
     clip, label = batch["clip"], batch["label"]
@@ -554,8 +574,10 @@ def clip_loss_and_stats(model, batch: dict, num_classes: int, loss_scale: float 
         dist.all_reduce(annotated, op=dist.ReduceOp.MAX, group=group)
     loss = per_frame.sum() / annotated.sum().clamp(min=1)
     if aux_weight > 0.0:
-        # the frame with the most valid pixels, the first such, per clip
-        ann_idx = valid.sum(dim=(2, 3)).argmax(dim=1)
+        # the frame with the most valid pixels, the first such, per clip;
+        # under spatial sharding the counts of the whole frame
+        (n_valid,) = spatial.row_sum(valid.sum(dim=(2, 3)))
+        ann_idx = n_valid.argmax(dim=1)
         rows = torch.arange(B, device=ann_idx.device)
         ann_frames, ann_label = clip[rows, ann_idx], label[rows, ann_idx]
         ref = model.ref_scores_from_propagated(model.ref_propagated(ann_frames))

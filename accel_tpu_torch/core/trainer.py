@@ -24,7 +24,12 @@ objectives divide by global counts), and sums the shares' f32 gradients
 over the ranks in a few flat all-reduces before the update, so clipping
 sees the global gradient and every rank applies the same update. This is
 the reference's ``jit`` program over a mesh: the one-process loss and
-gradient of the whole global batch. PyTorch's ``DistributedDataParallel``
+gradient of the whole global batch. With a spatial axis each rank holds
+its rows of its samples' frames (``parallel/spatial.py``): the step runs
+its forward and its backward inside ``spatial_sharding``, each rank's
+gradient is the partial sum over its own output rows (the halo rows'
+share returned to their owners by the exchanges' backward), and the same
+all-reduce over the world sums them. PyTorch's ``DistributedDataParallel``
 is not used: it averages the per-rank ``.grad`` (bf16 on the shipped cfgs)
 of per-rank means, and the step already owns the f32 gradients.
 """
@@ -154,14 +159,14 @@ def make_train_step(tx: SGD, num_classes: int, loss_scale: float = 1.0,
     model's buffers, so checkpoints (``state_dict``) hold them.
 
     ``mesh`` (``parallel.mesh.Mesh``): the batch is this rank's rows of the
-    global batch; the gradients (and the loss returned, the global batch's)
-    are summed over the mesh's group before the update. A mesh of one rank
-    with a group runs the one-process step and the all-reduce. A mesh with
-    a spatial axis raises ``ValueError``: training under it is not ported."""
+    global batch (with a spatial axis, also its rows of every frame,
+    ``spatial.frame_rows``); the gradients (and the loss returned, the
+    global batch's) are summed over the mesh's group before the update. A
+    mesh of one rank with a group runs the one-process step and the
+    all-reduce. A model whose knobs the spatial axis does not serve raises
+    ``ValueError`` at the first step (``spatial.spatial_sharding``)."""
     if objective not in ("pair", "clip"):
         raise ValueError(f"unknown objective {objective!r} (pair | clip)")
-    if mesh is not None and mesh.spatial > 1:
-        raise ValueError(f"tpu.mesh.spatial={mesh.spatial}: {spatial.TRAINING}")
     group = mesh.loss_group if mesh is not None else None
     reduce_group = mesh.group if mesh is not None else None
 
@@ -170,13 +175,15 @@ def make_train_step(tx: SGD, num_classes: int, loss_scale: float = 1.0,
         stats = (getattr(model, "norm", "frozenbn") == "batchnorm" if mutable_stats is None
                  else mutable_stats)
         model.zero_grad(set_to_none=True)
-        if objective == "clip":
-            loss, _ = clip_loss_and_stats(model, batch, num_classes, loss_scale, propagate,
-                                          stats, ohem_fraction, aux_weight, remat, group)
-        else:
-            loss, _ = pair_loss_and_stats(model, batch, num_classes, loss_scale, stats,
-                                          ohem_fraction, aux_weight, group)
-        loss.backward()
+        # open across the backward: its exchanges and remat's recompute need the shard
+        with spatial.spatial_sharding(mesh, model):
+            if objective == "clip":
+                loss, _ = clip_loss_and_stats(model, batch, num_classes, loss_scale, propagate,
+                                              stats, ohem_fraction, aux_weight, remat, group)
+            else:
+                loss, _ = pair_loss_and_stats(model, batch, num_classes, loss_scale, stats,
+                                              ohem_fraction, aux_weight, group)
+            loss.backward()
         # a parameter the loss does not reach has a zero gradient, as in JAX
         grads = {n: torch.zeros_like(state.master[n]) if p.grad is None
                  else p.grad.to(torch.float32) for n, p in model.named_parameters()}

@@ -17,15 +17,20 @@ point (``accel_tpu_torch.experiments.test``) reads those checkpoints.
 It runs on the card (``--device cuda``, the default) and raises where there
 is none; ``--device cpu`` runs the plain PyTorch versions of the kernels.
 Plain ``python3 -m`` runs one process. Under ``torchrun`` each rank is a
-data-parallel process on its card (``parallel/mesh.py``: NCCL where each
-rank has a card of its own, gloo where ranks share one, and on the CPU;
-``tpu.mesh.data`` -1 or the world size; ``tpu.mesh.spatial`` > 1 raises,
-as training under the spatial axis is not ported): ``TRAIN.BATCH_IMAGES`` stays the
-global batch, which must divide by the ranks; each rank trains on its rows
-of the batch a one-process run with the same seed draws, the weights and
-master state start from rank 0's, the step sums the gradients over the
-ranks, and only rank 0 logs and writes metrics, provenance and
-checkpoints. The reference's other ``tpu.*`` keys (prefetch depth,
+process on its card (``parallel/mesh.py``: NCCL where each rank has a card
+of its own, gloo where ranks share one, and on the CPU) of a ``data x
+spatial`` mesh (``tpu.mesh.spatial`` ranks split each frame's rows,
+``tpu.mesh.data`` -1 or world / spatial): ``TRAIN.BATCH_IMAGES`` stays the
+global batch, which must divide by the data axis; each rank trains on the
+rows of the batch that a one-process run with the same seed draws for its
+data index and, with a spatial axis, on its rows of every frame
+(``spatial.frame_rows``; the crop's rows over the spatial ranks must give
+shards that divide by the model's row stride, else ``ValueError``). The
+weights and master state start from rank 0's, the step sums the gradients
+over the ranks, and only rank 0 logs and writes metrics, provenance and
+checkpoints. (The reference's entry point replicates the batch over its
+spatial axis and lets the partitioner split the rows; both compute the
+same global step.) The reference's other ``tpu.*`` keys (prefetch depth,
 donation) are read by no part of this entry point. Pretrained
 initialisation (``network.pretrained``, ``pretrained_update``,
 ``pretrained_flow``: MXNet ``.params``, ``.npz`` or torchvision ``.pth``)
@@ -89,9 +94,6 @@ def main(argv=None):
     args = parse_args(argv)
     cfg = load_config(args.cfg)
     apply_network_overrides(cfg, args.set_network)
-    if int(cfg.tpu.mesh.spatial) != 1:
-        # the reference's train entry point shards only the data axis
-        raise ValueError(f"tpu.mesh.spatial={cfg.tpu.mesh.spatial}: {spatial.TRAINING}")
     mesh = mesh_from_cfg(cfg, device=args.device)
     try:
         return _train(args, cfg, mesh)
@@ -114,6 +116,8 @@ def _train(args, cfg, mesh):
     epoch_size = loader.epoch_size
 
     model = build_model(cfg, device=device, generator=torch.Generator().manual_seed(0))
+    if mesh.spatial > 1 and cfg.TRAIN.CROP_SIZE:
+        check_split(int(cfg.TRAIN.CROP_SIZE[0]), mesh.spatial, model)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"model {cfg.network.name} params {n_params / 1e6:.1f}M "
                 f"epoch_size {epoch_size}")
@@ -147,7 +151,8 @@ def _train(args, cfg, mesh):
                            objective=objective, propagate=str(cfg.network.propagate),
                            remat=bool(cfg.TRAIN.remat), mesh=mesh)
     data_iter = PrefetchingIter(iter(loader),
-                                transform=lambda b: to_device(b, device, keys=tuple(b)))
+                                transform=lambda b: to_device(frame_rows(mesh, b), device,
+                                                              keys=tuple(b)))
     end_epoch = int(cfg.TRAIN.end_epoch)
     interval = max(int(cfg.TRAIN.checkpoint_interval), 1)
 
@@ -166,6 +171,29 @@ def _train(args, cfg, mesh):
         data_iter.close()
     logger.info("training done")
     return state
+
+
+FRAME_KEYS = ("data", "data_ref", "clip", "label")
+
+
+def check_split(rows: int, ranks: int, model) -> None:
+    """``ValueError`` where a crop of ``rows`` rows does not split over
+    ``ranks`` spatial ranks into shards that divide by the model's row
+    stride."""
+    if rows % ranks or (rows // ranks) % model.row_stride:
+        raise ValueError(f"TRAIN.CROP_SIZE rows {rows} over tpu.mesh.spatial={ranks} ranks give "
+                         f"shards of {rows / ranks:g} rows, which do not divide by the "
+                         f"{model.family} model's row stride {model.row_stride}")
+
+
+def frame_rows(mesh, batch: dict) -> dict:
+    """This rank's rows (``spatial.frame_rows``) of every frame and label
+    of a loader batch (their rows are dim -2), contiguous; the batch as it
+    is without a spatial axis."""
+    if mesh.spatial == 1:
+        return batch
+    rows = spatial.frame_rows(mesh, batch["label"].shape[-2])
+    return {k: v[..., rows, :].contiguous() if k in FRAME_KEYS else v for k, v in batch.items()}
 
 
 if __name__ == "__main__":

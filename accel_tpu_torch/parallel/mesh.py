@@ -24,8 +24,12 @@ global-batch semantics by hand:
 
 The ``spatial`` axis splits each frame's rows over the ranks of a data
 index (``parallel/spatial.py``: halo exchanges within each spatial group,
-one ``new_group`` per data index) for clip inference and eval; training
-under it raises (``core/trainer.py``, ``experiments/train.py``).
+one ``new_group`` per data index) for clip inference, eval and training.
+A training rank then holds some rows of some samples: the objectives
+reduce their counts over the world (``loss_group``), and the trainer's
+gradient all-reduce over the world sums each rank's partial gradient,
+that of its own output rows (the exchanges' backward has already returned
+its halo rows' share to their owners).
 """
 
 from __future__ import annotations
@@ -67,9 +71,11 @@ class Mesh:
 
     @property
     def loss_group(self):
-        """The group the loss functions reduce their counts over: None in a
-        world of one, where every path runs as it does with no mesh."""
-        return self.group if self.data > 1 else None
+        """The group the loss functions reduce their counts over: the world
+        wherever it has more than one rank (the data ranks hold other
+        samples, the spatial ranks other rows of them); None in a world of
+        one, where every path runs as it does with no mesh."""
+        return self.group if self.data * self.spatial > 1 else None
 
     def describe(self) -> str:
         """One line for the log: the ranks, the backend and this rank's device."""

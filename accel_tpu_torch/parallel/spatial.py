@@ -32,9 +32,20 @@ ratio a halo needs is a condition of sharding alone: outside it any ratio
 resizes.
 
 The exchange is one ``all_gather`` of every rank's boundary rows within
-its spatial group, as bytes, so NCCL and gloo serve it alike. It runs
-under ``torch.inference_mode``: a gradient through it raises (training
-under the spatial axis is ROADMAP.md's next item).
+its spatial group, as bytes, so NCCL and gloo serve it alike. Training
+differentiates through it: the exchange and the sums over the group are
+autograd Functions. The exchange's backward returns the gradient of every
+halo row to the rank that owns the row and sums it there (the
+reduce-scatter of the all-gather, run as one all-reduce of the rows each
+rank returns, in the gradient's dtype); the sum's backward all-reduces
+the gradient (``torch.distributed.nn.functional.all_reduce``'s rule).
+Both backends serve all-reduce on CPU and CUDA tensors. Backward
+collectives pair up across ranks by the order autograd runs them, which
+is the same on every rank because every rank builds the same graph. The
+shard is read from a ``ContextVar``, which autograd's own thread (where a
+backward runs the recompute of ``torch.utils.checkpoint`` on the card)
+does not see: a recomputed function runs under :func:`bound`, which sets
+the caller's shard again around it.
 """
 
 from __future__ import annotations
@@ -51,9 +62,6 @@ import torch.nn.functional as F
 
 _ACTIVE: contextvars.ContextVar[SpatialShard | None] = contextvars.ContextVar(
     "accel_tpu_torch_spatial", default=None)
-
-TRAINING = ("training under the spatial axis (the halo exchange's backward) is not ported; "
-            "ROADMAP.md Queue 1 lists it")
 
 
 def _ceil_to(n: int, m: int) -> int:
@@ -83,28 +91,49 @@ def conv_halo(conv: nn.Conv2d) -> tuple[int, int, int]:
 
 class SpatialShard:
     """One rank's part of a spatial group: the group, its size S and this
-    rank's ``index`` s, and what its exchanges moved: ``exchanges`` (halo
-    all-gathers), ``halo_bytes`` (bytes of the halo rows received),
-    ``reductions`` (all-reduces over H) and ``gathers`` (whole maps
-    assembled by :func:`gather_rows`)."""
+    rank's ``index`` s, and what its collectives moved. In the forward:
+    ``exchanges`` (halo all-gathers), ``halo_bytes`` (bytes of the halo
+    rows received, the recompute's included), ``reductions`` (all-reduces over H) and ``gathers``
+    (whole maps assembled by :func:`gather_rows`); the ``*_recomputed``
+    counts are the exchanges and reductions a backward's recompute ran
+    again; the ``*_backward`` counts are those of the backward itself,
+    ``halo_bytes_backward`` the bytes of the halo rows whose gradient was
+    returned."""
+
+    COUNTERS = ("exchanges", "halo_bytes", "reductions", "gathers", "exchanges_recomputed",
+                "reductions_recomputed", "exchanges_backward", "halo_bytes_backward",
+                "reductions_backward")
 
     def __init__(self, group, size: int, index: int):
         self.group, self.size, self.index = group, size, index
-        self.exchanges = self.halo_bytes = self.reductions = self.gathers = 0
+        for name in self.COUNTERS:
+            setattr(self, name, 0)
         self._pending: dict[int, tuple[int, int, int]] = {}
 
     def counters(self) -> dict[str, int]:
-        return dict(exchanges=self.exchanges, halo_bytes=self.halo_bytes,
-                    reductions=self.reductions, gathers=self.gathers)
+        return {name: getattr(self, name) for name in self.COUNTERS}
+
+    def _count_forward(self, kind: str) -> None:
+        """One more forward ``kind`` ('exchanges', 'reductions'), counted
+        as recomputed where it runs inside a backward."""
+        if in_backward():
+            kind += "_recomputed"
+        setattr(self, kind, getattr(self, kind) + 1)
+
+    # the collectives, without autograd (a test's shard stands in others)
 
     def _all_gather(self, t: torch.Tensor) -> list[torch.Tensor]:
         """Every rank's ``t`` (the same shape and dtype on each), as bytes."""
-        if torch.is_grad_enabled() and t.requires_grad:
-            raise RuntimeError(TRAINING)
-        flat = t.contiguous().reshape(-1).view(torch.uint8)
+        flat = t.detach().contiguous().reshape(-1).view(torch.uint8)
         parts = [torch.empty_like(flat) for _ in range(self.size)]
         dist.all_gather(parts, flat, group=self.group)
         return [p.view(t.dtype).view(t.shape) for p in parts]
+
+    def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the group (a new tensor)."""
+        out = t.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=self.group)
+        return out
 
     def extend(self, x: torch.Tensor, top: int | None, bottom: int | None,
                stride: int = 1) -> tuple[torch.Tensor, int, int]:
@@ -114,7 +143,7 @@ class SpatialShard:
         and bottom. Returns the extended tensor (contiguous; ``x`` itself
         where there is no halo) and the rows it took above and below.
         Raises where h does not divide by the stride: the rank's first row
-        would not start an output row."""
+        would not start an output row. Differentiable (``_Exchange``)."""
         h = x.shape[-2]
         if h % stride:
             raise ValueError(f"spatial sharding: a shard of {h} rows at a stride-{stride} op "
@@ -126,35 +155,26 @@ class SpatialShard:
             return x, 0, 0
         # every rank sends its last min(top, h) rows (the halo of the ranks
         # below) and its first min(bottom, h) rows (of the ranks above)
-        last, first = min(top, h), min(bottom, h)
-        parts = self._all_gather(torch.cat([x[..., h - last:, :], x[..., :first, :]], dim=-2))
-        t, b = min(top, s * h), min(bottom, (S - 1 - s) * h)
-        pieces = []
-        if t:
-            above = [p[..., :last, :] for p in parts[s - math.ceil(t / h):s]]
-            pieces.append(torch.cat(above, dim=-2)[..., -t:, :])
-        pieces.append(x)
-        if b:
-            below = [p[..., last:, :] for p in parts[s + 1:s + 1 + math.ceil(b / h)]]
-            pieces.append(torch.cat(below, dim=-2)[..., :b, :])
-        self.exchanges += 1
+        rows = (min(top, h), min(bottom, h), min(top, s * h), min(bottom, (S - 1 - s) * h))
+        ext = _Exchange.apply(x, self, rows)
+        t, b = rows[2:]
+        self._count_forward("exchanges")
         self.halo_bytes += (t + b) * x[..., :1, :].numel() * x.element_size()
-        return torch.cat(pieces, dim=-2), t, b
+        return ext, t, b
 
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """The whole of ``t`` (..., h, W) from the rows every rank of the
-        group holds."""
+        group holds (eval: no gradient passes)."""
+        if torch.is_grad_enabled() and t.requires_grad:
+            raise RuntimeError("spatial sharding: gather_rows has no backward (eval only)")
         self.gathers += 1
         return torch.cat(self._all_gather(t), dim=-2)
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the group (a new tensor)."""
-        if torch.is_grad_enabled() and t.requires_grad:
-            raise RuntimeError(TRAINING)
-        out = t.clone()
-        dist.all_reduce(out, group=self.group)
-        self.reductions += 1
-        return out
+        """``t`` summed over the group (a new tensor), differentiable
+        (``_GroupSum``)."""
+        self._count_forward("reductions")
+        return _GroupSum.apply(t, self)
 
     # ---- the conv hooks ---------------------------------------------------
 
@@ -193,6 +213,74 @@ class SpatialShard:
             _ACTIVE.reset(token)
 
 
+class _Exchange(torch.autograd.Function):
+    """``SpatialShard.extend``'s halo: ``x`` (..., h, W) -> the extended
+    shard, with ``rows`` = (last, first, t, b): every rank sends its last
+    ``last`` and first ``first`` rows in one all-gather; this rank takes
+    ``t`` rows above (the last rows of the ranks above it, ``last`` from
+    each) and ``b`` below (the first rows of the ranks below). The backward
+    puts each halo row's gradient in the slot of the rank that sent the
+    row, all-reduces the slots of every rank and adds this rank's slot to
+    the gradient of the rows it sent."""
+
+    @staticmethod
+    def forward(ctx, x, shard: SpatialShard, rows: tuple[int, int, int, int]):
+        h = x.shape[-2]
+        last, first, t, b = rows
+        parts = shard._all_gather(torch.cat([x[..., h - last:, :], x[..., :first, :]], dim=-2))
+        s = shard.index
+        pieces = []
+        if t:
+            above = parts[s - math.ceil(t / h):s]
+            pieces.append(torch.cat([p[..., :last, :] for p in above], dim=-2)[..., -t:, :])
+        pieces.append(x)
+        if b:
+            below = parts[s + 1:s + 1 + math.ceil(b / h)]
+            pieces.append(torch.cat([p[..., last:, :] for p in below], dim=-2)[..., :b, :])
+        ctx.shard, ctx.rows, ctx.h = shard, rows, h
+        return torch.cat(pieces, dim=-2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        shard, (last, first, t, b), h = ctx.shard, ctx.rows, ctx.h
+        s = shard.index
+        lead, width = grad.shape[:-2], grad.shape[-1]
+        # slot q: the gradient of the rows rank q sent, as this rank used them
+        slots = grad.new_zeros((shard.size, *lead, last + first, width))
+        if t:  # the last t of the `last` rows ranks s-n .. s-1 sent
+            n = math.ceil(t / h)
+            above = grad.new_zeros((*lead, n * last, width))
+            above[..., n * last - t:, :] = grad[..., :t, :]
+            slots[s - n:s, ..., :last, :] = above.unflatten(-2, (n, last)).movedim(-3, 0)
+        if b:  # the first b of the `first` rows ranks s+1 .. s+n sent
+            n = math.ceil(b / h)
+            below = grad.new_zeros((*lead, n * first, width))
+            below[..., :b, :] = grad[..., t + h:, :]
+            slots[s + 1:s + 1 + n, ..., last:, :] = below.unflatten(-2, (n, first)).movedim(-3, 0)
+        mine = shard._all_reduce(slots)[s]
+        shard.exchanges_backward += 1
+        shard.halo_bytes_backward += (t + b) * grad[..., :1, :].numel() * grad.element_size()
+        dx = grad[..., t:t + h, :].clone()
+        dx[..., h - last:, :] += mine[..., :last, :]
+        dx[..., :first, :] += mine[..., last:, :]
+        return dx, None, None
+
+
+class _GroupSum(torch.autograd.Function):
+    """``t`` summed over ``shard``'s group; the backward all-reduces the
+    gradient (every rank's loss reads the sum)."""
+
+    @staticmethod
+    def forward(ctx, t, shard: SpatialShard):
+        ctx.shard = shard
+        return shard._all_reduce(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.shard.reductions_backward += 1
+        return ctx.shard._all_reduce(grad), None
+
+
 def crop(y: torch.Tensor, t: int, h: int, ext_h: int) -> torch.Tensor:
     """The rows of ``y`` (an op's output on an extended shard of ``ext_h``
     rows, ``t`` of them from above) that belong to the ``h`` rows of the
@@ -208,6 +296,27 @@ def crop(y: torch.Tensor, t: int, h: int, ext_h: int) -> torch.Tensor:
 def active() -> SpatialShard | None:
     """The spatial shard of the running ``spatial_sharding`` context, or None."""
     return _ACTIVE.get()
+
+
+def in_backward() -> bool:
+    """Whether a backward runs in this thread: a forward op here is remat's
+    recompute."""
+    return torch._C._current_graph_task_id() != -1
+
+
+def bound(shard: SpatialShard | None, fn: Callable[..., object]) -> Callable[..., object]:
+    """``fn`` run with ``shard`` active (None: inactive), whatever the
+    context of the thread that calls it: a function that
+    ``torch.utils.checkpoint`` recomputes in a backward, which on the card
+    runs in autograd's device thread."""
+    def run(*args, **kwargs):
+        token = _ACTIVE.set(shard)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _ACTIVE.reset(token)
+
+    return run
 
 
 def halo_apply(fn: Callable[..., torch.Tensor], x: torch.Tensor, top: int | None,
@@ -240,11 +349,13 @@ def windowed(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor, k: int
 
 def row_sum(*tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """Partial sums over rows, summed over the spatial group inside a
-    context (one all-reduce for all of them, in f32); as they are outside."""
+    context (one all-reduce for all of them, in f32, or in int64 where all
+    are integers, such as counts); as they are outside. Differentiable."""
     shard = _ACTIVE.get()
     if shard is None:
         return tensors
-    flat = shard.sum(torch.cat([t.to(torch.float32).reshape(-1) for t in tensors]))
+    dtype = (torch.float32 if any(t.is_floating_point() for t in tensors) else torch.int64)
+    flat = shard.sum(torch.cat([t.to(dtype).reshape(-1) for t in tensors]))
     return tuple(p.view(t.shape).to(t.dtype)
                  for p, t in zip(flat.split([t.numel() for t in tensors]), tensors, strict=True))
 

@@ -175,6 +175,19 @@ Phases, one JSON line each:
     flagship cfg's eval through the eval entry point with
     ``tpu.mesh.spatial: 2`` against the one-process entry point
     (``e2e_spatial``).
+25. e2e_spatial_train: training under the spatial axis, two gloo ranks on
+    the one card, ``tpu.mesh.spatial: 2``, each on its 384 rows of the
+    flagship's 768x768 crops, against one process on the whole batch, two
+    steps a case: the flagship clip step in f32 (section 2's train limits)
+    and in bf16 (as ``e2e_dp_train`` holds bf16), the flagship with
+    ``dilated_conv: pallas`` (every #1 and #5 launch of a rank, forward,
+    recomputed and dx, held against its plain version on the inputs it was
+    given), the batchnorm pair step in f32 (B=4; the running statistics),
+    and the train entry point under ``torchrun``'s variables (its losses
+    and checkpoint against the one-process entry point's); the masters
+    bit-equal across the ranks, each rank's exact launches, its exchanges
+    and all-reduces in forward, recompute and backward, halo bytes, step
+    ms and peak memory beside one process's (``e2e_spatial_train``).
 
 Then the ``{"kernels": [...]}`` line (each kernel's first row, with its
 launches on one path it serves and per group there, and its launches on
@@ -190,6 +203,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
 import json
 import logging
 import math
@@ -454,8 +468,9 @@ def kernel_warp(results: dict) -> None:
     ((1,19,128,256) per frame, (4,...) per direct group), and composed
     propagation's final warp at D=8*(k-1)=32, its 2-channel flow fields
     at D=8, and a spatial rank's halo-extended shard of the score map
-    (``e2e_spatial``: 32 rows and 9 beyond). |flow| up to 1.5 D, uniform
-    per pixel."""
+    (``e2e_spatial``: 32 rows and 9 beyond; ``e2e_spatial_train``: two
+    clips' 24 rows of a 768x768 crop and 9 beyond). |flow| up to 1.5 D,
+    uniform per pixel."""
     rows = []
     for shape, dtype, d in (((1, 19, 64, 128), torch.float32, 8),
                             ((4, 19, 64, 128), torch.float32, 8),
@@ -465,7 +480,8 @@ def kernel_warp(results: dict) -> None:
                             ((4, 19, 128, 256), torch.float32, 8),
                             ((4, 19, 64, 128), torch.float32, 8 * (K - 1)),
                             ((1, 2, 64, 128), torch.float32, 8),
-                            ((1, 19, 41, 128), torch.float32, 8)):
+                            ((1, 19, 41, 128), torch.float32, 8),
+                            ((2, 19, 33, 48), torch.float32, 8)):
         g = _gen(SEED + 1)
         N, _, h, w = shape
         max_flow = 1.5 * d
@@ -694,14 +710,18 @@ def kernel_dilated_conv(results: dict) -> None:
     packed beforehand (as ``DilatedConv3x3`` keeps them) on an NCHW x, so
     it includes the bf16 path's channels-last copy of x; ``pack_ms`` is the
     packing alone, ``channels_last_ms`` the kernel on an x that is already
-    channels-last. The plain version is the library call. The last row is
-    a spatial rank's extended shard of fc6 (32 rows and 6 beyond)."""
+    channels-last. The plain version is the library call. The last rows
+    are a spatial rank's extended shards: fc6 in eval (32 rows and 6
+    beyond), and R101's fc6 and layer4 conv2 in training (two clips' 24
+    rows of a 768x768 crop, and 6 or 2 beyond)."""
     rows = []
     for shape, cout, d, dtype in (((1, 2048, 64, 128), 1024, 6, torch.bfloat16),  # fc6
                                   ((1, 512, 64, 128), 512, 2, torch.bfloat16),    # layer4 conv2
                                   ((1, 2048, 45, 60), 1024, 6, torch.bfloat16),   # not TPU-tileable
                                   ((1, 128, 16, 32), 128, 8, torch.float32),
-                                  ((1, 2048, 38, 128), 1024, 6, torch.bfloat16)):  # fc6 shard
+                                  ((1, 2048, 38, 128), 1024, 6, torch.bfloat16),  # fc6 shard
+                                  ((2, 2048, 30, 48), 1024, 6, torch.bfloat16),   # train shards
+                                  ((2, 512, 26, 48), 512, 2, torch.bfloat16)):
         g = _gen(SEED + 11)
         x = torch.randn(shape, generator=g, device="cuda").to(dtype)
         w = (torch.randn((cout, shape[1], 3, 3), generator=g, device="cuda")
@@ -798,9 +818,12 @@ def grad_warp() -> None:
 # dilated_conv=pallas, as (forward input shape, Cout, dilation): R101's fc6,
 # R18's fc6, the 512 -> 512 layer4 convs of both branches and R18's first
 # layer4 conv, 256 -> 512. e2e_train_dilated checks that its dx launches
-# take no other shape.
+# take no other shape. Then the same four on a spatial rank's extended shard
+# of the crop (e2e_spatial_train: 24 rows and the halo, 6 or 2 beyond).
 TRAIN_DILATED = (((2, 2048, 48, 48), 1024, 6), ((2, 512, 48, 48), 1024, 6),
-                 ((2, 512, 48, 48), 512, 2), ((2, 256, 48, 48), 512, 2))
+                 ((2, 512, 48, 48), 512, 2), ((2, 256, 48, 48), 512, 2),
+                 ((2, 2048, 30, 48), 1024, 6), ((2, 512, 30, 48), 1024, 6),
+                 ((2, 512, 26, 48), 512, 2), ((2, 256, 26, 48), 512, 2))
 
 
 def grad_dilated_conv(results: dict) -> None:
@@ -2514,12 +2537,15 @@ def dp_train_state(case: dict, device):
     return cfg, tx, init_train_state(model, tx)
 
 
-def dp_step(case: dict, mesh, steps: int = 2) -> dict:
+def dp_step(case: dict, mesh, steps: int = 2, around_first=contextlib.nullcontext) -> dict:
     """``steps`` train steps of ``case`` on this rank's rows of its global
-    batch: the first step's loss (the global batch's), launches, gradients
-    (the summed f32 ones the update takes) and running statistics, the last
-    step's ms and all-reduce ms (CUDA synchronized), and whether the masters
-    equal rank 0's bit for bit after the steps."""
+    batch (with a spatial axis, its rows of every frame, as the train entry
+    point cuts them): the first step's loss (the global batch's), launches,
+    gradients (the summed f32 ones the update takes) and running
+    statistics, the last step's ms and all-reduce ms (CUDA synchronized),
+    the peak memory of the steps (the weights, masters and momentum
+    included), and whether the masters equal rank 0's bit for bit after the
+    steps. ``around_first``: a context the first step runs in."""
     cfg, tx, state = dp_train_state(case, mesh.device if mesh else "cuda")
     replicated(mesh, state.model, state)
     tr = cfg.TRAIN
@@ -2534,27 +2560,32 @@ def dp_step(case: dict, mesh, steps: int = 2) -> dict:
                            ohem_fraction=float(tr.ohem_fraction) or None,
                            aux_weight=float(tr.aux_loss_weight), objective=str(tr.objective),
                            propagate=str(cfg.network.propagate), remat=bool(tr.remat), mesh=mesh)
-    host = case["batch"] if mesh is None else shard_batch(mesh, case["batch"])
+    host = (case["batch"] if mesh is None
+            else train_entry.frame_rows(mesh, shard_batch(mesh, case["batch"])))
     batch = to_device(host, "cuda" if mesh is None else mesh.device, keys=tuple(host))
-    out = dict(rows=int(batch["label"].shape[0]))
+    out = dict(rows=int(batch["label"].shape[0]), frame_rows=int(batch["label"].shape[-2]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with all_reduces_recorded() as reduces:
         for i in range(steps):
             reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, metrics = step(state, batch)
+            with around_first() if i == 0 else contextlib.nullcontext():
+                state, metrics = step(state, batch)
             torch.cuda.synchronize()
             out["step_ms"] = (time.perf_counter() - t0) * 1e3
             if i == 0:
                 out.update(loss=float(metrics["loss"]), launches=counts(), grads=grads[0],
                            first_step_ms=out["step_ms"],
                            stats={k: v.cpu() for k, v in running_stats(state.model).items()})
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
     out["all_reduce_ms"] = reduces[-1]["ms"] if reduces else None
     out["all_reduce_numel"] = reduces[-1]["numel"] if reduces else None
     out["reduces"] = reduces[:1]
     flat = torch.cat([p.reshape(-1) for p in state.master.values()])
     out["masters_equal_rank0"] = True
-    if mesh is not None and mesh.data > 1:
+    if mesh is not None and mesh.data * mesh.spatial > 1:
         rank0 = flat.clone()
         dist.broadcast(rank0, src=0, group=mesh.group)
         out["masters_equal_rank0"] = torch.equal(rank0, flat)
@@ -2570,6 +2601,8 @@ def dp_rank(spec_path: str, rank: str, world: str) -> int:
     ``SPEC.rank<RANK>``."""
     rank, world = int(rank), int(world)
     spec = torch.load(spec_path, weights_only=False)
+    if "spatial_train" in spec:
+        return spatial_train_rank(spec, spec_path, rank, world)
     if "spatial" in spec:
         return spatial_rank(spec, spec_path, rank, world)
     results = {}
@@ -2951,9 +2984,9 @@ def spatial_group(model, frames: torch.Tensor, interval: int, propagate: str,
 def launches_recorded():
     """Every launch of each kernel's wrapper, for the duration: (kernel,
     copies of the arguments its plain version takes, a copy of the
-    output), in order. A wrapper counts its launches on the function its
-    module's name holds, the recording one for the duration: the counts
-    pass to it and back."""
+    output, whether a backward's recompute launched it), in order. A
+    wrapper counts its launches on the function its module's name holds,
+    the recording one for the duration: the counts pass to it and back."""
     seen = []
 
     def recording(name: str, launch):
@@ -2962,7 +2995,8 @@ def launches_recorded():
         def recorded(*args):
             out = launch(*args)
             seen.append((name, tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                                     for a in args[:arity]), out.clone()))
+                                     for a in args[:arity]), out.clone(),
+                           spatial.in_backward()))
             return out
 
         recorded.__dict__.update(launch.__dict__)
@@ -3022,7 +3056,7 @@ def held_launches(model, frames: torch.Tensor, interval: int, propagate: str, me
     with (launches_recorded() as launched, cudnn_tf32(True),
           spatial.spatial_sharding(mesh, model)):
         clip_predictions(model, frames, interval, propagate)
-    return [held_to_plain(*launch) for launch in launched]
+    return [held_to_plain(*launch[:3]) for launch in launched]
 
 
 def held_summary(held: list) -> dict:
@@ -3108,7 +3142,8 @@ def spatial_rank(spec: dict, spec_path: str, rank: int, world: int) -> int:
     with launches_recorded() as launched:
         (result,) = eval_entry.main(spec["eval"]["argv"])
     results["eval"] = dict(miou=result["miou"], stats=result["stats"], launches=counts(),
-                           held=held_summary([held_to_plain(*launch) for launch in launched]))
+                           held=held_summary([held_to_plain(*launch[:3])
+                                              for launch in launched]))
     torch.save(results, f"{spec_path}.rank{rank}")
     return 0
 
@@ -3294,6 +3329,349 @@ def e2e_spatial(root: Path, data: Path, valid_per_clip: int) -> dict[str, dict[s
     launched["eval"] = per_rank[0]["launches"]
     return launched
 
+# ---- phase 25: training under the spatial axis, two ranks on the one card -------
+
+# annotated snippets of the entry point's train split: two steps of B=2
+SPATIAL_TRAIN_SNIPPETS = 4
+# each case's launches a rank a step: #1's 4 step warps, forward and again in
+# remat's recompute; with every dilated conv on #5, e2e_train_dilated's 38
+# forward, 29 recomputed and 38 dx launches; the pair step's one warp
+SPATIAL_TRAIN_LAUNCHES = {
+    "train": dict(forward=dict(warp=K - 1), recomputed=dict(warp=K - 1), dx=0),
+    "train_bf16": dict(forward=dict(warp=K - 1), recomputed=dict(warp=K - 1), dx=0),
+    "dilated": dict(forward=dict(warp=K - 1, dilated_conv=38),
+                    recomputed=dict(warp=K - 1, dilated_conv=29), dx=38),
+    "bn": dict(forward=dict(warp=1), recomputed={}, dx=0),
+}
+
+
+@contextlib.contextmanager
+def shards_recorded():
+    """Every ``SpatialShard`` a ``spatial_sharding`` context opens (one a
+    train step), for the duration."""
+    opened, seen = spatial.spatial_sharding, []
+
+    @contextlib.contextmanager
+    def recording(mesh, model):
+        with opened(mesh, model) as shard:
+            seen.append(shard)
+            yield shard
+
+    spatial.spatial_sharding = recording
+    try:
+        yield seen
+    finally:
+        spatial.spatial_sharding = opened
+
+
+@contextlib.contextmanager
+def dx_recorded():
+    """Every dx launch of #5 (copies of the gradient and the weights, the
+    dilation, a copy of the output), for the duration."""
+    launch, seen = dilated_ops.conv3x3_dilated_dx_cuda, []
+
+    def recorded(grad, weight, dilation, packed_dx=None):
+        out = launch(grad, weight, dilation, packed_dx)
+        seen.append((grad.clone(), weight.clone(), dilation, out.clone()))
+        return out
+
+    dilated_ops.conv3x3_dilated_dx_cuda = recorded
+    try:
+        yield seen
+    finally:
+        dilated_ops.conv3x3_dilated_dx_cuda = launch
+
+
+def held_dx(grad: torch.Tensor, weight: torch.Tensor, dilation: int, got: torch.Tensor) -> dict:
+    """One dx launch against #5's plain dx (``F.conv2d`` on the rotated
+    weights) on the same gradient and weights, at #5's limit in phase 2:
+    1e-4 * max|ref| in f32, 2e-2 * max|ref| in bf16."""
+    ref = dilated_ops.conv3x3_dilated_dx_plain(grad, weight, dilation)
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = (2e-2 if got.dtype == torch.bfloat16 else 1e-4) * ref.float().abs().max().item()
+    return dict(kernel="dilated_conv_dx", shape=list(grad.shape), dtype=str(grad.dtype),
+                max_abs_err=err, tol=tol,
+                ok=got.shape == ref.shape and got.dtype == ref.dtype and err <= tol)
+
+
+def held_train_step(launched: list, dx: list) -> dict:
+    """A train step's launches held against their plain versions on the
+    inputs they were given (``held_to_plain``, ``held_dx``): the forward's,
+    the recompute's and the dx launches, summed up apart."""
+    rows = {"forward": [], "recomputed": []}
+    for name, args, got, recomputed in launched:
+        rows["recomputed" if recomputed else "forward"].append(held_to_plain(name, args, got))
+    return dict(forward=held_summary(rows["forward"]), recomputed=held_summary(rows["recomputed"]),
+                dx=held_summary([held_dx(*launch) for launch in dx]))
+
+
+def digest(tensors: dict) -> str:
+    """A SHA-256 of the tensors' bytes in key order: equal digests, equal
+    tensors bit for bit."""
+    h = hashlib.sha256()
+    for key in sorted(tensors):
+        h.update(key.encode())
+        h.update(tensors[key].detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def spatial_train_rank(spec: dict, spec_path: str, rank: int, world: int) -> int:
+    """One rank of ``e2e_spatial_train``: each case's two train steps
+    (``dp_step``) on this rank's rows of the global batch under a ``data=1
+    x spatial=world`` mesh (gloo), the first step's launches recorded and
+    held against their plain versions and its shard's counters kept; then
+    the train entry point under ``torchrun``'s variables with
+    ``tpu.mesh.spatial: world``. Writes its results to ``SPEC.rank<RANK>``."""
+    results = {}
+    mesh = mesh_from_cfg(load_config(spec["cfg"]), device="cuda", init_method=spec["init"],
+                         rank=rank, world_size=world)
+    try:
+        results["backend"] = dist.get_backend(mesh.spatial_group)
+        for name, case in spec["cases"].items():
+            records = {}
+
+            @contextlib.contextmanager
+            def recording(records=records):
+                with launches_recorded() as launched, dx_recorded() as dx:
+                    yield
+                records.update(launched=launched, dx=dx)
+
+            with shards_recorded() as shards:
+                out = dp_step(case, mesh, around_first=recording)
+            held = held_train_step(records.pop("launched"), records.pop("dx"))
+            if rank == 0:
+                torch.save({n: g.cpu() for n, g in out["grads"].items()}, case["grads_out"])
+            results[name] = {k: v for k, v in out.items()
+                             if k not in ("grads", "state", "reduces")}
+            results[name].update(held=held, halo=shards[0].counters(),
+                                 steps_exchanged_alike=all(
+                                     s.counters() == shards[0].counters() for s in shards))
+            del out, shards
+            torch.cuda.empty_cache()
+    finally:
+        mesh.close()
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(spec["entry"]["port"]))
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with shards_recorded() as shards:
+        state = train_entry.main(spec["entry"]["argv"])
+    results["entry"] = dict(steps=state.step, wall_s=time.perf_counter() - t0, launches=counts(),
+                            peak_bytes=torch.cuda.max_memory_allocated(),
+                            halo=shards[0].counters(), master_digest=digest(state.master))
+    torch.save(results, f"{spec_path}.rank{rank}")
+    return 0
+
+
+def trace_agreement(ckpt: dict, ref: dict) -> dict:
+    """Two train checkpoints' momentum traces (the gradients the steps
+    took, weight decay included): each tensor's cosine (min, the number
+    under 0.999) and the masters' largest relative difference."""
+    trace, ref_trace = ckpt["optimizer"]["trace"], ref["optimizer"]["trace"]
+    cos = sorted((cosine(trace[n], ref_trace[n]), n) for n in ref_trace)
+    master_err = max(((ckpt["model"][n] - ref["model"][n]).abs().max()
+                      / ref["model"][n].abs().max().clamp_min(1e-12)).item() for n in ref_trace)
+    return dict(trace_cosine_min=cos[0][0], trace_under_0999=sum(c < 0.999 for c, _ in cos),
+                worst=[(n, c) for c, n in cos[:3]], params=len(cos),
+                master_max_rel_diff=master_err)
+
+
+def e2e_spatial_train(root: Path, data: Path) -> dict:
+    """Phase 25: training under the spatial axis (``parallel/spatial.py``,
+    the exchanges' and the group sums' backward) at the flagship's width:
+    two gloo ranks on the one card (processes of this script,
+    ``--dp-rank``), ``tpu.mesh.spatial: 2``, each on its 384 rows of the
+    768x768 crops of the same global batches, two steps a case, against
+    one process on the whole batch.
+
+    (a) the flagship clip step (``accel18_cityscapes.yaml``: R101 + R18,
+    groupnorm, B=2 x 5 frames, remat, aux 0.5) in f32: the loss within
+    1e-3 and every gradient at cosine >= 0.999 (section 2's train limits).
+    (b) the same in bf16 as shipped, held as ``e2e_dp_train`` holds bf16:
+    the loss within 1e-2 and all the gradients as one vector at 0.999.
+    (c) the flagship with ``dilated_conv: pallas`` in bf16: every #1 and
+    #5 launch of a rank, forward, recomputed and dx, held against its
+    plain version on the very inputs the rank gave it. (d) the pair cfg
+    with ``norm: batchnorm`` (conv7 stem) in f32, B=4: as ``e2e_dp_train_bn``
+    holds it, the running statistics within 1e-3. (e) the train entry
+    point under ``torchrun``'s variables with ``tpu.mesh.spatial: 2`` in
+    f32 on a train split of SPATIAL_TRAIN_SNIPPETS snippets (two steps):
+    its logged losses within 1e-3 of the one-process entry point's and its
+    checkpoint's momentum traces each at cosine >= 0.999.
+
+    Every case: both ranks' masters bit-equal after the steps (the entry
+    point's by digest), each rank's exact launches (forward and recomputed
+    apart, and dx), each launch held against its plain version, the
+    exchanges and all-reduces in the forward, the recompute and the
+    backward, halo bytes, step ms and peak memory a rank beside one
+    process's (printed, not held: the ranks share the card, and cuDNN picks
+    its workspace at the shards' shapes). Returns rank 0's launches per
+    case, and the split of (c)'s."""
+    f32 = ("dtype=float32",)
+    cases = dict(
+        train=dp_case(root, data, "e2e_spatial_train", "accel18_cityscapes", f32, SEED + 170),
+        train_bf16=dp_case(root, data, "e2e_spatial_train_bf16", "accel18_cityscapes", (),
+                           SEED + 170),
+        dilated=dp_case(root, data, "e2e_spatial_train_dilated", "accel18_cityscapes",
+                        ("dilated_conv=pallas",), SEED + 170),
+        bn=dp_case(root, data, "e2e_spatial_train_bn", "accel18_cityscapes_pair",
+                   ("norm=batchnorm", "stem=conv7", *f32), SEED + 171))
+    # the entry points' own root: their segdb cache lists this split alone
+    entry_root = root / "spatial_train"
+    entry_data = entry_root / "cityscapes"
+    write_city_split(entry_data, "train", SPATIAL_TRAIN_SNIPPETS, 1 - K, K - 1, SEED + 172)
+    entry_argv = ["--frequent", "1", "--set-network", "dtype=float32"]
+    one_path = eval_cfg("accel18_cityscapes", entry_root, entry_data,
+                        stem="e2e_spatial_train_entry_one", end_epoch=1)
+    path = eval_cfg("accel18_cityscapes", entry_root, entry_data, stem="e2e_spatial_train_entry",
+                    end_epoch=1)
+    path.write_text(path.read_text().rstrip("\n")
+                    + f"\ntpu:\n  mesh:\n    spatial: {SPATIAL_RANKS}\n")
+    spec_path = root / "spatial_train_spec.pt"
+    torch.save(dict(spatial_train=True, init=f"file://{root / 'spatial_train_rendezvous'}",
+                    cfg=str(path), cases=cases,
+                    entry=dict(argv=["--cfg", str(path), *entry_argv], port=free_port())),
+               spec_path)
+
+    refs = {}
+    for name in ("train", "train_bf16", "bn"):
+        refs[name] = dp_step(cases[name], None)
+        refs[name].pop("state")
+        torch.cuda.empty_cache()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    one_state = train_entry.main(["--cfg", str(one_path), *entry_argv])
+    one_entry = dict(steps=one_state.step, wall_s=time.perf_counter() - t0, launches=counts(),
+                     peak_bytes=torch.cuda.max_memory_allocated())
+    del one_state
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(spec_path, SPATIAL_RANKS)
+    wall_s = time.perf_counter() - t0
+    compared = {}
+    for name, case in cases.items():
+        per_rank = [r[name] for r in ranks]
+        part = dict(
+            cfg=Path(case["cfg"]).name, set_network=list(case["set_network"]),
+            global_batch=case["global_batch"],
+            rows_per_rank=[[r["rows"], r["frame_rows"]] for r in per_rank],
+            max_abs_flow=case["max_abs_flow"], losses=[r["loss"] for r in per_rank],
+            masters_equal_across_ranks=[r["masters_equal_rank0"] for r in per_rank],
+            step_ms_per_rank=[r["step_ms"] for r in per_rank],
+            first_step_ms_per_rank=[r["first_step_ms"] for r in per_rank],
+            all_reduce_ms_per_rank=[r["all_reduce_ms"] for r in per_rank],
+            peak_mb_per_rank=[r["peak_bytes"] / 2**20 for r in per_rank],
+            launches_per_rank=[r["launches"] for r in per_rank],
+            held_per_rank=[r["held"] for r in per_rank],
+            halo_per_rank=[r["halo"] for r in per_rank],
+            steps_exchanged_alike=[r["steps_exchanged_alike"] for r in per_rank])
+        if name in refs:
+            one = refs[name]
+            stat_err = max([((per_rank[0]["stats"][k] - one["stats"][k]).abs().max()
+                             / one["stats"][k].abs().max().clamp_min(1e-12)).item()
+                            for k in one["stats"]], default=0.0)
+            part.update(one_process_loss=one["loss"],
+                        vs_one_process=dp_agreement(
+                            torch.load(case["grads_out"], map_location="cuda"),
+                            per_rank[0]["loss"], one),
+                        running_stats=len(one["stats"]), running_stats_max_rel_err=stat_err,
+                        one_process_step_ms=one["step_ms"],
+                        one_process_first_step_ms=one["first_step_ms"],
+                        one_process_peak_mb=one["peak_bytes"] / 2**20,
+                        one_process_launches=one["launches"])
+        compared[name] = part
+
+    entry_rows = {}
+    for stem in ("e2e_spatial_train_entry", "e2e_spatial_train_entry_one"):
+        out_dir = entry_root / "out" / stem / "leftImg8bit_train"
+        entry_rows[stem] = ([json.loads(ln)["loss"] for ln in
+                             (out_dir / "metrics.jsonl").read_text().splitlines()],
+                            load_checkpoint(str(out_dir / "accel18"), 0))
+    (losses, ckpt), (one_losses, one_ckpt) = entry_rows.values()
+    entry_part = dict(
+        cfg="experiments/cfgs/accel18_cityscapes.yaml", set_network=["dtype=float32"],
+        snippets=SPATIAL_TRAIN_SNIPPETS, steps=[r["entry"]["steps"] for r in ranks],
+        one_process_steps=one_entry["steps"], losses=losses, one_process_losses=one_losses,
+        loss_rel_diff=[abs(a - b) / abs(b) for a, b in zip(losses, one_losses)],
+        vs_one_process=trace_agreement(ckpt, one_ckpt),
+        masters_equal_across_ranks=len({r["entry"]["master_digest"] for r in ranks}) == 1,
+        wall_s_per_rank=[r["entry"]["wall_s"] for r in ranks], one_process_wall_s=one_entry["wall_s"],
+        peak_mb_per_rank=[r["entry"]["peak_bytes"] / 2**20 for r in ranks],
+        one_process_peak_mb=one_entry["peak_bytes"] / 2**20,
+        launches_per_rank=[r["entry"]["launches"] for r in ranks],
+        one_process_launches=one_entry["launches"],
+        halo_per_rank=[r["entry"]["halo"] for r in ranks])
+    del entry_rows, ckpt, one_ckpt
+    emit(dict(phase="e2e_spatial_train", backend=ranks[0]["backend"], ranks=SPATIAL_RANKS,
+              f32=compared["train"], bf16_as_shipped=compared["train_bf16"],
+              dilated_pallas_bf16=compared["dilated"], pair_batchnorm_f32=compared["bn"],
+              entry_point_f32=entry_part, ranks_wall_s=wall_s, card=card()))
+
+    check(ranks[0]["backend"] == "gloo", f"e2e_spatial_train: backend {ranks[0]['backend']}")
+    for name, part in compared.items():
+        want = SPATIAL_TRAIN_LAUNCHES[name]
+        per_step = {k: want["forward"].get(k, 0) + want["recomputed"].get(k, 0)
+                    for k in LAUNCHERS}
+        expected = launches_of(**{k: v for k, v in per_step.items() if v},
+                               **({"dilated_conv_dx": want["dx"]} if want["dx"] else {}))
+        for r in range(SPATIAL_RANKS):
+            phase = f"e2e_spatial_train {name} rank {r}"
+            check(part["masters_equal_across_ranks"][r], f"{phase}: masters differ from rank 0's")
+            check(part["losses"][r] == part["losses"][0], f"{phase}: the ranks' losses differ")
+            check(part["rows_per_rank"][r][1] == int(case_rows(cases[name])) // SPATIAL_RANKS,
+                  f"{phase}: rows {part['rows_per_rank'][r]}")
+            check(part["launches_per_rank"][r] == expected,
+                  f"{phase} launches {part['launches_per_rank'][r]} != {expected}")
+            held = part["held_per_rank"][r]
+            check_held(f"{phase} forward", held["forward"], want["forward"])
+            check_held(f"{phase} recomputed", held["recomputed"], want["recomputed"])
+            check_held(f"{phase} dx", held["dx"],
+                       {"dilated_conv_dx": want["dx"]} if want["dx"] else {})
+            halo = part["halo_per_rank"][r]
+            check(halo["exchanges"] > 0 and halo["exchanges_backward"] > 0
+                  and halo["reductions"] > 0 and halo["reductions_backward"] > 0
+                  and (halo["exchanges_recomputed"] > 0) == (name != "bn"),
+                  f"{phase}: exchanges {halo}")
+            check(part["steps_exchanged_alike"][r], f"{phase}: the two steps exchanged otherwise")
+    for name, limits in (("train", (1e-3, None, 0.999)), ("train_bf16", (1e-2, 0.999, None)),
+                         ("bn", (1e-3, 0.999, DP_BN_TENSOR_COSINE))):
+        a = compared[name]["vs_one_process"]
+        loss_lim, all_lim, each_lim = limits
+        check(a["loss_rel_diff"] <= loss_lim, f"e2e_spatial_train {name}: loss {a}")
+        check(all_lim is None or a["cosine_all"] >= all_lim, f"e2e_spatial_train {name}: {a}")
+        check(each_lim is None or a["cosine_min"] >= each_lim,
+              f"e2e_spatial_train {name}: gradient cosines {a}")
+    check(compared["bn"]["running_stats"] > 0
+          and compared["bn"]["running_stats_max_rel_err"] <= 1e-3,
+          f"e2e_spatial_train bn: running statistics {compared['bn']['running_stats_max_rel_err']}")
+    entry_launches = launches_of(warp=2 * (K - 1) * 2)
+    check(entry_part["steps"] == [2, 2] and entry_part["one_process_steps"] == 2
+          and len(losses) == len(one_losses) == 2,
+          f"e2e_spatial_train entry: steps {entry_part['steps']}, losses {losses} {one_losses}")
+    check(entry_part["masters_equal_across_ranks"], "e2e_spatial_train entry: masters differ")
+    check(all(d <= 1e-3 for d in entry_part["loss_rel_diff"]),
+          f"e2e_spatial_train entry: losses {losses} against {one_losses}")
+    check(entry_part["vs_one_process"]["trace_cosine_min"] >= 0.999,
+          f"e2e_spatial_train entry: checkpoint {entry_part['vs_one_process']}")
+    for r, launched in enumerate(entry_part["launches_per_rank"] + [one_entry["launches"]]):
+        check(launched == entry_launches, f"e2e_spatial_train entry {r}: launches {launched}")
+    held = compared["dilated"]["held_per_rank"][0]
+    split = {k: dict(forward=held["forward"].get(k, {}).get("launches", 0),
+                     recomputed=held["recomputed"].get(k, {}).get("launches", 0))
+             for k in ("warp", "dilated_conv")}
+    split["dilated_conv"]["dx"] = held["dx"].get("dilated_conv_dx", {}).get("launches", 0)
+    return dict(launches={name: ranks[0][name]["launches"] for name in cases}, split=split)
+
+
+def case_rows(case: dict) -> int:
+    """The rows of a case's global batch's frames."""
+    return case["global_batch"]["label"][-2]
+
+
 @functools.cache
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
@@ -3432,6 +3810,8 @@ def main() -> int:
         bn_launched = e2e_train_bn(root, data)
         torch.cuda.empty_cache()
         dp_launched = e2e_dp(root, data)
+        torch.cuda.empty_cache()
+        spatial_train = e2e_spatial_train(root, data)
     # each kernel with the launches of one path it serves: (path, launches, groups)
     paths = {name: ("accel18", accel_launched[name], accel_groups)
              for name in ("warp", "upsample_argmax", "fused_stem")}
@@ -3463,7 +3843,13 @@ def main() -> int:
                "dff direct, 2 spatial ranks (per rank)": spatial_launched["dff_direct"],
                "deeplab101 pallas frame, 2 spatial ranks (per rank)":
                    spatial_launched["deeplab101_pallas"],
-               "accel18 cfg eval, 2 spatial ranks (per rank)": spatial_launched["eval"]}
+               "accel18 cfg eval, 2 spatial ranks (per rank)": spatial_launched["eval"],
+               "accel18 clip train, 2 spatial ranks (per rank)":
+                   spatial_train["launches"]["train_bf16"],
+               "accel18 clip train dilated_conv=pallas, 2 spatial ranks (per rank)":
+                   spatial_train["launches"]["dilated"],
+               "accel18 pair train batchnorm, 2 spatial ranks (per rank)":
+                   spatial_train["launches"]["bn"]}
 
     keys = ("max_abs_err", "shape", "ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "library_call")
@@ -3474,6 +3860,8 @@ def main() -> int:
              launches_by_path={path: n[name] for path, n in by_path.items()},
              launch_floor_device_ms=floor["device_ms"],
              **{k: results[name][k] for k in keys},
+             **({} if name not in spatial_train["split"] else dict(
+                 spatial_train_launches=spatial_train["split"][name])),
              **({} if name != "dilated_conv" else dict(
                  dx_launches_by_path={path: n["dilated_conv_dx"] for path, n in by_path.items()},
                  dx={k: results["dilated_conv_dx"][k] for k in keys})))

@@ -363,14 +363,19 @@ def test_mesh_refusals_and_rows(tmp_path):
     with pytest.raises(ValueError, match="tpu.mesh.spatial=3 does not divide the world of 2 "):
         tmesh.mesh_from_cfg(cfg, device="cpu", init_method=f"file://{tmp_path / 'x'}", rank=0,
                             world_size=2)
-    # the train entry point and the train step refuse the spatial axis
+    # the train entry point and the train step take the spatial axis
+    # (``test_torch_spatial_train.py`` runs both on two ranks against one
+    # process): in one process the entry point stops only at the mesh, whose
+    # two spatial ranks need a world of two, and the step is built
     spatial_cfg = tmp_path / "spatial.yaml"
     spatial_cfg.write_text(Path(path).read_text() + "tpu:\n  mesh:\n    spatial: 2\n")
-    with pytest.raises(ValueError, match="training under the spatial axis.*ROADMAP.md"):
+    with pytest.raises(ValueError, match="tpu.mesh.spatial=2 does not divide the world of 1 "):
         t_train.main(["--cfg", str(spatial_cfg), "--device", "cpu"])
     split = tmesh.Mesh(data=1, spatial=2, rank=0, local_rank=0, device=torch.device("cpu"))
-    with pytest.raises(ValueError, match="training under the spatial axis"):
-        ttrainer.make_train_step(None, 19, mesh=split)
+    assert callable(ttrainer.make_train_step(None, 19, mesh=split))
+    assert split.loss_group is None and tmesh.Mesh(
+        data=1, spatial=2, rank=0, local_rank=0, device=torch.device("cpu"),
+        group="world").loss_group == "world"
     cfg.tpu.mesh.spatial, cfg.tpu.mesh.data = 1, 4
     with pytest.raises(ValueError, match="tpu.mesh.data=4 but the world has 2 ranks"):
         tmesh.mesh_from_cfg(cfg, device="cpu", init_method=f"file://{tmp_path / 'x'}", rank=0,

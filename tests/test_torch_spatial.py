@@ -11,7 +11,9 @@ the JAX package's ``spatial`` mesh, on the CPU.
   downscales; the plain versions of #1 (with the flow past its clamp and,
   at S=4, its halo taller than a shard), the unbounded plain warp, #2,
   #3, #4 (scale and gain) and #5; GroupNorm and mean1's mean; whole
-  ResNet-18 trunks. The halo arithmetic of each op, and the refusals.
+  ResNet-18 trunks. The halo arithmetic of each op, and the refusals
+  (a gradient through the exchange now runs: it matches the unsharded
+  conv's).
 - Whole models, in one spawn of two gloo ranks (``torch_dp_worker.py``,
   a spec with ``spatial``; the JAX side runs here meanwhile): tiny f32
   Accel (groupnorm + mean1, incremental, cascade mean1; frozenbn + fused7,
@@ -87,36 +89,35 @@ class Board:
 
 
 class ThreadShard(spatial.SpatialShard):
-    """A spatial shard whose group is the threads of a ``Board``."""
+    """A spatial shard whose group is the threads of a ``Board``: its two
+    collectives stand in for the process group's, under the shard's own
+    autograd Functions (the exchange's and the sum's backward)."""
 
     def __init__(self, board: Board, size: int, index: int):
         super().__init__(None, size, index)
         self.board = board
 
     def _all_gather(self, t):
-        if torch.is_grad_enabled() and t.requires_grad:
-            raise RuntimeError(spatial.TRAINING)
-        return self.board.exchange(self.index, t)
+        return self.board.exchange(self.index, t.detach())
 
-    def sum(self, t):
-        self.reductions += 1
-        return torch.stack(self.board.exchange(self.index, t)).sum(0)
+    def _all_reduce(self, t):
+        return torch.stack(self.board.exchange(self.index, t.detach())).sum(0)
 
 
 def run_sharded(fn, inputs: tuple, size: int, module: nn.Module | None = None,
                 rows_out: bool = True):
-    """``fn`` on each of ``size`` threads' rows of ``inputs`` (dim -2),
-    inside its ``ThreadShard.serving(module)`` and the caller's grad mode:
-    the outputs put together along dim -2 (``rows_out``), or each thread's
-    own."""
+    """``fn`` on each of ``size`` threads' rows of ``inputs`` (dim -2, each
+    input split by its own rows), inside its ``ThreadShard.serving(module)``
+    and the caller's grad mode: the outputs put together along dim -2
+    (``rows_out``), or each thread's own."""
     board = Board(size)
     outs, errors = [None] * size, []
     grad = torch.is_grad_enabled()
 
     def one(i):
         try:
-            h = inputs[0].shape[-2] // size
-            mine = tuple(x[..., i * h:(i + 1) * h, :] for x in inputs)
+            mine = tuple(x[..., i * (x.shape[-2] // size):(i + 1) * (x.shape[-2] // size), :]
+                         for x in inputs)
             with (torch.set_grad_enabled(grad),
                   ThreadShard(board, size, i).serving(module or nn.Identity())):
                 # every thread's hooks are on before any runs, and on until all ran
@@ -289,10 +290,19 @@ def test_refusals():
     with ThreadShard(Board(1), 2, 0).serving(model):
         with pytest.raises(ValueError, match="shards of 64 rows.*row stride 128"):
             tpipe.clip_logits(model, torch.zeros((1, 2, 3, 64, 128), device="meta"), 2)
-    # no gradient through the exchange
+    # a gradient through the exchange (``test_torch_spatial_train.py`` holds
+    # every op's): the threads' input gradients, put together, are the
+    # unsharded conv's
     conv = _conv(3)
-    with pytest.raises(RuntimeError, match="training under the spatial axis.*ROADMAP.md"):
-        run_sharded(conv, (_seeded(*FEAT).requires_grad_(),), 2, conv)
+    x = _seeded(*FEAT).requires_grad_()
+    (want,) = torch.autograd.grad(conv(x).square().sum(), x)
+
+    def grad_of(t):
+        t = t.clone().requires_grad_()
+        return torch.autograd.grad(conv(t).square().sum(), t)[0]
+
+    torch.testing.assert_close(run_sharded(grad_of, (x.detach(),), 2, conv), want,
+                               rtol=0, atol=1e-5)
     # no spatial axis: nothing is hooked or exchanged
     with spatial.spatial_sharding(None, conv) as shard:
         assert shard is None and spatial.active() is None and not conv._forward_pre_hooks

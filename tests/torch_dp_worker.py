@@ -12,14 +12,19 @@ rank 0 runs again under a group of one), ``eval`` (a model's
 ``train_entry`` (argv for the eval and the train entry points under
 ``torchrun``'s variables, each with a port for their rendezvous). A
 spatial spec (``spatial_main``) holds instead a cfg with ``tpu.mesh.spatial``,
-models and their clips, an eval and an eval entry point. The rank writes
+models and their clips, an eval and an eval entry point. A spatial
+training spec (``spatial_train_main``) holds a cfg with
+``tpu.mesh.spatial``, objective cases (a model's knobs, weights, recipe and
+global batch), train-step cases and a train entry point. The rank writes
 its results to ``SPEC.rank<RANK>``.
 Imports torch and the port only.
 """
 
 from __future__ import annotations
 
+import contextvars
 import functools
+import hashlib
 import os
 import sys
 
@@ -27,7 +32,8 @@ import torch
 import torch.distributed as dist
 
 from accel_tpu_torch.config import load_config
-from accel_tpu_torch.core.pipeline import clip_logits, clip_predictions, running_stats
+from accel_tpu_torch.core.pipeline import (clip_logits, clip_loss_and_stats, clip_predictions,
+                                           pair_loss_and_stats, running_stats)
 from accel_tpu_torch.core.predictor import pred_eval_clips
 from accel_tpu_torch.core.trainer import init_train_state, make_optimizer, make_train_step
 from accel_tpu_torch.experiments import test as eval_entry
@@ -37,7 +43,8 @@ from accel_tpu_torch.models.accel import AccelNet, build_model
 from accel_tpu_torch.ops import warp as warp_module
 from accel_tpu_torch.ops.warp_onehot import warp_onehot
 from accel_tpu_torch.parallel import spatial
-from accel_tpu_torch.parallel.mesh import Mesh, batch_rows, mesh_from_cfg, replicated, shard_batch
+from accel_tpu_torch.parallel.mesh import (Mesh, all_reduce_, batch_rows, mesh_from_cfg,
+                                           replicated, shard_batch)
 
 torch.set_num_threads(2)
 
@@ -49,10 +56,18 @@ def _model(cfg_path: str, state_dict: dict):
     return cfg, model
 
 
+def rank_batch(mesh: Mesh, batch: dict) -> dict:
+    """This rank's rows of a global batch: its data index's samples, then
+    (with a spatial axis) its rows of every frame, as the train entry point
+    cuts them."""
+    return train_entry.frame_rows(mesh, shard_batch(mesh, batch))
+
+
 def train_case(case: dict, mesh: Mesh | None) -> dict:
     """``case['steps']`` train steps on this rank's rows of the global
-    batch (all of it without a mesh): the losses, the master weights, the
-    running statistics and whether the masters equal rank 0's bit for bit."""
+    batch (all of it without a mesh): the losses, the master weights (rank
+    0's alone), the running statistics and whether the masters equal rank
+    0's bit for bit."""
     cfg, model = _model(case["cfg"], case["state_dict"])
     tx, _ = make_optimizer(cfg, 2, model)
     state = init_train_state(model, tx)
@@ -62,20 +77,104 @@ def train_case(case: dict, mesh: Mesh | None) -> dict:
                            aux_weight=float(tr.aux_loss_weight), objective=str(tr.objective),
                            propagate=str(cfg.network.propagate), remat=bool(tr.remat),
                            mesh=mesh)
-    batch = case["batch"] if mesh is None else shard_batch(mesh, case["batch"])
+    batch = case["batch"] if mesh is None else rank_batch(mesh, case["batch"])
     losses = []
     for _ in range(case["steps"]):
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))
     flat = torch.cat([p.reshape(-1) for p in state.master.values()])
     equal = True
-    if mesh is not None and mesh.group is not None and mesh.data > 1:
+    if mesh is not None and mesh.group is not None and mesh.data * mesh.spatial > 1:
         rank0 = flat.clone()
         dist.broadcast(rank0, src=0, group=mesh.group)
         equal = torch.equal(rank0, flat)
-    return {"losses": losses, "master": dict(state.master), "rows": len(batch["label"]),
+    main = mesh is None or mesh.rank == 0
+    return {"losses": losses, "master": dict(state.master) if main else None,
+            "rows": len(batch["label"]),
             "stats": {k: v.clone() for k, v in running_stats(model).items()},
             "masters_equal_rank0": equal}
+
+
+def objective_grads(case: dict, mesh: Mesh, fresh: bool = False) -> dict:
+    """One forward and backward of ``case``'s objective (its ``recipe``:
+    objective, propagate, remat, ohem, aux) on this rank's rows inside
+    ``spatial_sharding``, the counts over ``mesh.loss_group``: the loss and
+    every parameter's gradient summed over the ranks (the global batch's),
+    the running statistics, this rank's rows and its shard's counters after
+    the forward and after the backward. ``fresh``: the backward runs in a
+    fresh ``contextvars.Context()``, where the caller's shard is not set."""
+    model = spatial_model(case)
+    r = case["recipe"]
+    batch = rank_batch(mesh, case["batch"])
+    kw = dict(ohem_fraction=r["ohem"] or None, aux_weight=r["aux"], group=mesh.loss_group)
+    with spatial.spatial_sharding(mesh, model) as shard:
+        if r["objective"] == "clip":
+            loss, _ = clip_loss_and_stats(model, batch, 19, propagate=r["propagate"],
+                                          remat=r["remat"], **kw)
+        else:
+            loss, _ = pair_loss_and_stats(model, batch, 19, mutable_stats=model.norm == "batchnorm",
+                                          **kw)
+        forward = shard.counters()
+        if fresh:
+            contextvars.Context().run(loss.backward)
+        else:
+            loss.backward()
+        counters = shard.counters()
+    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+             for n, p in model.named_parameters()}
+    total = loss.detach().reshape(1)
+    all_reduce_([*grads.values(), total], mesh.group)
+    return {"loss": float(total), "grads": grads, "rows": list(batch["label"].shape),
+            "stats": {k: v.clone() for k, v in running_stats(model).items()},
+            "forward_counters": forward, "counters": counters}
+
+
+def digest(tensors: dict) -> str:
+    """A SHA-256 of the tensors' bytes, in key order: equal digests, equal
+    tensors bit for bit."""
+    h = hashlib.sha256()
+    for key in sorted(tensors):
+        h.update(key.encode())
+        h.update(tensors[key].detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def spatial_train_main(spec: dict, spec_path: str, rank: int, world: int) -> None:
+    """Each objective case (``objective_grads``; the ``fresh`` one again
+    with its backward in a fresh context, held against the first bit for
+    bit here), each train-step case (``train_case``) on the spec's ``data x
+    spatial`` mesh, then the train entry point under ``torchrun``'s
+    variables. Rank 0 alone returns gradients and masters (the same on
+    every rank: the ranks return their digests)."""
+    out = {}
+    mesh = mesh_from_cfg(load_config(spec["cfg"]), device="cpu", init_method=spec["init"],
+                         rank=rank, world_size=world)
+    try:
+        out["mesh"] = (mesh.data, mesh.spatial, mesh.data_index, mesh.spatial_index)
+        out["backend"] = dist.get_backend(mesh.spatial_group)
+        for name, case in spec.get("objectives", {}).items():
+            out[name] = objective_grads(case, mesh)
+        if "fresh" in spec:
+            fresh = objective_grads(spec["objectives"][spec["fresh"]], mesh, fresh=True)
+            normal = out[spec["fresh"]]
+            out["fresh"] = dict(fresh, grads=None, loss_equal=fresh["loss"] == normal["loss"],
+                                grads_equal=all(torch.equal(g, normal["grads"][n])
+                                                for n, g in fresh["grads"].items()))
+        for name in spec.get("objectives", {}):
+            out[name]["grads_digest"] = digest(out[name]["grads"])
+            if rank:
+                out[name]["grads"] = None
+        for name, case in spec.get("steps", {}).items():
+            out[name] = train_case(case, mesh)
+    finally:
+        mesh.close()
+    if "train_entry" in spec:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                          LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                          MASTER_PORT=str(spec["train_entry"]["port"]))
+        state = train_entry.main(spec["train_entry"]["argv"])
+        out["train_entry"] = {"step": state.step, "master_digest": digest(state.master)}
+    torch.save(out, f"{spec_path}.rank{rank}")
 
 
 def spatial_model(case: dict) -> AccelNet:
@@ -133,6 +232,8 @@ def spatial_main(spec: dict, spec_path: str, rank: int, world: int) -> None:
 
 def main(spec_path: str, rank: int, world: int) -> None:
     spec = torch.load(spec_path, weights_only=False)
+    if "spatial_train" in spec:
+        return spatial_train_main(spec, spec_path, rank, world)
     if "spatial" in spec:
         return spatial_main(spec, spec_path, rank, world)
     out = {}
