@@ -58,6 +58,7 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from accel_tpu_torch.core.metrics import IGNORE_LABEL, softmax_cross_entropy
 from accel_tpu_torch.models.resnet import BatchNorm
+from accel_tpu_torch.ops import quant
 from accel_tpu_torch.ops.upsample import resize_bilinear
 from accel_tpu_torch.ops.upsample_argmax import upsample_argmax, upsample_argmax_plain
 from accel_tpu_torch.ops.warp import bilinear_warp
@@ -81,22 +82,48 @@ def _scaled(x: torch.Tensor, scale) -> torch.Tensor:
 
 def _chunked_apply(fn, x: torch.Tensor, scale=None):
     """``fn(x * scale)`` over the leading (frame) axis in chunks of at most
-    MAX_FULLRES_FRAMES_PER_DISPATCH frames; ``scale`` (None: none)
-    multiplies one chunk at a time. ``fn`` returns a tensor or a tuple of
+    MAX_FULLRES_FRAMES_PER_DISPATCH frames (the largest divisor of the
+    frame count up to it); ``scale`` (None: none) multiplies one chunk at
+    a time. ``fn`` returns a tensor or a tuple of
     tensors; chunks are concatenated per element. The chunks are those of
     the JAX package's ``lax.map``, so an int8 branch quantizes each chunk
-    with its own activation scales, as there. A symbolic frame count (a
-    program traced with a batch-polymorphic clip) runs unchunked, as the
-    JAX package runs it under ``jax.export``: the chunk size needs a
-    concrete count."""
+    with its own activation scales, as there.
+
+    The frame axis is the call's global one: under an int8 scale group
+    that places this rank's samples in a global batch (``ops/quant.py``,
+    ``ScaleGroup.batch``: a data axis) this rank runs its piece of every
+    global chunk, in global order, under the chunk's group, so that the
+    chunk's scales are maxed over the ranks that hold it. A rank that holds
+    none of a chunk's frames runs a stand-in whose activations count for
+    nothing (its first frame; its whole batch where it holds no sample of
+    the call, whose output is then the stand-in's), so that every rank
+    makes every chunk's all-reduces. A symbolic frame count (a program
+    traced with a batch-polymorphic clip) runs unchunked, as the JAX
+    package runs it under ``jax.export``: the chunk size needs a concrete
+    count."""
     n = x.shape[0]
-    limit = MAX_FULLRES_FRAMES_PER_DISPATCH
-    if isinstance(n, torch.SymInt) or n <= limit:
+    if isinstance(n, torch.SymInt):
         return fn(_scaled(x, scale))
-    c = max(d for d in range(1, limit + 1) if n % d == 0)
-    outs = [fn(_scaled(x[i:i + c], scale)) for i in range(0, n, c)]
+    group = quant.active()
+    start, size, total = (0, n, n) if group is None or group.batch is None else group.batch
+    per = n // max(size, 1)
+    lo, hi, frames = start * per, (start + size) * per, total * per
+    c = max(d for d in range(1, MAX_FULLRES_FRAMES_PER_DISPATCH + 1) if frames % d == 0)
+    outs, stand_in = [], None
+    for g in range(0, frames, c):
+        a, b = max(lo, g), min(hi, g + c)
+        with quant.sharing(None if group is None
+                           else group.within(max(a - g, 0), max(b - a, 0), c)):
+            if b > a:
+                outs.append(fn(_scaled(x[a - lo:b - lo], scale)))
+            else:
+                stand_in = fn(_scaled(x if size == 0 else x[:1], scale))
+    if not outs:
+        return stand_in
+    if len(outs) == 1:
+        return outs[0]
     if isinstance(outs[0], tuple):
-        return tuple(torch.cat(parts) for parts in zip(*outs))
+        return tuple(torch.cat(parts) for parts in zip(*outs, strict=True))
     return torch.cat(outs)
 
 
@@ -313,15 +340,15 @@ def _remat(fn):
     card autograd recomputes in its own thread, which does not see the
     caller's context, and the convs and warps would run on the bare shard)
     and to its end (no early stop), so that every rank runs the same
-    exchanges again."""
+    exchanges again; so does the int8 convs' scale group (``ops/quant.py``)."""
 
     def run(*args):
-        shard = spatial.active()
-        if shard is None:
+        shard, scales = spatial.active(), quant.active()
+        if shard is None and scales is None:
             return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
         with set_checkpoint_early_stop(False):
-            return checkpoint(spatial.bound(shard, fn), *args, use_reentrant=False,
-                              preserve_rng_state=False)
+            return checkpoint(quant.bound(scales, spatial.bound(shard, fn)), *args,
+                              use_reentrant=False, preserve_rng_state=False)
 
     return run
 

@@ -23,8 +23,10 @@ import torch.distributed as dist
 from accel_tpu_torch.core.metrics import SegConfusionAccumulator
 from accel_tpu_torch.core.pipeline import clip_predictions, propagate_step
 from accel_tpu_torch.data.image import resize_to
+from accel_tpu_torch.ops import quant
 from accel_tpu_torch.ops.upsample_argmax import upsample_argmax
 from accel_tpu_torch.parallel import spatial
+from accel_tpu_torch.parallel.mesh import batch_layout, gather_ints
 
 
 class DataBatch:
@@ -213,6 +215,16 @@ def pred_eval_clips(model, clip_iter, num_classes: int, interval: int,
     zeros to the reductions). 'halo' in the stats holds this rank's
     exchange counters (``SpatialShard.counters``).
 
+    An int8 model under a mesh of more than one rank takes each call's
+    activation scales over the world (``ops/quant.py``; the group that
+    ``spatial_sharding`` opens), as the reference's ``jit`` over the
+    global batch does: each batch starts with
+    one all-gather of the ranks' clip shapes, which places this rank's
+    clips in the global batch (``parallel.mesh.batch_layout``), and a rank
+    whose iterator has ended, or that holds no rows (a clamped split),
+    runs a stand-in clip of zeros in its place that scores nothing and
+    whose activations count for nothing, until every rank's has ended.
+
     Net time runs from the batch in hand, its copy to the card included,
     to its class maps on the card (synchronized); the first batch, which pays the allocator's and
     cuDNN's first calls, is left out of fps. Data time is the wait for the
@@ -227,13 +239,32 @@ def pred_eval_clips(model, clip_iter, num_classes: int, interval: int,
     # without a spatial axis every rank scores its own rows; with one, the
     # first rank of each spatial group scores the gathered maps
     scores = mesh is None or mesh.spatial_index == 0
+    items = iter(clip_iter)
     with spatial.spatial_sharding(mesh, model) as shard:
-        t0 = time.perf_counter()
-        for item in clip_iter:
+        world = quant.active()
+        while True:
+            t0 = time.perf_counter()
+            item = next(items, None)
             t_data += time.perf_counter() - t0
             t1 = time.perf_counter()
-            clip = torch.as_tensor(item["clip"], device=device)
-            preds = clip_predictions(model, clip, interval, propagate, upsample=upsample)
+            group, stand_in = None, None
+            if world is not None:
+                # every rank meets every batch: a rank out of clips runs a stand-in
+                shapes = gather_ints(mesh, [0] * 5 if item is None
+                                     else list(item["clip"].shape))
+                if not any(shape[0] for shape in shapes):
+                    break
+                group = world.within(*batch_layout(mesh, [shape[0] for shape in shapes]))
+                if item is None:
+                    shape = next(shape for shape in shapes if shape[0])
+                    stand_in = torch.zeros((1, *shape[1:]), device=device)
+            elif item is None:
+                break
+            clip = stand_in if item is None else torch.as_tensor(item["clip"], device=device)
+            with quant.sharing(group):
+                preds = clip_predictions(model, clip, interval, propagate, upsample=upsample)
+            if item is None:
+                continue
             if shard is not None:
                 preds = shard.gather_rows(preds)
             _sync(device)
@@ -248,7 +279,6 @@ def pred_eval_clips(model, clip_iter, num_classes: int, interval: int,
                 on_preds(item, preds)
             if scores:
                 _score(acc, item, preds, device)
-            t0 = time.perf_counter()
     if mesh is not None and mesh.group is not None:
         acc.cm, (n_frames, n_timed), t_net = _reduce_eval(mesh, acc.cm, n_frames, n_timed, t_net)
     miou, iou = acc.result()

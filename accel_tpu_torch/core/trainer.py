@@ -45,6 +45,7 @@ from torch import nn
 
 from accel_tpu_torch.core.lr_schedule import lr_steps_from_epochs, warmup_multifactor_schedule
 from accel_tpu_torch.core.pipeline import clip_loss_and_stats, pair_loss_and_stats
+from accel_tpu_torch.ops import quant
 from accel_tpu_torch.parallel import spatial
 from accel_tpu_torch.parallel.mesh import all_reduce_
 
@@ -145,6 +146,17 @@ def write_master(state: TrainState) -> None:
         p.copy_(state.master[n])
 
 
+def _global_batch(mesh, batch: dict) -> quant.ScaleGroup | None:
+    """The running int8 scale group (``spatial_sharding``'s) for this
+    rank's samples of the global batch (every data index holds as many),
+    or None."""
+    scales = quant.active()
+    if mesh is None or scales is None:
+        return None
+    n = len(batch["label"])
+    return scales.within(mesh.data_index * n, n, mesh.data * n)
+
+
 def make_train_step(tx: SGD, num_classes: int, loss_scale: float = 1.0,
                     mutable_stats: bool | None = None, ohem_fraction: float | None = None,
                     aux_weight: float = 0.0, objective: str = "pair",
@@ -163,8 +175,10 @@ def make_train_step(tx: SGD, num_classes: int, loss_scale: float = 1.0,
     ``spatial.frame_rows``); the gradients (and the loss returned, the
     global batch's) are summed over the mesh's group before the update. A
     mesh of one rank with a group runs the one-process step and the
-    all-reduce. A model whose knobs the spatial axis does not serve raises
-    ``ValueError`` at the first step (``spatial.spatial_sharding``)."""
+    all-reduce. An int8 model takes each call's activation scales over the
+    world (``spatial_sharding`` opens the group), as the reference's
+    ``jit`` over the global batch does (``ops/quant.py``; int8 is a
+    serving knob, trained only as far as one process trains it)."""
     if objective not in ("pair", "clip"):
         raise ValueError(f"unknown objective {objective!r} (pair | clip)")
     group = mesh.loss_group if mesh is not None else None
@@ -176,7 +190,7 @@ def make_train_step(tx: SGD, num_classes: int, loss_scale: float = 1.0,
                  else mutable_stats)
         model.zero_grad(set_to_none=True)
         # open across the backward: its exchanges and remat's recompute need the shard
-        with spatial.spatial_sharding(mesh, model):
+        with spatial.spatial_sharding(mesh, model), quant.sharing(_global_batch(mesh, batch)):
             if objective == "clip":
                 loss, _ = clip_loss_and_stats(model, batch, num_classes, loss_scale, propagate,
                                               stats, ohem_fraction, aux_weight, remat, group)

@@ -54,7 +54,8 @@ class AccelNet(nn.Module):
     ``fold_flow_downscale`` FlowNet's input downscale into per-frame conv1
     partials (``ops/fold_downscale.py``). ``quantize_ref`` and
     ``quantize_update`` serve a branch's block convs and fc6 through the
-    int8 conv (``ops/quant.py``). ``use_kernels=False`` runs every kernel's
+    int8 conv (``ops/quant.py``); ``quantized`` says whether any branch
+    does. ``use_kernels=False`` runs every kernel's
     plain PyTorch version (and the int8 conv's exact plain product) even on
     CUDA tensors (for comparing the two); on CPU tensors the plain versions
     always run."""
@@ -95,6 +96,7 @@ class AccelNet(nn.Module):
         self.fold_flow_downscale = fold_flow_downscale
         self.norm = norm
         self.dtype = dtype
+        self.quantized = quantize_ref or (quantize_update and family == "accel")
         # the largest row stride of any branch: the trunks' output stride
         # (the update branch's times its input downscale) and FlowNet's 64
         # on its downscaled input
@@ -330,7 +332,9 @@ def build_model(network: Config | Mapping | None = None, *, num_classes: int | N
     family or knob value raises ``ValueError``. The model lives on ``device``, by default the card ("cuda"); without one
     it raises rather than build on the CPU, which takes ``device="cpu"``.
     The parameters are drawn from ``generator`` on its own device, so one
-    seed gives the same weights on every device."""
+    seed gives the same weights on every device. On ``device="meta"`` the
+    model is built without weights and none are drawn (which modules a cfg
+    builds)."""
     if isinstance(network, Config):
         if num_classes is None:
             num_classes = int(network.dataset.NUM_CLASSES)
@@ -351,6 +355,7 @@ def build_model(network: Config | Mapping | None = None, *, num_classes: int | N
         raise RuntimeError("build_model: no CUDA device; pass device='cpu' to build on the CPU")
     model = AccelNet(num_classes=num_classes, family=net.get("name", "accel"),
                      use_kernels=use_kernels, device="meta", dtype=dtype, **kwargs)
-    model.to_empty(device=device)
-    init_weights(model, generator)
+    if device.type != "meta":
+        model.to_empty(device=device)
+        init_weights(model, generator)
     return model.eval()

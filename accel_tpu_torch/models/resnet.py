@@ -23,6 +23,7 @@ from accel_tpu_torch.ops.dilated_cuda import (
 )
 from accel_tpu_torch.ops.fold_downscale import fold_downscale_conv
 from accel_tpu_torch.ops.fused_stem import fused_stem, stem_kernel_weight
+from accel_tpu_torch.ops import quant
 from accel_tpu_torch.ops.quant import QuantizedWeight, int8_conv2d
 from accel_tpu_torch.parallel import spatial
 
@@ -238,7 +239,12 @@ class Int8Conv2d(nn.Conv2d):
     the bias is added after it in x's dtype, as flax's ``nn.Conv`` adds it
     around its ``conv_general_dilated`` hook. Same parameters and
     ``state_dict`` keys as ``nn.Conv2d``; the quantized weights are a cache
-    beside them, made once per weight version."""
+    beside them, made once per weight version. The activation scale is
+    maxed over the running context's scale group (``ops/quant.py``: the
+    ranks that hold parts of the call under a mesh), as ``parallel/spatial.py``
+    reads its shard; outside one it is this call's own. Under spatial
+    sharding the conv hooks extend its input by its padding: the halo rows
+    are values the group holds already, so the max is the frame's."""
 
     def __init__(self, *args, use_kernels=True, **kwargs):
         super().__init__(*args, **kwargs)
@@ -248,7 +254,7 @@ class Int8Conv2d(nn.Conv2d):
     def forward(self, x):
         plain = not self.use_kernels or x.device.type == "cpu"
         y = int8_conv2d(x, self._quantized(self.weight), self.stride, self.padding,
-                        self.dilation, plain=plain)
+                        self.dilation, plain=plain, group=quant.active())
         if self.bias is not None:
             y = y + self.bias.view(1, -1, 1, 1)
         return y
@@ -366,6 +372,12 @@ def _max_pool(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 3, stride=2, padding=1)
 
 
+# the input rows the s2d stem reads beyond a shard: space_to_depth(x, 2),
+# its (2, 1) s2d rows of padding and the 4x4 conv read input rows 2o-4 ..
+# 2o+3 for output row o (the 7x7/2 conv's window 2o-3 .. 2o+3 and one
+# zero tap): 4 rows above a shard, and 2 below the 2 rows of its last output
+S2D_STEM_HALO = (4, 2)
+
 # the input rows the fused stem and the max pool after it read beyond a
 # shard: the stem's (window_halo(7, 2)) and twice the pool's (window_halo(3,
 # 2), in stem-output rows), at their joint stride 4
@@ -446,11 +458,17 @@ class DilatedResNet(nn.Module):
         if self.input_downscale > 1:
             x = fold_downscale_conv(x, self.conv1.weight, self.input_downscale, 2, 3)
         elif self.stem == "s2d":
-            x = self.conv1_s2d(F.pad(space_to_depth(x, 2), (2, 1, 2, 1)))
+            # under spatial sharding the three steps run on one extended
+            # shard: conv1_s2d's own padding is 0, so its hook would not
+            # extend the space-to-depth rows
+            x = spatial.halo_apply(self._s2d_stem, x, *S2D_STEM_HALO, stride=2)
         else:
             x = self.conv1(x)
         x = torch.relu(self.bn(x))
         return self._blocks(spatial.windowed(_max_pool, x, 3, 2))
+
+    def _s2d_stem(self, x):
+        return self.conv1_s2d(F.pad(space_to_depth(x, 2), (2, 1, 2, 1)))
 
     def _blocks(self, x):
         for name in self.block_names:

@@ -25,6 +25,11 @@ The composed kernel is large for a 3-channel conv: 16x16 at stride 4 for
 a 7x7/2 stem at f=2, 32x32 at stride 8 at f=4. It runs through
 ``F.conv2d`` (cuDNN on the card), as the JAX hook runs it through XLA's
 conv; no Pallas kernel stands behind it.
+
+Under spatial sharding the padded conv runs on one extended shard
+(``spatial.halo_apply``): output row o reads input rows ``f*s*o - lo`` to
+``f*s*o - lo + S' - 1``, so a shard needs ``lo`` rows above it and
+``S' - lo - f*s`` below the ``f*s`` rows of its last output row.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from accel_tpu_torch.ops.upsample import _down_taps
+from accel_tpu_torch.parallel import spatial
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,10 +71,29 @@ def fold_downscale_conv(x: torch.Tensor, weight: torch.Tensor, f: int, stride: i
     """``F.conv2d(downscale_f(x), weight, stride=stride, padding=padding)``
     as one conv on the full-resolution NCHW ``x`` (no bias; ring semantics
     above). ``weight`` is in x's dtype."""
-    offs, _ = _down_taps(f)
-    p_lo, p_hi = int(-offs[0]), int(offs[-1] - (f - 1))
-    lo, hi = f * padding + p_lo, f * padding + p_hi
+    lo, hi = fold_padding(f, padding)
     w = composed_weight(weight, f)
-    if lo == hi:
-        return F.conv2d(x, w, stride=f * stride, padding=lo)
-    return F.conv2d(F.pad(x, (lo, hi, lo, hi)), w, stride=f * stride)
+    step = f * stride
+
+    def conv(t):
+        if lo == hi:
+            return F.conv2d(t, w, stride=step, padding=lo)
+        return F.conv2d(F.pad(t, (lo, hi, lo, hi)), w, stride=step)
+
+    return spatial.halo_apply(conv, x, *fold_halo(f, weight.shape[2], stride, padding),
+                              stride=step)
+
+
+def fold_padding(f: int, padding: int) -> tuple[int, int]:
+    """(lo, hi): the folded conv's padding before and after, ``f*padding``
+    plus the downscale taps' reach on either side."""
+    offs, _ = _down_taps(f)
+    return f * padding + int(-offs[0]), f * padding + int(offs[-1] - (f - 1))
+
+
+def fold_halo(f: int, taps: int, stride: int, padding: int) -> tuple[int, int]:
+    """(top, bottom) input rows the folded conv of a ``taps``-row kernel
+    reads beyond a shard (module docstring)."""
+    lo, _ = fold_padding(f, padding)
+    folded = _compose_matrix(f, taps).shape[0]
+    return lo, max(folded - lo - f * stride, 0)

@@ -22,23 +22,124 @@ the integer values (127^2 * K < 2^53 for every K here).
 
 Weights are quantized once per weight version (``QuantizedWeight``); the
 JAX package quantizes them at trace time, which XLA folds into constants.
+
+The activation scale is that of the reference's whole call. Under a mesh
+the JAX package runs the unsharded program (``jit``), so a call's max
+runs over every frame of the global batch and every row of the frame;
+here each rank holds a part of the call, and the caller that holds the
+mesh opens a :class:`ScaleGroup` (``with sharing(group):``) whose ranks
+take the max of their absmaxes, one all-reduce of the f32 absmax per
+call. Outside a group nothing changes. A rank that holds none of a call's
+samples runs a stand-in (``ScaleGroup.counts`` False): it issues the same
+all-reduces, with 0 for its absmax, so that every rank of the group meets
+every call.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+from collections.abc import Callable, Iterator
+from dataclasses import dataclass, replace
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+
+@dataclass(frozen=True)
+class ScaleGroup:
+    """The ranks whose parts of one int8 call share its activation scale.
+    ``reduce_max(t)`` returns the f32 ``t`` maxed over them (a collective
+    every rank of the group makes); ``counts``: whether this rank's
+    activations count (False: a stand-in, whose absmax counts as 0);
+    ``batch``: under a data axis, (start, size, total), this rank's samples
+    ``[start, start + size)`` of the ``total`` of the call's global batch
+    (``core/pipeline.py`` chunks by it), None where every rank of the group
+    holds the call's whole batch (the spatial axis)."""
+    reduce_max: Callable[[torch.Tensor], torch.Tensor]
+    counts: bool = True
+    batch: tuple[int, int, int] | None = None
+
+    def within(self, start: int, size: int, total: int) -> ScaleGroup:
+        """This group for a call of ``total`` samples of which this rank
+        holds ``[start, start + size)`` (none: a stand-in)."""
+        return replace(self, counts=size > 0, batch=(start, size, total))
+
+
+def process_group_max(group) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``reduce_max`` over a ``torch.distributed`` group: one
+    ``all_reduce(op=MAX)``."""
+    def reduce_max(t: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        return t
+
+    return reduce_max
+
+
+_GROUP: contextvars.ContextVar[ScaleGroup | None] = contextvars.ContextVar(
+    "accel_tpu_torch_int8_scales", default=None)
+_RECORD: contextvars.ContextVar[list | None] = contextvars.ContextVar(
+    "accel_tpu_torch_int8_record", default=None)
+
+
+def active() -> ScaleGroup | None:
+    """The scale group of the running ``sharing`` context, or None."""
+    return _GROUP.get()
+
+
+@contextlib.contextmanager
+def sharing(group: ScaleGroup | None) -> Iterator[ScaleGroup | None]:
+    """The int8 calls take their activation scales over ``group`` for the
+    duration (None: the running context's group, if any, stays)."""
+    if group is None:
+        yield _GROUP.get()
+        return
+    token = _GROUP.set(group)
+    try:
+        yield group
+    finally:
+        _GROUP.reset(token)
+
+
+def bound(group: ScaleGroup | None, fn: Callable[..., object]) -> Callable[..., object]:
+    """``fn`` run under ``group`` (None: the calling thread's) whatever the
+    context of the thread that calls it (remat's recompute, which on the
+    card runs in autograd's device thread)."""
+    def run(*args, **kwargs):
+        with sharing(group):
+            return fn(*args, **kwargs)
+
+    return run
+
+
+@contextlib.contextmanager
+def scales_recorded() -> Iterator[list[torch.Tensor]]:
+    """Every int8 call's activation scale (f32 scalar tensors, in call
+    order) for the duration, in this context."""
+    seen: list[torch.Tensor] = []
+    token = _RECORD.set(seen)
+    try:
+        yield seen
+    finally:
+        _RECORD.reset(token)
 
 
 def _pair(v) -> tuple[int, int]:
     return (int(v), int(v)) if isinstance(v, int) else (int(v[0]), int(v[1]))
 
 
-def quantize_symmetric(x: torch.Tensor, dim: int | None = None):
+def quantize_symmetric(x: torch.Tensor, dim: int | None = None,
+                       group: ScaleGroup | None = None):
     """x -> (int8 values, f32 scale). ``dim=None``: one scale for the whole
-    tensor; otherwise one per slice along ``dim`` (shaped to broadcast)."""
+    tensor, maxed over ``group`` where given (this rank's absmax, 0 for a
+    stand-in or an empty tensor, in f32, exact for every float dtype);
+    otherwise one per slice along ``dim`` (shaped to broadcast)."""
     if dim is None:
-        s = x.abs().amax()
+        s = x.abs().amax() if x.numel() else x.new_zeros(())
+        if group is not None:
+            local = s.to(torch.float32).reshape(1) * float(group.counts)
+            s = group.reduce_max(local)[0].to(x.dtype)
     else:
         s = x.abs().amax(dim=[i for i in range(x.dim()) if i != dim], keepdim=True)
     s = s.clamp_min(1e-8).to(torch.float32) / 127.0
@@ -122,13 +223,19 @@ def int8_conv_acc_gemm(xq: torch.Tensor, w: QuantizedWeight, stride, padding,
 
 
 def int8_conv2d(x: torch.Tensor, weight: torch.Tensor | QuantizedWeight, stride=1, padding=0,
-                dilation=1, *, plain: bool = False) -> torch.Tensor:
+                dilation=1, *, plain: bool = False,
+                group: ScaleGroup | None = None) -> torch.Tensor:
     """The int8 conv of NCHW float ``x`` (no bias), in x's dtype. ``weight``
-    is the float OIHW weight or its ``QuantizedWeight``. On a CUDA tensor
-    the product runs through ``int_mm`` (cuBLAS), on a CPU tensor or with
-    ``plain`` through ``int8_conv_acc_plain``."""
+    is the float OIHW weight or its ``QuantizedWeight``; the activation
+    scale is maxed over ``group`` where given. On a CUDA tensor the
+    product runs through ``int_mm`` (cuBLAS), on a CPU tensor or with
+    ``plain`` through ``int8_conv_acc_plain``. Records its scale where
+    ``scales_recorded`` is open."""
     w = weight if isinstance(weight, QuantizedWeight) else QuantizedWeight(weight)
-    xq, xs = quantize_symmetric(x)
+    xq, xs = quantize_symmetric(x, group=group)
+    record = _RECORD.get()
+    if record is not None:
+        record.append(xs.detach().clone())
     if plain or x.device.type == "cpu":
         acc = int8_conv_acc_plain(xq, w.q, stride, padding, dilation)
     else:

@@ -30,6 +30,12 @@ reduce their counts over the world (``loss_group``), and the trainer's
 gradient all-reduce over the world sums each rank's partial gradient,
 that of its own output rows (the exchanges' backward has already returned
 its halo rows' share to their owners).
+
+An int8 model's activation scales are those of the reference's whole
+call (``ops/quant.py``): under a mesh of more than one rank each call's
+absmax is maxed over the world (``spatial.spatial_sharding`` opens the
+group), and the clip pipeline chunks by the global batch
+(``batch_layout``).
 """
 
 from __future__ import annotations
@@ -240,3 +246,22 @@ def all_reduce_(tensors: list[torch.Tensor], group) -> None:
         numel += t.numel()
     if bucket:
         flush()
+
+
+def gather_ints(mesh: Mesh, values: list[int]) -> list[list[int]]:
+    """Every rank's ``values`` (the same length on each), in rank order:
+    one all-gather over the world, on the mesh's device (NCCL takes only
+    card tensors)."""
+    mine = torch.tensor(values, dtype=torch.int64, device=mesh.device)
+    parts = [torch.empty_like(mine) for _ in range(mesh.data * mesh.spatial)]
+    dist.all_gather(parts, mine, group=mesh.group)
+    return [p.tolist() for p in parts]
+
+
+def batch_layout(mesh: Mesh, sizes: list[int]) -> tuple[int, int, int]:
+    """(start, size, total): this rank's samples of a global batch from
+    every rank's ``sizes`` in rank order (the spatial ranks of a data index
+    hold the same samples; a rank outside a clamped split holds 0)."""
+    per_index = [sizes[d * mesh.spatial] for d in range(mesh.data)]
+    d = mesh.data_index
+    return sum(per_index[:d]), per_index[d], sum(per_index)

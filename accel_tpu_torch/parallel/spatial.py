@@ -22,9 +22,12 @@ One rule serves every op that reads a window of rows:
 
 No kernel changes and no op needs a global row offset. The convs run the
 rule through forward pre- and post-hooks on every ``nn.Conv2d`` of the
-model; the functional ops (resizes, warps, the fused stem, the max pool,
-the upsample+argmax tail) call :func:`halo_apply`, and the reductions
-over H (GroupNorm's statistics, mean1's per-sample mean) :func:`row_sum`.
+model (int8 convs too: their activation scale is the whole call's, over
+the scale group that :func:`spatial_sharding` opens, ``ops/quant.py``); the
+functional ops (resizes, warps, the fused stem, the s2d stem and the
+folded downscales, which pad by hand, the max pool, the upsample+argmax
+tail) call :func:`halo_apply`, and the reductions over H (GroupNorm's
+statistics, mean1's per-sample mean) :func:`row_sum`.
 Both pass their arguments through outside a context, so an op calls them
 unconditionally; only the resizes (``resize_bilinear``,
 ``upsample_argmax``) branch on :func:`active`, because the integer row
@@ -59,6 +62,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 import torch.nn.functional as F
+
+from accel_tpu_torch.ops import quant
 
 _ACTIVE: contextvars.ContextVar[SpatialShard | None] = contextvars.ContextVar(
     "accel_tpu_torch_spatial", default=None)
@@ -387,38 +392,29 @@ def check_rows(h: int, stride: int, what: str) -> None:
                          f"by {what}'s row stride {stride}")
 
 
-def _refuse_unported(model: nn.Module) -> None:
-    from accel_tpu_torch.models.resnet import DilatedResNet, Int8Conv2d
-
-    for m in model.modules():
-        missing = None
-        if isinstance(m, Int8Conv2d):
-            missing = "quantize (int8 convs take per-call absmax scales: a max over the group)"
-        elif isinstance(m, DilatedResNet) and m.stem == "s2d":
-            missing = "stem: s2d"
-        elif isinstance(m, DilatedResNet) and m.input_downscale > 1:
-            missing = "fold_update_downscale"
-        elif getattr(m, "fold_flow_downscale", False):
-            missing = "fold_flow_downscale"
-        if missing:
-            raise ValueError(f"spatial sharding does not serve {missing} yet; "
-                             "ROADMAP.md Queue 1 lists it")
-
-
 @contextlib.contextmanager
 def spatial_sharding(mesh, model: nn.Module) -> Iterator[SpatialShard | None]:
-    """Run ``model`` on this rank's rows for the duration: the conv hooks
-    registered on every ``nn.Conv2d`` of ``model`` (subclasses included),
-    the functional ops and reductions active. Yields the
-    ``SpatialShard`` (None, and nothing changes, where ``mesh`` is None or
-    has one spatial rank). Raises ``ValueError`` for a model whose knobs
-    the spatial axis does not serve yet."""
-    if mesh is None or mesh.spatial == 1:
-        yield None
-        return
-    _refuse_unported(model)
-    with SpatialShard(mesh.spatial_group, mesh.spatial, mesh.spatial_index).serving(model) as shard:
-        yield shard
+    """Run ``model`` on this rank's part of ``mesh`` for the duration: the
+    conv hooks registered on every ``nn.Conv2d`` of ``model`` (subclasses
+    included), the functional ops and reductions active. Yields the
+    ``SpatialShard`` (None where ``mesh`` is None or has one spatial
+    rank). Every model ``build_model`` builds is served: the s2d stem and
+    the folded convs read their halo through ``halo_apply``, and an int8
+    model (``model.quantized``) on a mesh of more than one rank takes each
+    call's activation scale over the world (``ops/quant.py``), the
+    reference's whole call; a caller that splits a batch over data indices
+    places this rank's samples in it (``quant.active().within``)."""
+    scales = None
+    if (getattr(model, "quantized", False) and mesh is not None and mesh.group is not None
+            and mesh.data * mesh.spatial > 1):
+        scales = quant.ScaleGroup(quant.process_group_max(mesh.group))
+    with quant.sharing(scales):
+        if mesh is None or mesh.spatial == 1:
+            yield None
+            return
+        with SpatialShard(mesh.spatial_group, mesh.spatial,
+                          mesh.spatial_index).serving(model) as shard:
+            yield shard
 
 
 def frame_rows(mesh, h: int) -> slice:

@@ -158,14 +158,24 @@ Phases, one JSON line each:
     against one process: the flagship step (f32 at section 2's train
     limits; bf16 as shipped), the batchnorm pair step, and the flagship
     cfg's eval through the eval entry point (the confusion matrix
-    exactly); the ranks' masters bit-equal, their launches exact, their
-    step and all-reduce ms (``e2e_dp``).
+    exactly), and again with ``--quantize`` (``e2e_dp_eval_int8``: every
+    int8 call's activation scale maxed over the ranks, equal on both, in
+    f32 with FrozenBN equal to one process's, the confusion against one
+    process's quantized eval on the same global batches within
+    ``DP_INT8_RUNS``' limits, and a control with each rank's own scales
+    held outside them); the ranks' masters
+    bit-equal, their launches exact, their step and all-reduce ms
+    (``e2e_dp``).
 24. e2e_spatial, e2e_spatial_eval: the spatial axis (``parallel/spatial.py``):
     two gloo ranks on the one card (``--dp-rank``), ``tpu.mesh.spatial:
     2``, each on its 512 rows of every 1024x2048 frame, against one
     process: a B=1 group of the Accel-18 bench row (incremental; #1-#3),
     of it with the flagship norm in bf16 and in f32, the DFF row (direct;
-    #4) and one DeepLab-101 frame with ``dilated_conv: pallas`` (#5); every
+    #4), one DeepLab-101 frame with ``dilated_conv: pallas`` (#5), the
+    int8 bench row in bf16 and in f32 (#1-#3; each int8 call's activation
+    scale equal on the ranks, in f32 within ``SPATIAL_SCALE_REL`` of one
+    process's), the folded fast model (direct; #1, #2) and the bench row
+    with the s2d stem (#1, #2); every
     kernel launch of a rank held against its plain version on the
     halo-extended shard it was given; each rank's class-map rows held to
     the one-process rows by ``check_class_maps`` over the shard and over
@@ -183,6 +193,7 @@ Phases, one JSON line each:
     ``dilated_conv: pallas`` (every #1 and #5 launch of a rank, forward,
     recomputed and dx, held against its plain version on the inputs it was
     given), the batchnorm pair step in f32 (B=4; the running statistics),
+    the flagship step in f32 with ``stem: s2d`` and ``fold_flow_downscale``,
     and the train entry point under ``torchrun``'s variables (its losses
     and checkpoint against the one-process entry point's); the masters
     bit-equal across the ranks, each rank's exact launches, its exchanges
@@ -468,7 +479,8 @@ def kernel_warp(results: dict) -> None:
     ((1,19,128,256) per frame, (4,...) per direct group), and composed
     propagation's final warp at D=8*(k-1)=32, its 2-channel flow fields
     at D=8, and a spatial rank's halo-extended shard of the score map
-    (``e2e_spatial``: 32 rows and 9 beyond; ``e2e_spatial_train``: two
+    (``e2e_spatial``: 32 rows and 9 beyond, a frame at a time and the
+    folded model's direct group at once; ``e2e_spatial_train``: two
     clips' 24 rows of a 768x768 crop and 9 beyond). |flow| up to 1.5 D,
     uniform per pixel."""
     rows = []
@@ -481,6 +493,7 @@ def kernel_warp(results: dict) -> None:
                             ((4, 19, 64, 128), torch.float32, 8 * (K - 1)),
                             ((1, 2, 64, 128), torch.float32, 8),
                             ((1, 19, 41, 128), torch.float32, 8),
+                            ((4, 19, 41, 128), torch.float32, 8),
                             ((2, 19, 33, 48), torch.float32, 8)):
         g = _gen(SEED + 1)
         N, _, h, w = shape
@@ -572,13 +585,14 @@ def kernel_fused_stem(results: dict) -> None:
     and every ``push_frame``), the fast row's update branch on a group's 5
     half-resolution frames, CamVid's frame, an unaligned one and a spatial
     rank's extended shard of a frame (512 rows and 8 beyond, stem and max
-    pool on one shard)."""
+    pool on one shard), that shard in f32 too (the int8 row in f32)."""
     rows = []
     for shape, dtype in (((4, 3, H, W), torch.bfloat16), ((1, 3, H, W), torch.bfloat16),
                          ((5, 3, H // 2, W // 2), torch.bfloat16),
                          ((1, 3, 720, 960), torch.bfloat16),
                          ((1, 3, 30, 34), torch.bfloat16), ((1, 3, H, W), torch.float32),
-                         ((1, 3, H // 2 + 8, W), torch.bfloat16)):
+                         ((1, 3, H // 2 + 8, W), torch.bfloat16),
+                         ((1, 3, H // 2 + 8, W), torch.float32)):
         g = _gen(SEED + 3)
         x = torch.randn(shape, generator=g, device="cuda").to(dtype)
         w = torch.randn((64, 3, 7, 7), generator=g, device="cuda") * 0.1
@@ -2627,8 +2641,47 @@ def dp_rank(spec_path: str, rank: str, world: str) -> int:
     reset_counts()
     (result,) = eval_entry.main(spec["eval"]["argv"])
     results["eval"] = dict(miou=result["miou"], stats=result["stats"], launches=counts())
+    for name in DP_INT8_RUNS:
+        os.environ["MASTER_PORT"] = str(spec[name]["port"])
+        reset_counts()
+        with (own_scales() if name.endswith("_own") else contextlib.nullcontext(),
+              quant_ops.scales_recorded() as scales):
+            (result,) = eval_entry.main(spec[name]["argv"])
+        results[name] = dict(miou=result["miou"], stats=result["stats"], launches=counts(),
+                             scales=torch.stack(scales).float().cpu())
     torch.save(results, f"{spec_path}.rank{rank}")
     return 0
+
+
+# the int8 evals of the ranks: their flags beside ``--quantize``, and the L1
+# distance of their confusion from one process's quantized eval on the same
+# global batches as a share of the valid pixels: within it, and for a
+# control whose ranks take each its own absmax (``own_scales``, not the
+# reference's call's scale) above it. The cfg in bf16 as shipped, and in
+# f32 with FrozenBN (TF32 off), where a rank's activations are one
+# process's to the bit and its scales are held to one process's: with
+# GroupNorm, f32 sums at N=1 and N=2 round apart, and one ulp at a
+# rounding boundary flips an int8 step (f32 GroupNorm read scales 5.6% off
+# one process's). The limits sit between the readings on an NVIDIA H100
+# 80GB HBM3 (700 W; PERF.md): bf16 0.175% sound, 0.239% control; f32
+# FrozenBN 0 sound, 0.156% control
+F32_FROZENBN = ("--set-network", "dtype=float32", "--set-network", "norm=frozenbn")
+DP_INT8_RUNS = {"eval_int8": ((), 0.002), "eval_int8_own": ((), 0.002),
+                "eval_int8_f32": (F32_FROZENBN, 0.0001),
+                "eval_int8_f32_own": (F32_FROZENBN, 0.0001)}
+
+
+@contextlib.contextmanager
+def own_scales():
+    """The control of ``e2e_dp_eval_int8``: each rank's int8 calls take
+    their own absmax for the duration, not the world's (the scale group's
+    max the identity)."""
+    group_max = quant_ops.process_group_max
+    quant_ops.process_group_max = lambda group: lambda t: t
+    try:
+        yield
+    finally:
+        quant_ops.process_group_max = group_max
 
 
 def run_ranks(spec_path: Path, world: int, timeout: float = 600.0) -> list[dict]:
@@ -2731,6 +2784,14 @@ def e2e_dp(root: Path, data: Path) -> dict[str, dict[str, int]]:
     clip a batch, each clip at the ranks' shapes), each rank's 4 #1 and 1
     #2 a clip.
 
+    e2e_dp_eval_int8: that eval with ``--quantize`` (``DP_INT8_RUNS``), in
+    bf16 as shipped and in f32 with FrozenBN, against one process's on the
+    same global batches of 2 clips: every int8 call's activation scale
+    equal on the ranks (one MAX all-reduce each), in f32 within
+    ``SPATIAL_SCALE_REL`` of one process's; the confusion's L1 distance
+    within the run's limit, and above it for a control run whose ranks
+    take each its own absmax; the launches of the unquantized eval.
+
     Returns each phase's launches (rank 0's for the two-rank phases)."""
     write_city_split(data, "val", DP_EVAL_CLIPS, 1 - K, 0, SEED + 30)
     # the entry points' segdb caches list the val split's 1 snippet of phase 14
@@ -2748,9 +2809,11 @@ def e2e_dp(root: Path, data: Path) -> dict[str, dict[str, int]]:
     check(n == 1, "e2e_dp_eval: TEST.BATCH_IMAGES not set")
     eval_path.write_text(text)
     spec_path = root / "dp_spec.pt"
+    eval_argv = ["--cfg", str(eval_path), "--random-weights", "--max-items", str(DP_EVAL_CLIPS)]
     torch.save(dict(init=f"file://{root / 'dp_rendezvous'}", cases=cases,
-                    eval=dict(argv=["--cfg", str(eval_path), "--random-weights",
-                                    "--max-items", str(DP_EVAL_CLIPS)], port=free_port())),
+                    eval=dict(argv=eval_argv, port=free_port()),
+                    **{name: dict(argv=[*eval_argv, "--quantize", *flags], port=free_port())
+                       for name, (flags, _) in DP_INT8_RUNS.items()}),
                spec_path)
 
     # e2e_dp_nccl on the shipped bf16 step, which is also its one-process reference
@@ -2805,6 +2868,18 @@ def e2e_dp(root: Path, data: Path) -> dict[str, dict[str, int]]:
                                                          stem="e2e_dp_eval_one")),
                                    "--random-weights", "--max-items", str(DP_EVAL_CLIPS)])
     one_eval_launched = counts()
+    torch.cuda.empty_cache()
+    # the quantized eval in one process on the ranks' global batches of 2
+    # clips: its int8 scales are those of the whole batch, as the ranks' are
+    reset_counts()
+    with quant_ops.scales_recorded() as one_scales:
+        (one_int8,) = eval_entry.main([*eval_argv, "--quantize"])
+    one_int8.update(launches=counts(), scales=torch.stack(one_scales).float().cpu())
+    # and in f32 with FrozenBN, where the scales are held to the one process's
+    with quant_ops.scales_recorded() as one_scales:
+        (one_int8_f32,) = eval_entry.main([*eval_argv, "--quantize", *F32_FROZENBN])
+    one_int8_f32.update(scales=torch.stack(one_scales).float().cpu())
+    del one_scales
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -2873,9 +2948,56 @@ def e2e_dp(root: Path, data: Path) -> dict[str, dict[str, int]]:
         check(out["launches"] == launches_of(warp=(K - 1) * per_rank_clips,
                                              upsample_argmax=per_rank_clips),
               f"e2e_dp_eval rank {r} launches {out['launches']}")
+    # the quantized evals: int8 scales over the global batch of 2 clips; the
+    # controls take each rank's own
+    valid = float(one_int8["stats"]["confusion"].sum())
+    runs = {}
+    for name, (flags, share) in DP_INT8_RUNS.items():
+        one = one_int8_f32 if flags else one_int8
+        int8 = [r[name] for r in ranks]
+        cm = one["stats"]["confusion"]
+        runs[name] = dict(
+            miou=[out["miou"] for out in int8], one_process_miou=one["miou"],
+            frames=[out["stats"]["frames"] for out in int8],
+            scored=[float(out["stats"]["confusion"].sum()) for out in int8],
+            confusion_equal=[bool((out["stats"]["confusion"] == cm).all()) for out in int8],
+            confusion_l1=[float(abs(out["stats"]["confusion"] - cm).sum()) for out in int8],
+            int8_scales=scale_agreement([out["scales"] for out in int8], one["scales"]),
+            fps=[out["stats"]["fps"] for out in int8], one_process_fps=one["stats"]["fps"],
+            launches_per_rank=[out["launches"] for out in int8],
+            confusion_l1_limit=share * valid)
+    emit(dict(phase="e2e_dp_eval_int8", cfg="experiments/cfgs/accel18_cityscapes.yaml",
+              flags=["--quantize"], test_batch_images=2, ranks=DP_RANKS, clips=DP_EVAL_CLIPS,
+              valid_pixels=valid, bf16=runs["eval_int8"],
+              bf16_control_own_scales=runs["eval_int8_own"], f32_frozenbn=runs["eval_int8_f32"],
+              f32_frozenbn_control_own_scales=runs["eval_int8_f32_own"],
+              one_process_launches=one_int8["launches"], card=card()))
+    for name in ("eval_int8", "eval_int8_f32"):
+        run, scales = runs[name], runs[name]["int8_scales"]
+        check(scales["equal_across_ranks"] and scales["calls"] > 0
+              and scales["max_all_reduces_per_rank"] == [scales["calls"]] * DP_RANKS,
+              f"e2e_dp_eval_int8 {name}: the ranks' int8 scales differ {scales}")
+        check(name == "eval_int8" or scales["max_rel_diff_vs_one_process"] <= SPATIAL_SCALE_REL,
+              f"e2e_dp_eval_int8 {name}: scales off one process's {scales}")
+        for r in range(DP_RANKS):
+            check(run["frames"][r] == DP_EVAL_CLIPS * K and run["scored"][r] == valid,
+                  f"e2e_dp_eval_int8 {name} rank {r}: {run['frames'][r]} frames, "
+                  f"{run['scored'][r]} pixels scored")
+            check(run["confusion_l1"][r] <= run["confusion_l1_limit"],
+                  f"e2e_dp_eval_int8 {name} rank {r}: confusion L1 {run['confusion_l1'][r]} "
+                  f"(limit {run['confusion_l1_limit']})")
+            check(run["launches_per_rank"][r] == per_rank[r]["launches"],
+                  f"e2e_dp_eval_int8 {name} rank {r} launches {run['launches_per_rank'][r]}")
+    # the limit tells the per-rank scales apart
+    for name in ("eval_int8_own", "eval_int8_f32_own"):
+        control, limit = runs[name]["confusion_l1"], runs[name]["confusion_l1_limit"]
+        check(min(control) > limit,
+              f"e2e_dp_eval_int8 {name}: the per-rank-scale control's L1 {control} is within "
+              f"{limit}")
     return {"e2e_dp_nccl": ref["launches"], "e2e_dp_train": ranks[0]["train_bf16"]["launches"],
             "e2e_dp_train_bn": ranks[0]["bn"]["launches"],
-            "e2e_dp_eval": per_rank[0]["launches"]}
+            "e2e_dp_eval": per_rank[0]["launches"],
+            "e2e_dp_eval_int8": runs["eval_int8"]["launches_per_rank"][0]}
 
 
 # ---- phase 24: the spatial axis over two ranks on the one card -------------------
@@ -2901,7 +3023,29 @@ SPATIAL_CASES = {
     # one frame of DeepLab-101 with every dilated conv on #5: 3 layer4 conv2 + fc6
     "deeplab101_pallas": (dict(DEEPLAB_NET, dilated_conv="pallas"), "direct", 1, 1, SEED + 154,
                           dict(fused_stem=1, dilated_conv=4, upsample_argmax=1)),
+    # the int8 bench row: every int8 call's activation scale maxed over the
+    # ranks (the frame's whole call); in bf16 as served and in f32 on the
+    # same weights and frames
+    "int8_incremental": (INT8_NET, "incremental", K, K, SEED + 158,
+                         dict(fused_stem=2, warp=K - 1, upsample_argmax=1)),
+    "int8_f32_incremental": (dict(INT8_NET, dtype="float32"), "incremental", K, K, SEED + 158,
+                             dict(fused_stem=2, warp=K - 1, upsample_argmax=1)),
+    # accel18_fast with both downscales folded (f=2 into the update stem, f=4
+    # into FlowNet's conv1 halves): conv7, so no stem kernel
+    "fold_direct": (FOLD_NET, "direct", K, K, SEED + 160, dict(warp=1, upsample_argmax=1)),
+    # the bench row with the s2d stem (no stem kernel)
+    "s2d_incremental": (dict(BENCH_NET, stem="s2d"), "incremental", K, K, SEED + 162,
+                        dict(warp=K - 1, upsample_argmax=1)),
 }
+# a case's class-map limits against one process where they are not
+# check_class_maps' (0.99 overall, 0.9999 off near-ties): the DFF row's
+# 0.98; the int8 rows at the one-process int8 limits of phase 15, off
+# near-ties at 0.999 in f32
+SPATIAL_LIMITS = {"dff_direct": (0.98, 0.9999), "int8_incremental": (0.95, 0.99),
+                  "int8_f32_incremental": (0.95, 0.999)}
+# an int8 call's activation scale on a rank against one process's, in f32
+# (TF32 off on both sides): within this relative difference
+SPATIAL_SCALE_REL = 1e-6
 # bf16 cases held through their weights in f32 (TF32 off, one process), the
 # witness of how far bf16 rounding alone moves their class maps: a rank's
 # rows differ from the one process's rows at most SPATIAL_WITNESS_RATIO
@@ -3109,6 +3253,27 @@ def shard_agreement(index: int, pred: torch.Tensor, want: torch.Tensor,
                 band=class_map_agreement(pred[:, band], want[:, band], clear[:, band]))
 
 
+def int8_scales(model, frames: torch.Tensor, interval: int, propagate: str):
+    """Every int8 call's activation scale in one group of ``model`` (TF32
+    off), as an f32 tensor; None for a model without int8 convs."""
+    if not model.quantized:
+        return None
+    with cudnn_tf32(False), quant_ops.scales_recorded() as scales:
+        clip_predictions(model, frames, interval, propagate)
+    return torch.stack(scales).float().cpu()
+
+
+def scale_agreement(per_rank: list, one: torch.Tensor | None) -> dict | None:
+    """The ranks' int8 scales against each other and against one process's
+    (the number of calls: one MAX all-reduce each on a rank)."""
+    if one is None:
+        return None
+    return dict(calls=len(one), max_all_reduces_per_rank=[len(s) for s in per_rank],
+                equal_across_ranks=all(torch.equal(s, per_rank[0]) for s in per_rank),
+                max_rel_diff_vs_one_process=max(
+                    ((s - one).abs() / one.abs()).max().item() for s in per_rank))
+
+
 def spatial_rank(spec: dict, spec_path: str, rank: int, world: int) -> int:
     """One rank of ``e2e_spatial``: each case's group on this rank's rows of
     the frames under a ``data=1 x spatial=world`` mesh (gloo), with every
@@ -3130,7 +3295,8 @@ def spatial_rank(spec: dict, spec_path: str, rank: int, world: int) -> int:
             held = held_summary(held_launches(model, mine, interval, propagate, mesh))
             with spatial.spatial_sharding(mesh, model) as shard:
                 out = spatial_group(model, mine, interval, propagate, shard)
-            results[name] = dict(out, pred=out["pred"].cpu(), held=held)
+                scales = int8_scales(model, mine, interval, propagate)
+            results[name] = dict(out, pred=out["pred"].cpu(), held=held, scales=scales)
             del model, mine, out
             torch.cuda.empty_cache()
     finally:
@@ -3158,7 +3324,14 @@ def e2e_spatial(root: Path, data: Path, valid_per_clip: int) -> dict[str, dict[s
     #3); the same with the flagship's groupnorm, conv7 and mean1 (#1, #2;
     the sums over the group), in bf16 and in f32; the DFF row, direct (#3,
     #4, #2); one DeepLab-101 frame with ``dilated_conv: pallas`` (#3, #5,
-    #2). On each rank every kernel launch of a group is held against its
+    #2); the int8 bench row (``INT8_NET``; #3, #1, #2), in bf16 and in f32
+    on the same weights and frames, every int8 call's activation scale
+    recorded on each rank and in one process (TF32 off; one MAX
+    all-reduce a call on a rank): equal on the ranks, and in f32 within
+    ``SPATIAL_SCALE_REL`` of the one process's; the folded fast model
+    (``FOLD_NET``, direct: f=2 in the update stem, f=4 in FlowNet's conv1
+    halves; #1, #2); the bench row with ``stem: s2d`` (#1, #2). The class
+    maps at ``SPATIAL_LIMITS`` where a case has its own. On each rank every kernel launch of a group is held against its
     plain version on the halo-extended shard it was given, at phase 2's
     limits (``held_launches``). Each rank's class-map rows go against the
     one-process ``push_group`` rows under ``check_class_maps``' limits
@@ -3201,7 +3374,8 @@ def e2e_spatial(root: Path, data: Path, valid_per_clip: int) -> dict[str, dict[s
                   f"e2e_spatial {name}: push_group and clip_predictions differ")
             clear, logits_peak, _ = clear_pixels(model, frames, propagate, interval)
         one[name] = dict(out, pred=out["pred"].cpu(), clear=clear.cpu(),
-                         logits_max_abs=logits_peak, max_abs_flow=max_flow)
+                         logits_max_abs=logits_peak, max_abs_flow=max_flow,
+                         scales=int8_scales(model, frames, interval, propagate))
         if name in SPATIAL_WITNESSED:
             exact = build_model(dict(net, dtype="float32"), device="cuda",
                                 generator=torch.Generator().manual_seed(SEED))
@@ -3256,7 +3430,8 @@ def e2e_spatial(root: Path, data: Path, valid_per_clip: int) -> dict[str, dict[s
             one_process_peak_mb_above_inputs_tf32_off=(
                 ref["peak_bytes_above_inputs_tf32_off"] / 2**20),
             launches_per_rank=[out["launches"] for out in per_rank],
-            one_process_launches=ref["launches"])
+            one_process_launches=ref["launches"],
+            int8_scales=scale_agreement([out["scales"] for out in per_rank], ref["scales"]))
         if name in SPATIAL_WITNESSED:
             part["f32_witness"] = dict(
                 one_process=[shard_agreement(i, ref["pred"][0, :, i * rows:(i + 1) * rows],
@@ -3270,7 +3445,7 @@ def e2e_spatial(root: Path, data: Path, valid_per_clip: int) -> dict[str, dict[s
               card=card()))
     check(ranks[0]["backend"] == "gloo", f"e2e_spatial: backend {ranks[0]['backend']}")
     for name, part in parts.items():
-        per_group = SPATIAL_CASES[name][5]
+        net, per_group = SPATIAL_CASES[name][0], SPATIAL_CASES[name][5]
         expected = launches_of(**per_group)
         check(one[name]["launches"] == expected,
               f"e2e_spatial {name}: one process launched {one[name]['launches']}")
@@ -3288,9 +3463,17 @@ def e2e_spatial(root: Path, data: Path, valid_per_clip: int) -> dict[str, dict[s
                           f"{phase} {what}: {got} of the one process's rows, which agree with "
                           f"f32 on {want}")
             else:
-                overall = 0.98 if name == "dff_direct" else 0.99
-                check_class_maps(f"{phase} vs one process", c, overall=overall)
-                check_class_maps(f"{phase} band vs one process", c["band"], overall=overall)
+                overall, clear = SPATIAL_LIMITS.get(name, (0.99, 0.9999))
+                check_class_maps(f"{phase} vs one process", c, overall, clear)
+                check_class_maps(f"{phase} band vs one process", c["band"], overall, clear)
+            scales = part["int8_scales"]
+            if scales is not None:
+                check(scales["equal_across_ranks"] and scales["calls"] > 0
+                      and scales["max_all_reduces_per_rank"] == [scales["calls"]] * SPATIAL_RANKS,
+                      f"{phase}: int8 scales {scales}")
+                check(net.get("dtype") != "float32"
+                      or scales["max_rel_diff_vs_one_process"] <= SPATIAL_SCALE_REL,
+                      f"{phase}: int8 scales against one process's {scales}")
             check(part["halo_per_rank"][r]["exchanges"] > 0, f"e2e_spatial {name}: no exchange")
             check((part["halo_per_rank"][r]["reductions"] > 0) == name.startswith("flagship"),
                   f"e2e_spatial {name}: {part['halo_per_rank'][r]['reductions']} reductions")
@@ -3342,6 +3525,7 @@ SPATIAL_TRAIN_LAUNCHES = {
     "dilated": dict(forward=dict(warp=K - 1, dilated_conv=38),
                     recomputed=dict(warp=K - 1, dilated_conv=29), dx=38),
     "bn": dict(forward=dict(warp=1), recomputed={}, dx=0),
+    "s2d_fold": dict(forward=dict(warp=K - 1), recomputed=dict(warp=K - 1), dx=0),
 }
 
 
@@ -3495,7 +3679,9 @@ def e2e_spatial_train(root: Path, data: Path) -> dict:
     #5 launch of a rank, forward, recomputed and dx, held against its
     plain version on the very inputs the rank gave it. (d) the pair cfg
     with ``norm: batchnorm`` (conv7 stem) in f32, B=4: as ``e2e_dp_train_bn``
-    holds it, the running statistics within 1e-3. (e) the train entry
+    holds it, the running statistics within 1e-3. (d') the flagship step in
+    f32 with ``stem: s2d`` and ``fold_flow_downscale`` (their halos through
+    ``halo_apply``, again in remat's recompute), at (a)'s limits. (e) the train entry
     point under ``torchrun``'s variables with ``tpu.mesh.spatial: 2`` in
     f32 on a train split of SPATIAL_TRAIN_SNIPPETS snippets (two steps):
     its logged losses within 1e-3 of the one-process entry point's and its
@@ -3517,7 +3703,9 @@ def e2e_spatial_train(root: Path, data: Path) -> dict:
         dilated=dp_case(root, data, "e2e_spatial_train_dilated", "accel18_cityscapes",
                         ("dilated_conv=pallas",), SEED + 170),
         bn=dp_case(root, data, "e2e_spatial_train_bn", "accel18_cityscapes_pair",
-                   ("norm=batchnorm", "stem=conv7", *f32), SEED + 171))
+                   ("norm=batchnorm", "stem=conv7", *f32), SEED + 171),
+        s2d_fold=dp_case(root, data, "e2e_spatial_train_s2d_fold", "accel18_cityscapes",
+                         ("stem=s2d", "fold_flow_downscale=true", *f32), SEED + 173))
     # the entry points' own root: their segdb cache lists this split alone
     entry_root = root / "spatial_train"
     entry_data = entry_root / "cityscapes"
@@ -3536,7 +3724,7 @@ def e2e_spatial_train(root: Path, data: Path) -> dict:
                spec_path)
 
     refs = {}
-    for name in ("train", "train_bf16", "bn"):
+    for name in ("train", "train_bf16", "bn", "s2d_fold"):
         refs[name] = dp_step(cases[name], None)
         refs[name].pop("state")
         torch.cuda.empty_cache()
@@ -3609,6 +3797,7 @@ def e2e_spatial_train(root: Path, data: Path) -> dict:
     emit(dict(phase="e2e_spatial_train", backend=ranks[0]["backend"], ranks=SPATIAL_RANKS,
               f32=compared["train"], bf16_as_shipped=compared["train_bf16"],
               dilated_pallas_bf16=compared["dilated"], pair_batchnorm_f32=compared["bn"],
+              s2d_fold_flow_f32=compared["s2d_fold"],
               entry_point_f32=entry_part, ranks_wall_s=wall_s, card=card()))
 
     check(ranks[0]["backend"] == "gloo", f"e2e_spatial_train: backend {ranks[0]['backend']}")
@@ -3638,7 +3827,8 @@ def e2e_spatial_train(root: Path, data: Path) -> dict:
                   f"{phase}: exchanges {halo}")
             check(part["steps_exchanged_alike"][r], f"{phase}: the two steps exchanged otherwise")
     for name, limits in (("train", (1e-3, None, 0.999)), ("train_bf16", (1e-2, 0.999, None)),
-                         ("bn", (1e-3, 0.999, DP_BN_TENSOR_COSINE))):
+                         ("bn", (1e-3, 0.999, DP_BN_TENSOR_COSINE)),
+                         ("s2d_fold", (1e-3, None, 0.999))):
         a = compared[name]["vs_one_process"]
         loss_lim, all_lim, each_lim = limits
         check(a["loss_rel_diff"] <= loss_lim, f"e2e_spatial_train {name}: loss {a}")
@@ -3849,7 +4039,16 @@ def main() -> int:
                "accel18 clip train dilated_conv=pallas, 2 spatial ranks (per rank)":
                    spatial_train["launches"]["dilated"],
                "accel18 pair train batchnorm, 2 spatial ranks (per rank)":
-                   spatial_train["launches"]["bn"]}
+                   spatial_train["launches"]["bn"],
+               "accel18 cfg eval int8, 2 gloo ranks (per rank)": dp_launched["e2e_dp_eval_int8"],
+               "accel18 int8 incremental, 2 spatial ranks (per rank)":
+                   spatial_launched["int8_incremental"],
+               "accel18_fast fold direct, 2 spatial ranks (per rank)":
+                   spatial_launched["fold_direct"],
+               "accel18 s2d incremental, 2 spatial ranks (per rank)":
+                   spatial_launched["s2d_incremental"],
+               "accel18 clip train s2d fold_flow_downscale, 2 spatial ranks (per rank)":
+                   spatial_train["launches"]["s2d_fold"]}
 
     keys = ("max_abs_err", "shape", "ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "library_call")

@@ -86,7 +86,7 @@ def test_build_model_takes_the_cfg_defaults():
     cfg = default_config()
     cfg.network.update(ref_depth=18, head_channels=32, dtype="float32", scale_cascade="product")
     cfg.dataset.NUM_CLASSES = 11
-    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    model = build_model(cfg, device="meta", generator=torch.Generator().manual_seed(0))
     norms = {type(m).__name__ for m in model.modules()
              if isinstance(m, (FrozenBatchNorm, torch.nn.GroupNorm))}
     assert norms and not any(m for m in model.modules() if isinstance(m, FrozenBatchNorm))
@@ -95,16 +95,17 @@ def test_build_model_takes_the_cfg_defaults():
     assert model.num_classes == 11 and model.dtype == torch.float32
     assert model.fusion.weight.shape[0] == 11
     # a bare mapping keeps AccelNet's defaults
-    bare = build_model(dict(ref_depth=18, head_channels=32, dtype="float32"), device="cpu",
+    bare = build_model(dict(ref_depth=18, head_channels=32, dtype="float32"), device="meta",
                        generator=torch.Generator().manual_seed(0))
     assert bare.scale_field_norm == "none" and bare.num_classes == 19
     assert any(isinstance(m, FrozenBatchNorm) for m in bare.modules())
 
 
-def test_cfg_values_not_ported_raise():
+def test_every_cfg_value_builds():
     """Every value of these keys that ``accel_tpu``'s ``build_model`` takes
     builds a model here, ``use_scale_field: false`` too: its FlowNet has no
-    scale-field head."""
+    scale-field head. The models are built on the meta device, without
+    drawing weights: the check is which modules a cfg builds."""
     norms = {"batchnorm": BatchNorm, "frozenbn": FrozenBatchNorm, "groupnorm": torch.nn.GroupNorm}
     for key, value in [("norm", "batchnorm"), ("norm", "frozenbn"), ("stem", "s2d"),
                        ("stem", "fused7"), ("quantize_ref", True), ("quantize_update", True),
@@ -117,11 +118,12 @@ def test_cfg_values_not_ported_raise():
         if value == "fused7":
             cfg.network.norm = "frozenbn"
         cfg.network[key] = value
-        model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        model = build_model(cfg, device="meta", generator=torch.Generator().manual_seed(0))
         assert model.ref_net.backbone.stem == cfg.network.stem, (key, value)
         assert isinstance(model.ref_net.backbone.bn, norms[cfg.network.norm]), (key, value)
+        assert next(model.parameters()).device.type == "meta"
     cfg.network.use_scale_field = False
-    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    model = build_model(cfg, device="meta", generator=torch.Generator().manual_seed(0))
     assert not model.use_scale_field and not hasattr(model.flownet, "scale_field")
     assert "flownet.scale_field.weight" not in model.state_dict()
 

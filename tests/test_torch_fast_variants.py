@@ -87,18 +87,18 @@ def test_variant_clip_matches_jax(variant, propagate):
 def test_build_model_takes_the_fast_knobs():
     """build_model passes the three update-branch knobs through, inherits
     where they are 0, and folds the update downscale into the update
-    branch's stem where asked."""
+    branch's stem where asked (built on the meta device: which modules)."""
     gen = torch.Generator().manual_seed(3)
     m = build_model(dict(BASE, name="accel", dtype="float32", update_head_channels=16,
                          update_input_downscale=2, update_feat_stride=8),
-                    device="cpu", generator=gen)
+                    device="meta", generator=gen)
     assert m.update_net.head.fc6.out_channels == 16 and m.update_input_downscale == 2
     assert m.update_net.backbone.layer4_block0.conv2.dilation == (4, 4)  # stride 8
     inherit = build_model(dict(BASE, name="accel", dtype="float32", update_head_channels=0,
-                               update_feat_stride=0), device="cpu", generator=gen)
+                               update_feat_stride=0), device="meta", generator=gen)
     assert inherit.update_net.head.fc6.out_channels == 32
     assert inherit.update_net.backbone.layer4_block0.conv2.dilation == (2, 2)  # stride 16
     folded = build_model(dict(BASE, name="accel", dtype="float32", update_input_downscale=2,
-                              fold_update_downscale=True), device="cpu", generator=gen)
+                              fold_update_downscale=True), device="meta", generator=gen)
     assert folded.update_net.backbone.input_downscale == 2
     assert folded.ref_net.backbone.input_downscale == 1

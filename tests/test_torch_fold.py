@@ -169,11 +169,11 @@ def test_folded_push_frame_matches_jax(folded, propagate):
 
 def test_build_model_takes_the_fold_knobs():
     gen = torch.Generator().manual_seed(0)
-    m = build_model(dict(FOLD_NET, name="accel", dtype="float32"), device="cpu", generator=gen)
+    m = build_model(dict(FOLD_NET, name="accel", dtype="float32"), device="meta", generator=gen)
     assert m.update_net.backbone.input_downscale == 2
     # a factor of 1 has nothing to fold
     m = build_model(dict(FOLD_NET, name="accel", dtype="float32", update_input_downscale=1),
-                    device="cpu", generator=gen)
+                    device="meta", generator=gen)
     assert m.update_net.backbone.input_downscale == 1
     with pytest.raises(ValueError, match="conv7"):
-        build_model(dict(FOLD_NET, name="accel", stem="s2d"), device="cpu", generator=gen)
+        build_model(dict(FOLD_NET, name="accel", stem="s2d"), device="meta", generator=gen)

@@ -28,6 +28,13 @@ file and hands back its results; the JAX side runs here meanwhile, on the
   make_mesh(data=2))`` mIoU within 1e-3; the eval entry point under
   ``torchrun``'s variables with ``TEST.BATCH_IMAGES: 3`` warns, splits over
   gcd(3, 2) = 1 rank and gives the one-process result.
+- int8 on the data axis: a tiny f32 int8 Accel's ``clip_logits`` on each
+  rank's clips under the world's scale group against the one-process port
+  on the global batch (every int8 call's scale equal, logits within 1e-4
+  * (1 + max)), for a batch of one chunk and for B=12 x 5 frames, whose
+  chunks of 20 straddle the ranks, and together against ``jax.jit(
+  clip_logits)`` on ``make_mesh(data=2)``; a clamped split's eval (one
+  clip a batch: rank 1 runs stand-ins) gives the one-process confusion.
 - The train entry point under ``torchrun``'s variables: an epoch of the
   clip cfg on a tree (global batch 2, one row a rank, the loaders' rows of
   the one-process batches) gives the one-process entry point's masters
@@ -44,14 +51,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import (Ranks, assert_close, free_port, nchw, seeded_variables,
-                          write_cityscapes_tree)
+from torch_parity import (Ranks, assert_close, bridged_models, free_port, nchw, nhwc,
+                          seeded_variables, write_cityscapes_tree)
 
 from accel_tpu.config import load_config as j_load_config
+from accel_tpu.core import pipeline as jpipe
 from accel_tpu.core import predictor as jpred
 from accel_tpu.core import trainer as jtrainer
 from accel_tpu.models.accel import build_model as j_build_model
-from accel_tpu.parallel.mesh import make_mesh, replicated, shard_batch
+from accel_tpu.parallel.mesh import batch_sharding, make_mesh, replicated, shard_batch
 from accel_tpu_torch.config import load_config
 from accel_tpu_torch.convert import flax_to_torch, load_flax_variables
 from accel_tpu_torch.core import predictor as tpred
@@ -59,6 +67,8 @@ from accel_tpu_torch.core import trainer as ttrainer
 from accel_tpu_torch.data import loader as tloader
 from accel_tpu_torch.data.cityscapes import Cityscape
 from accel_tpu_torch.core import checkpoint as tck
+from accel_tpu_torch.core import pipeline as tpipe
+from accel_tpu_torch.ops import quant
 from accel_tpu_torch.experiments import test as t_entry
 from accel_tpu_torch.experiments import train as t_train
 from accel_tpu_torch.models.accel import build_model
@@ -98,6 +108,19 @@ CASES = {
 # the uneven batch: the batchnorm pair model's step without OHEM
 UNEVEN = dict(objective="pair", norm="batchnorm", ohem=0.0, remat="false")
 EVAL_BATCHES, EVAL_B = 2, 2
+# a tiny f32 int8 Accel on 64x64 frames (FlowNet at input downscale 1 and a
+# quarter of its width), incremental, k=5, and its global clip batches: 10
+# frames (one chunk over both ranks) and B=12 (60 frames, chunks of 20 of
+# which the second straddles the ranks: frames 20-29 on rank 0, 30-39 on 1)
+INT8 = dict(family="accel", ref_depth=18, update_depth=18, head_channels=32,
+            quantize_ref=True, quantize_update=True, flow_input_downscale=1,
+            flow_width_mult=0.25)
+INT8_HW, INT8_K = 64, 5
+INT8_CLIPS = {"one_chunk": 2, "straddling_chunks": 12}
+# the int8 model against the JAX package at ``test_torch_quant.py``'s
+# end-to-end tolerance: logits within a relative L2 error of 5e-2, class
+# maps on >= 0.95 of the pixels
+INT8_REL_L2, INT8_AGREE = 5e-2, 0.95
 
 
 def write_cfg(root: Path, name: str, objective, norm, ohem, remat) -> str:
@@ -216,16 +239,40 @@ def dp(tmp_path_factory):
         train_cfgs[name] = root / f"{name}.yaml"
         train_cfgs[name].write_text(train_text)
 
+    # the int8 model: global clip batches and, for the clamped split, two
+    # one-clip eval batches
+    jm8, variables8, tm8 = bridged_models(INT8, INT8_HW, seed=70)
+    rng = np.random.default_rng(71)
+    int8_clips = {name: (rng.standard_normal((b, INT8_K, INT8_HW, INT8_HW, 3)) * 0.5)
+                  .astype(np.float32) for name, b in INT8_CLIPS.items()}
+    first = int8_clips["one_chunk"]
+    with torch.no_grad():
+        flow, _ = tm8.flow(nchw(first[:, 1]), nchw(first[:, 0]))
+    head = variables8["params"]["flownet"]["predict_flow2"]
+    gain = np.float32(3.0 / float(flow.abs().max()))
+    head["kernel"], head["bias"] = head["kernel"] * gain, head["bias"] * gain
+    load_flax_variables(tm8, variables8)
+    int8_items = []
+    for _ in range(2):
+        label = np.full((1, INT8_K, INT8_HW, INT8_HW), 255, np.int32)
+        label[:, INT8_K - 1] = rng.integers(0, 19, (1, INT8_HW, INT8_HW))
+        int8_items.append({"clip": (rng.standard_normal((1, INT8_K, INT8_HW, INT8_HW, 3)) * 0.5)
+                           .astype(np.float32), "label": label})
+    int8_spec = {"knobs": INT8, "state_dict": tm8.eval().state_dict(),
+                 "clips": {k: torch.from_numpy(v) for k, v in int8_clips.items()},
+                 "items": int8_items, "interval": INT8_K, "propagate": "incremental"}
+
     spec_path = root / "spec.pt"
     torch.save({"init": f"file://{root / 'rendezvous'}", "train": spec_train,
-                "subgroup": spec_train[0], "eval": eval_spec,
+                "subgroup": spec_train[0], "eval": eval_spec, "int8": int8_spec,
                 "entry": {"argv": entry_argv, "port": free_port()},
                 "train_entry": {"argv": ["--cfg", str(train_cfgs["train_dp"]), "--device", "cpu",
                                          "--frequent", "1"], "port": free_port()}}, spec_path)
     ranks = Ranks(spec_path)
     try:
         yield {"train": train, "eval": (jmodel, variables, items, eval_spec),
-               "entry": (entry_cfg, entry_argv), "train_entry": train_cfgs, "ranks": ranks}
+               "entry": (entry_cfg, entry_argv), "train_entry": train_cfgs, "ranks": ranks,
+               "int8": (jm8, variables8, tm8, int8_clips, int8_items)}
     finally:
         ranks.close()
 
@@ -249,7 +296,14 @@ def jax_refs(dp):
     jmodel, variables, items, _ = dp["eval"]
     jmiou, _, jstats = jpred.pred_eval_clips(jmodel, variables, iter(items), 19, 3, "direct",
                                               mesh=make_mesh(data=2))
-    return steps, (jmiou, jstats)
+    # the int8 model's clip_logits under jit on the global batch split over the data axis
+    jm8, variables8, _, clips, _ = dp["int8"]
+    mesh = make_mesh(data=2)
+    run = jax.jit(lambda v, c: jpipe.clip_logits(jm8, v, c, INT8_K, "incremental"))
+    v8 = jax.device_put(variables8, replicated(mesh))
+    int8 = {name: np.asarray(run(v8, jax.device_put(jnp.asarray(clip), batch_sharding(mesh))))
+            for name, clip in clips.items()}
+    return steps, (jmiou, jstats), int8
 
 
 def jax_mesh_step(path: str, variables, arrays: dict):
@@ -335,6 +389,46 @@ def test_sharded_eval_gives_the_one_process_confusion(dp, jax_refs):
         np.testing.assert_array_equal(got["stats"]["confusion"], stats["confusion"])
         assert got["miou"] == miou and got["stats"]["frames"] == stats["frames"] == 12
     assert jstats["frames"] == 12 and abs(miou - jmiou) <= 1e-3, (miou, jmiou)
+
+
+@pytest.mark.parametrize("name", list(INT8_CLIPS))
+def test_int8_scales_are_the_global_calls(dp, jax_refs, name):
+    """Each rank's int8 ``clip_logits`` on its clips of the global batch
+    against the one-process port on the whole batch: every int8 call's
+    activation scale equal on both ranks and to the one process's (the
+    max over every frame of the call, as the reference's ``jit`` takes
+    it), and the logits within 1e-4 * (1 + max) (a scale over the rank's
+    frames alone moves them by ~7e-2 of their norm); the ranks' logits
+    together against ``jax.jit(clip_logits)`` on ``make_mesh(data=2)``."""
+    _, _, tm, clips, _ = dp["int8"]
+    clip = nchw(clips[name])
+    with quant.scales_recorded() as one_scales:
+        one = tpipe.clip_logits(tm, clip, INT8_K, "incremental")
+    ranks = dp["ranks"].results()
+    half = len(clip) // 2
+    for r, out in enumerate(ranks):
+        got = out["int8"][name]
+        assert len(got["scales"]) == len(one_scales) > 0
+        assert all(map(torch.equal, got["scales"], one_scales)), r
+        assert_close(got["logits"].numpy(), one[r * half:(r + 1) * half].numpy())
+    port = nhwc(torch.cat([out["int8"][name]["logits"] for out in ranks]))
+    want = jax_refs[2][name]
+    assert port.shape == want.shape
+    assert np.linalg.norm(port - want) <= INT8_REL_L2 * np.linalg.norm(want)
+    assert (port.argmax(-1) == want.argmax(-1)).mean() >= INT8_AGREE
+
+
+def test_int8_clamped_split_gives_the_one_process_confusion(dp):
+    """One-clip batches over two ranks (``TEST.BATCH_IMAGES: 1``, clamped):
+    rank 1 holds no rows and runs stand-ins that meet rank 0's scale
+    all-reduces; both finish with the one-process confusion matrix."""
+    _, _, tm, _, items = dp["int8"]
+    miou, _, stats = tpred.pred_eval_clips(tm, iter(items), 19, INT8_K, "incremental")
+    for r, out in enumerate(dp["ranks"].results()):
+        got = out["int8"]["clamped_eval"]
+        assert got["rows"] == (1 if r == 0 else 0)
+        np.testing.assert_array_equal(got["stats"]["confusion"], stats["confusion"])
+        assert got["miou"] == miou and got["stats"]["frames"] == stats["frames"] == 2 * INT8_K
 
 
 def test_eval_entry_point_splits_an_indivisible_batch_over_the_gcd(dp):

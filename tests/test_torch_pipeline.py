@@ -99,7 +99,7 @@ def test_unported_modes_raise(tiny):
         build_model({"dilated_conv": "sideways"}, device="cpu", generator=torch.Generator())
     # use_scale_field: false is ported: a FlowNet without the scale-field head
     model = build_model({"use_scale_field": False, "ref_depth": 18, "head_channels": 32},
-                        device="cpu", generator=torch.Generator())
+                        device="meta", generator=torch.Generator())
     assert not hasattr(model.flownet, "scale_field")
 
 

@@ -193,20 +193,34 @@ def test_quantized_model_routes_every_block_conv(tiny_quant):
         assert type(branch.head.score) is torch.nn.Conv2d
 
 
-@pytest.fixture
-def jax_int8_calls(monkeypatch):
-    """The activation shape (NHWC) of every int8 conv the JAX model runs,
-    in call order (``_pick_conv_fn`` returns the module's global)."""
+@pytest.fixture(scope="module")
+def jax_runs(tiny_quant):
+    """The JAX model's two groups, once per propagation mode for the tests
+    of this module: the activation shape (NHWC) of every int8 conv it
+    traces, in call order (one group's: ``lax.scan`` traces its body once;
+    ``_pick_conv_fn`` returns the module's global), the logits, and the
+    class maps of ``clip_predictions`` (its upsample + argmax tail on those
+    logits)."""
     import accel_tpu.models.resnet as jresnet
+    from accel_tpu.ops.upsample_argmax import upsample_argmax_or_oracle
 
-    calls = []
+    jm, v, _, clip = tiny_quant
+    runs = {}
+    for propagate in ("incremental", "direct"):
+        calls = []
 
-    def recorded(lhs, rhs, *args, **kwargs):
-        calls.append(tuple(lhs.shape))
-        return jq.int8_conv_general_dilated(lhs, rhs, *args, **kwargs)
+        def recorded(lhs, rhs, *args, **kwargs):
+            calls.append(tuple(lhs.shape))
+            return jq.int8_conv_general_dilated(lhs, rhs, *args, **kwargs)
 
-    monkeypatch.setattr(jresnet, "int8_conv_general_dilated", recorded)
-    return calls
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jresnet, "int8_conv_general_dilated", recorded)
+            logits = jpipe.clip_logits(jm, v, jnp.asarray(clip), 5, propagate)
+        B, F = logits.shape[:2]
+        preds = upsample_argmax_or_oracle(logits.reshape(B * F, *logits.shape[2:]),
+                                          clip.shape[2:4]).reshape(B, F, *clip.shape[2:4])
+        runs[propagate] = (calls, np.asarray(logits), np.asarray(preds))
+    return runs
 
 
 def _port_int8_calls(model):
@@ -219,15 +233,15 @@ def _port_int8_calls(model):
 
 
 @pytest.mark.parametrize("propagate", ["incremental", "direct"])
-def test_quantized_group_batches_and_convs_as_jax(tiny_quant, jax_int8_calls, propagate):
+def test_quantized_group_batches_and_convs_as_jax(tiny_quant, jax_runs, propagate):
     """One group (k=5): the port runs its int8 convs on activation batches
     of the JAX group step's shapes, in its order (the key frame alone, the
     update branch on the group's 5 frames at once), so each conv quantizes
     the same frames with one scale; and each of the port's int8 convs,
     given the port's own activation, equals JAX's int8 conv (with the
     bias) on that activation within an ulp."""
-    jm, v, tm, clip = tiny_quant
-    jpipe.clip_logits(jm, v, jnp.asarray(clip[:, :5]), 5, propagate)
+    _, _, tm, clip = tiny_quant
+    jax_int8_calls = jax_runs[propagate][0]
     calls, handles = _port_int8_calls(tm)
     try:
         tpipe.clip_logits(tm, nchw(clip[:, :5]), 5, propagate)
@@ -249,7 +263,7 @@ def test_quantized_group_batches_and_convs_as_jax(tiny_quant, jax_int8_calls, pr
 
 
 @pytest.mark.parametrize("propagate", ["incremental", "direct"])
-def test_quantized_clip_logits_match_jax(tiny_quant, propagate):
+def test_quantized_clip_logits_match_jax(tiny_quant, jax_runs, propagate):
     """Two groups end to end. The two sides' f32 activations differ in the
     last ulps (conv summation order), so a value that sits on a rounding
     boundary of its quantizer rounds to neighbouring int8 values on the two
@@ -258,21 +272,20 @@ def test_quantized_clip_logits_match_jax(tiny_quant, propagate):
     agree within a relative L2 error of 5e-2 (measured 1.3e-2 to 2.5e-2;
     int8 against float differs by 3e-2 here) and the stride-level class
     maps on >= 0.95 of the pixels (measured 0.97-0.99)."""
-    jm, v, tm, clip = tiny_quant
-    want = np.asarray(jpipe.clip_logits(jm, v, jnp.asarray(clip), 5, propagate))
+    _, _, tm, clip = tiny_quant
+    _, want, jpred = jax_runs[propagate]
     got = nhwc(tpipe.clip_logits(tm, nchw(clip), 5, propagate))
     assert got.shape == want.shape == (1, 10, 8, 8, 19)
     assert np.linalg.norm(got - want) <= 5e-2 * np.linalg.norm(want)
     assert (got.argmax(-1) == want.argmax(-1)).mean() >= 0.95
     pred = tpipe.clip_predictions(tm, torch.from_numpy(clip), 5, propagate)
-    jpred = np.asarray(jpipe.clip_predictions(jm, v, jnp.asarray(clip), 5, propagate))
     assert pred.dtype == torch.uint8 and (pred.numpy() == jpred).mean() >= 0.95
 
 
 def test_build_model_takes_the_quantize_knobs():
     gen = torch.Generator().manual_seed(0)
     m = build_model(dict(ref_depth=18, head_channels=32, dtype="float32", quantize_ref=True,
-                         dilated_conv="pallas"), device="cpu", generator=gen)
+                         dilated_conv="pallas"), device="meta", generator=gen)
     # int8 takes precedence over the dilated kernel in the quantized branch
     assert isinstance(m.ref_net.head.fc6, Int8Conv2d)
     assert type(m.update_net.head.fc6).__name__ == "DilatedConv3x3"

@@ -10,22 +10,28 @@ the JAX package's ``spatial`` mesh, on the CPU.
   dilation 2; max pool; the x2 upscale and the antialiased x2 and x4
   downscales; the plain versions of #1 (with the flow past its clamp and,
   at S=4, its halo taller than a shard), the unbounded plain warp, #2,
-  #3, #4 (scale and gain) and #5; GroupNorm and mean1's mean; whole
-  ResNet-18 trunks. The halo arithmetic of each op, and the refusals
-  (a gradient through the exchange now runs: it matches the unsharded
-  conv's).
+  #3, #4 (scale and gain) and #5; GroupNorm and mean1's mean; int8
+  convs (each thread's scale the unsharded call's, the output bit-equal);
+  the s2d stem and the folded 7x7/2 conv at f=2 and 4 (their hand
+  padding on one extended shard); whole ResNet-18 trunks. The halo
+  arithmetic of each op, and the row-stride refusal (a gradient through
+  the exchange runs: it matches the unsharded conv's).
 - Whole models, in one spawn of two gloo ranks (``torch_dp_worker.py``,
   a spec with ``spatial``; the JAX side runs here meanwhile): tiny f32
   Accel (groupnorm + mean1, incremental, cascade mean1; frozenbn + fused7,
   direct), DFF (the one-hot warp with mean1's gain fused, f32 tap weights
-  on both sides as in ``test_torch_dff.py``) and DeepLab (``dilated_conv:
-  pallas``), at the smallest frames the row rule admits, each rank running
+  on both sides as in ``test_torch_dff.py``), DeepLab (``dilated_conv:
+  pallas``), Accel in int8 with the s2d stem and FlowNet's fold, and
+  Accel with the update branch's fold, at the smallest frames the row
+  rule admits, each rank running
   ``clip_logits`` and
   ``clip_predictions`` on its rows under a ``tpu.mesh.spatial: 2`` mesh,
   against ``jax.jit(clip_logits)`` on a ``make_mesh(data=1, spatial=2)``
   clip sharded on H: logits within 1e-4 * (1 + max), class maps equal to
   the one-process port's and to the JAX logits' argmax through the JAX
-  upsample. ``pred_eval_clips`` under the spatial mesh: the one-process
+  upsample (int8: every call's scale equal on both ranks and within f32
+  rounding of the one process's, the class maps the one process's, and
+  against JAX ``test_torch_quant.py``'s end-to-end tolerance). ``pred_eval_clips`` under the spatial mesh: the one-process
   confusion matrix and the mIoU of ``accel_tpu``'s
   ``pred_eval_clips(mesh=make_mesh(1, 2), shard_spatial=True)``. The eval entry point under ``torchrun``'s
   variables with ``tpu.mesh.spatial: 2``: the one-process confusion
@@ -55,15 +61,16 @@ from accel_tpu_torch.core import pipeline as tpipe
 from accel_tpu_torch.core import predictor as tpred
 from accel_tpu_torch.experiments import test as t_entry
 from accel_tpu_torch.models.accel import AccelNet
-from accel_tpu_torch.models.resnet import (STEM_POOL_HALO, DilatedConv3x3, DilatedResNet,
-                                           GroupNorm16, Int8Conv2d)
+from accel_tpu_torch.models.resnet import (S2D_STEM_HALO, STEM_POOL_HALO, DilatedConv3x3,
+                                           DilatedResNet, GroupNorm16, Int8Conv2d)
+from accel_tpu_torch.ops import quant
+from accel_tpu_torch.ops.fold_downscale import fold_downscale_conv, fold_halo
 from accel_tpu_torch.ops.fused_stem import fused_stem
 from accel_tpu_torch.ops.upsample import bilinear_upsample, resize_bilinear, resize_halo
 from accel_tpu_torch.ops.upsample_argmax import upsample_argmax
 from accel_tpu_torch.ops.warp import bilinear_warp
 from accel_tpu_torch.ops.warp_onehot import warp_onehot
 from accel_tpu_torch.parallel import spatial
-from accel_tpu_torch.parallel.mesh import Mesh
 
 torch.set_num_threads(2)
 HW = (256, 128)   # FlowNet at flow_input_downscale 2 needs 128 | H/S and 128 | W
@@ -103,13 +110,18 @@ class ThreadShard(spatial.SpatialShard):
     def _all_reduce(self, t):
         return torch.stack(self.board.exchange(self.index, t.detach())).sum(0)
 
+    def reduce_max(self, t):
+        """The threads' max of ``t``: the int8 calls' scale group."""
+        return torch.stack(self.board.exchange(self.index, t.detach())).amax(0)
+
 
 def run_sharded(fn, inputs: tuple, size: int, module: nn.Module | None = None,
                 rows_out: bool = True):
     """``fn`` on each of ``size`` threads' rows of ``inputs`` (dim -2, each
-    input split by its own rows), inside its ``ThreadShard.serving(module)``
-    and the caller's grad mode: the outputs put together along dim -2
-    (``rows_out``), or each thread's own."""
+    input split by its own rows), inside its ``ThreadShard.serving(module)``,
+    the threads as the int8 calls' scale group, and the caller's grad mode:
+    the outputs put together along dim -2 (``rows_out``), or each thread's
+    own."""
     board = Board(size)
     outs, errors = [None] * size, []
     grad = torch.is_grad_enabled()
@@ -118,8 +130,9 @@ def run_sharded(fn, inputs: tuple, size: int, module: nn.Module | None = None,
         try:
             mine = tuple(x[..., i * (x.shape[-2] // size):(i + 1) * (x.shape[-2] // size), :]
                          for x in inputs)
-            with (torch.set_grad_enabled(grad),
-                  ThreadShard(board, size, i).serving(module or nn.Identity())):
+            shard = ThreadShard(board, size, i)
+            with (torch.set_grad_enabled(grad), shard.serving(module or nn.Identity()),
+                  quant.sharing(quant.ScaleGroup(shard.reduce_max))):
                 # every thread's hooks are on before any runs, and on until all ran
                 board.barrier.wait()
                 try:
@@ -165,6 +178,28 @@ def _gain():
     return torch.tensor([0.7, 1.3])
 
 
+def _int8(k, stride=1, dilation=1):
+    torch.manual_seed(k * 10 + stride + dilation)
+    return Int8Conv2d(4, 6, k, stride=stride, padding=dilation * (k // 2), dilation=dilation,
+                      bias=True)
+
+
+def _s2d_stem():
+    """The s2d stem as ``DilatedResNet.forward`` runs it: space-to-depth,
+    padding and ``conv1_s2d`` on one extended shard (the conv's own hooks,
+    which the module's ``serving`` registers, stay off inside it)."""
+    torch.manual_seed(17)
+    trunk = DilatedResNet(18, stem="s2d", dtype=torch.float32, use_kernels=False)
+    return trunk, lambda x: spatial.halo_apply(trunk._s2d_stem, x, *S2D_STEM_HALO, stride=2)
+
+
+def _fold(f):
+    """The 7x7/2 stem conv with a factor-f downscale folded in (the update
+    stem at f=2; FlowNet's conv1 halves at f=2 and 4)."""
+    w = _seeded(8, 3, 7, 7, seed=18 + f, scale=0.1)
+    return lambda x: fold_downscale_conv(x, w, f, 2, 3)
+
+
 # name -> (op factory: (fn, module or None), input shapes and scales, seed)
 FEAT = (2, 4, 32, 12)
 FLOW = (2, 2, 32, 12)
@@ -195,11 +230,21 @@ HALO_OPS = {
         f, fl, s, 4, _gain(), weights_dtype=torch.float32, plain=True)),
     "dilated_conv_5": lambda: (DilatedConv3x3(8, 8, 2, use_kernels=False), None),
     "group_norm": lambda: (GroupNorm16(32), None),
+    # int8 convs: the activation scale maxed over the group (S2D and folds below)
+    "int8_conv_k3_s2": lambda: (_int8(3, 2), None),
+    "int8_conv_k3_d2": lambda: (_int8(3, 1, 2), None),
+    "int8_conv_k1": lambda: (_int8(1), None),
+    "s2d_stem": _s2d_stem,
+    "fold_f2": lambda: (None, _fold(2)),
+    "fold_f4": lambda: (None, _fold(4)),
     "resnet18_fused7": lambda: (_trunk(stem="fused7", norm="frozenbn"), None),
     "resnet18_groupnorm_os8_pallas": lambda: (_trunk(output_stride=8, norm="groupnorm",
                                                      dilated_conv="pallas"), None),
 }
 INPUTS = {
+    "s2d_stem": (((2, 3, 64, 16), 1.0),),
+    "fold_f2": (((2, 3, 64, 24), 1.0),),
+    "fold_f4": (((2, 3, 64, 40), 1.0),),
     "warp_1_d6": ((FEAT, 1.0), (FLOW, 4.0)),
     "warp_1_d10": ((FEAT, 1.0), (FLOW, 6.0)),
     "warp_unbounded": (((2, 80, 32, 12), 1.0), (FLOW, 4.0)),
@@ -220,11 +265,22 @@ def test_halo_op_matches_the_unsharded_op(name, size):
     fn = fn or module
     inputs = tuple(_seeded(*shape, seed=i, scale=scale)
                    for i, (shape, scale) in enumerate(INPUTS.get(name, ((FEAT, 1.0),))))
+
+    def recorded(*xs):
+        with quant.scales_recorded() as scales:
+            return fn(*xs), scales
+
     with torch.inference_mode():
-        want = fn(*inputs)
-        got = run_sharded(fn, inputs, size, module)
+        want, want_scales = recorded(*inputs)
+        outs = run_sharded(recorded, inputs, size, module, rows_out=False)
+    got = torch.cat([out for out, _ in outs], dim=-2)
     assert got.shape == want.shape and got.dtype == want.dtype
-    if want.dtype == torch.uint8:
+    if want.dtype == torch.uint8 or want_scales:
+        # an int8 conv: every thread quantizes with the unsharded call's
+        # scale, and its int32 accumulators are the unsharded call's, so
+        # the output is too, bit for bit
+        assert all(len(scales) == len(want_scales) and all(map(torch.equal, scales, want_scales))
+                   for _, scales in outs)
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
@@ -250,6 +306,20 @@ def test_halo_arithmetic():
     assert spatial.window_halo(3, 2, padding=1) == (2, 2)  # the max pool
     # the fused stem and the max pool on one shard: input rows 4o-5..4o+5 at stride 4
     assert STEM_POOL_HALO == (8, 8)
+    # the s2d stem: space-to-depth rows o-2..o+1 (2 rows of padding above, 1
+    # below) are input rows 2o-4..2o+3: 4 above, 2 below the shard's last 2 rows
+    assert S2D_STEM_HALO == (4, 2)
+    # the folds of a 7x7/2 conv (padding 3): f=2, 16 taps at stride 4 from
+    # row 4o-7; f=4, 32 taps at stride 8 from row 8o-14: lo rows above,
+    # taps - lo - f*2 below; extend rounds both up to the stride
+    assert fold_halo(2, 7, 2, 3) == (7, 5) and fold_halo(4, 7, 2, 3) == (14, 10)
+    # each maps an extended shard of any whole number of strides onto
+    # whole output rows (the crop's check): ext/4 and ext/8 rows
+    for f, ext in ((2, 8 + 32 + 8), (4, 16 + 64 + 16)):
+        y = fold_downscale_conv(torch.zeros(1, 3, ext, 8), torch.zeros(1, 3, 7, 7), f, 2, 3)
+        assert y.shape[-2] == ext // (2 * f)
+        t, h = 8 * (f // 2), 32 * (f // 2)
+        assert spatial.crop(y, t, h, ext).shape[-2] == h // (2 * f)
     conv = nn.Conv2d(3, 8, 7, stride=2, padding=3)
     assert spatial.conv_halo(conv) == (4, 4, 2)
     assert spatial.conv_halo(DilatedConv3x3(8, 8, 4, use_kernels=False)) == (4, 4, 1)
@@ -268,19 +338,7 @@ def test_halo_arithmetic():
 
 
 def test_refusals():
-    split = Mesh(data=1, spatial=2, rank=0, local_rank=0, device=torch.device("cpu"))
     meta = dict(device="meta", dtype=torch.float32)
-    refused = {
-        "quantize": nn.Sequential(Int8Conv2d(3, 8, 3, padding=1, **meta)),
-        "stem: s2d": DilatedResNet(18, stem="s2d", **meta),
-        "fold_update_downscale": AccelNet(update_input_downscale=2, fold_update_downscale=True,
-                                          ref_depth=18, **meta),
-        "fold_flow_downscale": AccelNet(fold_flow_downscale=True, ref_depth=18, **meta),
-    }
-    for what, model in refused.items():
-        with pytest.raises(ValueError, match=f"does not serve {what}.*ROADMAP.md"):
-            with spatial.spatial_sharding(split, model):
-                pass
     # frames: H/S must divide by the model's largest row stride (FlowNet's
     # 64 * flow_input_downscale), checked before any exchange
     model = AccelNet(ref_depth=18, update_depth=18, **meta)
@@ -330,7 +388,23 @@ MODELS = {
     # per-frame DeepLab with every dilated conv through #5's plain version
     "deeplab_pallas": (dict(family="deeplab", ref_depth=18, head_channels=32,
                             dilated_conv="pallas"), 1, "direct", None, (64, 64)),
+    # int8 in both branches (each call's scale maxed over the ranks), the
+    # s2d stem and FlowNet's folded downscale (f=2: 16 taps at stride 4);
+    # FlowNet at a quarter of its width here and below, to spare the CPU
+    "accel_int8_s2d_foldflow": (dict(ACCEL, quantize_ref=True, quantize_update=True,
+                                     stem="s2d", fold_flow_downscale=True,
+                                     flow_width_mult=0.25), 2, "incremental", 3.0, HW),
+    # the update branch on half-resolution frames, its downscale folded into
+    # its conv7 stem (f=2)
+    "accel_foldupdate": (dict(ACCEL, update_input_downscale=2, fold_update_downscale=True,
+                              flow_input_downscale=1, flow_width_mult=0.25), 2, "direct",
+                         3.0, SMALL),
 }
+# int8 models against the JAX package at ``test_torch_quant.py``'s end-to-end
+# tolerance (one f32 ulp at a rounding boundary moves a whole int8 step):
+# the logits within a relative L2 error of 5e-2, the class maps on >= 0.95
+# of the pixels
+INT8_REL_L2, INT8_AGREE = 5e-2, 0.95
 EVAL_MODEL, EVAL_INTERVAL = "accel_groupnorm_mean1", 2
 ENTRY_CFG = """\
 network:
@@ -444,13 +518,25 @@ def test_sharded_clip_matches_the_jax_spatial_mesh(sp, jax_refs, name, f32_tap_w
     ranks = sp["ranks"].results()
     assert ranks[0]["backend"] == "gloo"
     got = np.concatenate([nhwc(r[name]["logits"]) for r in ranks], axis=-3)
-    assert_close(got, want)
     preds = torch.cat([r[name]["preds"] for r in ranks], dim=-2)
-    one = tpipe.clip_predictions(tm, torch.from_numpy(clip), interval, propagate)
+    with quant.scales_recorded() as one_scales:
+        one = tpipe.clip_predictions(tm, torch.from_numpy(clip), interval, propagate)
     assert preds.shape == one.shape == (1, 2, *clip.shape[2:4])
     assert torch.equal(preds, one)
     j_full = np.asarray(j_resize(jnp.asarray(want[0]), clip.shape[2:4]))
-    np.testing.assert_array_equal(preds[0].numpy(), j_full.argmax(-1))
+    if one_scales:
+        # each int8 call's scale the same on both ranks, and the one
+        # process's within f32 rounding of its activations
+        assert len(one_scales) == len(ranks[0][name]["scales"]) > 0
+        for r in ranks:
+            assert all(map(torch.equal, r[name]["scales"], ranks[0][name]["scales"]))
+            torch.testing.assert_close(torch.stack(r[name]["scales"]), torch.stack(one_scales),
+                                       rtol=1e-6, atol=0)
+        assert np.linalg.norm(got - want) <= INT8_REL_L2 * np.linalg.norm(want)
+        assert (preds[0].numpy() == j_full.argmax(-1)).mean() >= INT8_AGREE
+    else:
+        assert_close(got, want)
+        np.testing.assert_array_equal(preds[0].numpy(), j_full.argmax(-1))
     # GroupNorm's and mean1's reductions over H, and only those
     knobs = MODELS[name][0]
     reduces = knobs.get("norm") == "groupnorm" or knobs.get("scale_field_norm") == "mean1"

@@ -13,7 +13,8 @@ ops' autograd and the JAX package's ``spatial`` mesh, on the CPU.
   of k 1/3/5/7, strides 1 and 2, dilation 2; max pool; the x2 upscale and the antialiased x2 and x4
   downscales; the plain versions of #1 (at S=4 its halo is taller than a
   shard), the unbounded warp, #3 (the fused stem's weights), #4 and #5;
-  GroupNorm and ``spatial.mean``. Then remat's recompute with the
+  GroupNorm and ``spatial.mean``; the s2d stem and the folded 7x7/2 conv
+  at f=2 and 4. Then remat's recompute with the
   backward in a fresh ``contextvars.Context()`` (autograd's device thread
   on the card sees no shard): the recompute still runs under the shard.
 - Whole objectives, in one spawn of two gloo ranks (``torch_dp_worker.py``,
@@ -27,8 +28,9 @@ ops' autograd and the JAX package's ``spatial`` mesh, on the CPU.
   recipe (incremental, remat, aux 0.5; its first clip's aux frame is the
   top rows' most valid frame but not the whole frame's), clip through
   direct without remat (the batched group step), the pair objective with ``norm: batchnorm`` (the running
-  statistics too) and DeepLab with ``dilated_conv: pallas`` and OHEM
-  0.25. The loss at rtol 1e-5; the gradients each at cosine >= 0.99999
+  statistics too), DeepLab with ``dilated_conv: pallas`` and OHEM 0.25,
+  and the shipped recipe with the s2d stem and FlowNet's fold (256 rows:
+  FlowNet at input downscale 2). The loss at rtol 1e-5; the gradients each at cosine >= 0.99999
   and all of them within a relative L2 error of 1e-3 (``assert_agree``:
   two f32 summation orders flip ReLUs whose input lies within rounding of
   0, such as 1.25e-6 in the update branch's layer3 here, which moves a
@@ -41,9 +43,19 @@ ops' autograd and the JAX package's ``spatial`` mesh, on the CPU.
   under ``torchrun``'s variables with ``tpu.mesh.spatial: 2``: two steps,
   its checkpoint against the one-process entry point's within rel 1e-4.
 - One spawn of four gloo ranks (2 data x 2 spatial): one clip step against
-  the one-process port step.
-- In this process: quantize, the folds and ``stem: s2d`` still refused
-  under training; the entry point's crop split check.
+  the one-process port step; an Accel-18/18 with both branches int8
+  through ``pred_eval_clips`` on a batch of two clips and then one (which
+  data index 1 does not hold: it runs a stand-in), against the
+  one-process port on the global batches: every int8 call's scale equal
+  on the four ranks and within rtol 1e-6 of the one process's, the class
+  maps and the confusion equal. It runs FrozenBN, whose shards compute
+  the one process's activations bit for bit: GroupNorm's sums over a
+  shard's rows run in another order, and one f32 ulp at a rounding
+  boundary flips an int8 step (input noise of 1e-7 moves the shipped
+  recipe's int8 scales by 1.4% and its class maps to 0.979 in one
+  process).
+- In this process: the entry point's crop split check, the folded
+  models' row stride included.
 """
 
 import concurrent.futures
@@ -58,7 +70,7 @@ import torch.nn.functional as F
 from test_torch_spatial import FEAT, FLOW, _conv, _gain, _seeded, run_sharded
 from torch import nn
 from torch.utils.checkpoint import CheckpointError, checkpoint
-from torch_dp_worker import train_case
+from torch_dp_worker import spatial_model, train_case
 from torch_parity import (Ranks, assert_close, bridged_models, free_port, nchw,
                           write_cityscapes_tree)
 
@@ -71,16 +83,18 @@ from accel_tpu_torch.config import load_config
 from accel_tpu_torch.convert import flax_to_torch, load_flax_variables
 from accel_tpu_torch.core import checkpoint as tck
 from accel_tpu_torch.core import pipeline as tpipe
-from accel_tpu_torch.core import trainer as ttrainer
+from accel_tpu_torch.core import predictor as tpred
 from accel_tpu_torch.experiments import train as t_train
-from accel_tpu_torch.models.accel import AccelNet, build_model
-from accel_tpu_torch.models.resnet import DilatedConv3x3, DilatedResNet, GroupNorm16, Int8Conv2d
+from accel_tpu_torch.models.accel import AccelNet, build_model, init_weights
+from accel_tpu_torch.models.resnet import (S2D_STEM_HALO, DilatedConv3x3, DilatedResNet,
+                                           GroupNorm16)
+from accel_tpu_torch.ops import quant
+from accel_tpu_torch.ops.fold_downscale import fold_downscale_conv
 from accel_tpu_torch.ops.fused_stem import fused_stem
 from accel_tpu_torch.ops.upsample import bilinear_upsample, resize_bilinear
 from accel_tpu_torch.ops.warp import bilinear_warp
 from accel_tpu_torch.ops.warp_onehot import warp_onehot
 from accel_tpu_torch.parallel import spatial
-from accel_tpu_torch.parallel.mesh import Mesh
 
 torch.set_num_threads(2)
 SPATIAL = 2
@@ -95,6 +109,22 @@ def _stem():
     params = [p.requires_grad_() for p in (w, inv, shift)]
     return (lambda x: spatial.windowed(lambda t: fused_stem(t, *params, plain=True), x, 7, 2),
             params)
+
+
+def _s2d_stem():
+    """The s2d stem as ``DilatedResNet.forward`` runs it, on one extended
+    shard; its weights are ``conv1_s2d``'s."""
+    torch.manual_seed(17)
+    trunk = DilatedResNet(18, stem="s2d", dtype=torch.float32, use_kernels=False)
+    return (lambda x: spatial.halo_apply(trunk._s2d_stem, x, *S2D_STEM_HALO, stride=2),
+            [trunk.conv1_s2d.weight])
+
+
+def _fold(f):
+    """A 7x7/2 conv with the factor-f downscale folded in; its weights are
+    the unfolded kernel, composed at every call."""
+    w = _seeded(8, 3, 7, 7, seed=18 + f, scale=0.1).requires_grad_()
+    return lambda x: fold_downscale_conv(x, w, f, 2, 3), [w]
 
 
 def _module(m):
@@ -133,6 +163,11 @@ GRAD_OPS = {
     "group_norm": lambda: _module(GroupNorm16(32)),
     # mean1's renormalization: a per-sample mean over the whole frame
     "mean": lambda: _fn(lambda x: x * spatial.mean(x, (1, 2, 3), keepdim=True)),
+    # the s2d stem and the folds (the update stem at f=2, FlowNet's conv1
+    # halves at 2 and 4): their own padding, on one extended shard
+    "s2d_stem": _s2d_stem,
+    "fold_f2": lambda: _fold(2),
+    "fold_f4": lambda: _fold(4),
 }
 GRAD_INPUTS = {
     "warp_1_d6": ((FEAT, 1.0), (FLOW, 4.0)),
@@ -142,6 +177,9 @@ GRAD_INPUTS = {
     "warp_onehot_4": ((FEAT, 1.0), (FLOW, 3.0), (FEAT, 1.0)),
     "dilated_conv_5": (((2, 8, 32, 12), 1.0),),
     "group_norm": (((2, 32, 32, 12), 1.0),),
+    "s2d_stem": (((2, 3, 64, 16), 1.0),),
+    "fold_f2": (((2, 3, 64, 24), 1.0),),
+    "fold_f4": (((2, 3, 64, 40), 1.0),),
 }
 
 
@@ -268,7 +306,18 @@ OBJECTIVES = {
     "deeplab_pallas_ohem": (dict(family="deeplab", ref_depth=18, head_channels=32,
                                  norm="groupnorm", dilated_conv="pallas"), dict(
         objective="clip", propagate="direct", remat=True, ohem=0.25, aux=0.5)),
+    # the s2d stem in both branches and FlowNet's folded downscale (f=2) under
+    # the shipped recipe; FlowNet at input downscale 2 needs 128 | H/S
+    "clip_s2d_foldflow": (dict(SHIPPED, stem="s2d", fold_flow_downscale=True,
+                               flow_input_downscale=2), dict(
+        objective="clip", propagate="incremental", remat=True, ohem=0.0, aux=0.5)),
 }
+# the int8 serving case of the 2 x 2 ranks (module docstring: FrozenBN)
+INT8 = dict(family="accel", ref_depth=18, update_depth=18, head_channels=32,
+            flow_input_downscale=1, flow_width_mult=0.25, quantize_ref=True,
+            quantize_update=True)
+# the frames of a case whose row stride 128 needs more rows than H
+FRAMES = {"clip_s2d_foldflow": (256, W)}
 FRESH = "clip_incremental_remat"
 CFG = """\
 network:
@@ -300,18 +349,19 @@ tpu:
 """
 
 
-def clip_arrays(seed: int) -> dict:
+def clip_arrays(seed: int, h: int = H, w: int = W) -> dict:
     """A global clip batch (NHWC frames, int32 labels). Clip 0: frame 0 valid
-    on rows 0-59, frame 1 on rows 0-9 and 64-127, so the top shard alone
-    would pick frame 0 as the aux frame where the whole frame picks frame 1;
-    clip 1: frame 1 annotated, its first 8 rows ignored."""
+    on rows 0-59, frame 1 on rows 0-9 and 64-127 (to the last row), so the
+    top shard alone would pick frame 0 as the aux frame where the whole
+    frame picks frame 1; clip 1: frame 1 annotated, its first 8 rows
+    ignored."""
     rng = np.random.default_rng(seed)
-    label = np.full((B, F_CLIP, H, W), 255, np.int32)
-    label[0, 0, :60] = rng.integers(0, 19, (60, W))
-    label[0, 1, :10] = rng.integers(0, 19, (10, W))
-    label[0, 1, 64:] = rng.integers(0, 19, (H - 64, W))
-    label[1, 1, 8:] = rng.integers(0, 19, (H - 8, W))
-    return {"clip": (rng.standard_normal((B, F_CLIP, H, W, 3)) * 0.5).astype(np.float32),
+    label = np.full((B, F_CLIP, h, w), 255, np.int32)
+    label[0, 0, :60] = rng.integers(0, 19, (60, w))
+    label[0, 1, :10] = rng.integers(0, 19, (10, w))
+    label[0, 1, 64:] = rng.integers(0, 19, (h - 64, w))
+    label[1, 1, 8:] = rng.integers(0, 19, (h - 8, w))
+    return {"clip": (rng.standard_normal((B, F_CLIP, h, w, 3)) * 0.5).astype(np.float32),
             "label": label}
 
 
@@ -324,6 +374,20 @@ def pair_arrays(seed: int) -> dict:
     ref[1] = np.roll(data[1], 4, axis=1)
     return {"data": data, "data_ref": ref, "eq_flag": np.asarray([1.0, 0.0], np.float32),
             "label": label}
+
+
+def eval_batches(seed: int) -> list[dict]:
+    """Global eval batches of two clips and then one, 2 frames each (NHWC
+    frames; the last frame annotated, its first 8 rows ignored)."""
+    rng = np.random.default_rng(seed)
+    batches = []
+    for b in (2, 1):
+        label = np.full((b, F_CLIP, H, W), 255, np.int64)
+        label[:, -1, 8:] = rng.integers(0, 19, (b, H - 8, W))
+        batches.append({"clip": torch.from_numpy(
+            (rng.standard_normal((b, F_CLIP, H, W, 3)) * 0.5).astype(np.float32)),
+            "label": torch.from_numpy(label)})
+    return batches
 
 
 def port_batch(arrays: dict) -> dict:
@@ -414,8 +478,11 @@ def sp(tmp_path_factory):
         # results hold each once
         key = (tuple(sorted(knobs.items())), recipe["objective"])
         if key not in made:
-            arrays = (clip_arrays if recipe["objective"] == "clip" else pair_arrays)(100 + i)
-            jm, variables, tm = bridged_models(knobs, 64, seed=110 + i)
+            arrays = (clip_arrays(100 + i, *FRAMES.get(name, (H, W)))
+                      if recipe["objective"] == "clip" else pair_arrays(100 + i))
+            # weights made for a frame FlowNet takes
+            jm, variables, tm = bridged_models(knobs, 64 * knobs.get("flow_input_downscale", 1),
+                                               seed=110 + i)
             live_flow(tm, variables, arrays)
             made[key] = (jm, variables, arrays, tm.state_dict(), port_batch(arrays))
         jm, variables, arrays, state_dict, batch = made[key]
@@ -430,6 +497,11 @@ def sp(tmp_path_factory):
     _, step_variables, step_arrays, state_dict, batch = made[
         (tuple(sorted(SHIPPED.items())), "clip")]
     step_case = {"cfg": str(cfgs[SPATIAL]), "state_dict": state_dict, "batch": batch, "steps": 1}
+    int8 = AccelNet(**INT8, device="cpu", dtype=torch.float32)
+    with torch.no_grad():
+        init_weights(int8, torch.Generator().manual_seed(150))
+    serving_case = {"knobs": INT8, "state_dict": int8.state_dict(), "batches": eval_batches(151),
+                    "interval": 2, "propagate": "incremental"}
 
     data = write_cityscapes_tree(root / "train_tree", 128, 256, snippets=2, seed=140,
                                  split="train")
@@ -441,10 +513,12 @@ def sp(tmp_path_factory):
                 "train_entry": {"argv": ["--cfg", entry[SPATIAL], "--device", "cpu",
                                          "--frequent", "1"], "port": free_port()}}, spec_path)
     torch.save({"spatial_train": True, "init": f"file://{root / 'grid_rendezvous'}",
-                "cfg": str(cfgs[SPATIAL]), "steps": {"grid_step": step_case}}, grid_path)
+                "cfg": str(cfgs[SPATIAL]), "steps": {"grid_step": step_case},
+                "serving": {"grid_int8": serving_case}}, grid_path)
     ranks, grid = Ranks(spec_path, SPATIAL), Ranks(grid_path, 2 * SPATIAL)
     try:
         yield {"objectives": objectives, "ranks": ranks, "grid": grid, "grid_case": step_case,
+               "grid_serving": serving_case,
                "step": (str(cfgs[SPATIAL]), step_variables, step_arrays, step_case),
                "entry": entry, "root": root}
     finally:
@@ -474,7 +548,8 @@ def test_sharded_objective_matches_jax_value_and_grad(sp, jax_refs, name):
         assert out["mesh"] == (1, SPATIAL, 0, r)
         got = out[name]
         batch_key = "clip" if OBJECTIVES[name][1]["objective"] == "clip" else "data"
-        assert got["rows"][-2:] == [H // SPATIAL, W], got["rows"]
+        h, w = FRAMES.get(name, (H, W))
+        assert got["rows"][-2:] == [h // SPATIAL, w], got["rows"]
         assert batch_key and got["loss"] == ranks[0][name]["loss"]
         np.testing.assert_allclose(got["loss"], want_loss, rtol=1e-5)
         c = got["counters"]
@@ -563,6 +638,33 @@ def test_two_by_two_ranks_match_the_one_process_step(sp):
     assert_update_close(got, case["state_dict"], want["master"])
 
 
+def test_two_by_two_ranks_serve_int8_as_one_process(sp):
+    """The int8 model's eval on 2 data x 2 spatial ranks against the
+    one-process port on the global batches (module docstring): each call's
+    activation scale is the global call's on every rank, so the class maps
+    are the one process's."""
+    case = sp["grid_serving"]
+    maps = []
+    with quant.scales_recorded() as want_scales:
+        miou, _, stats = tpred.pred_eval_clips(spatial_model(case), case["batches"], 19,
+                                               case["interval"], case["propagate"],
+                                               on_preds=lambda _, preds: maps.append(preds))
+    want_scales = torch.stack(want_scales)
+    ranks = [out["grid_int8"] for out in sp["grid"].results()]
+    for r, got in enumerate(ranks):
+        assert got["batches"] == (2 if r < SPATIAL else 1)
+        scales = torch.stack(got["scales"])
+        assert torch.equal(scales, torch.stack(ranks[0]["scales"])), r
+        torch.testing.assert_close(scales, want_scales, rtol=1e-6, atol=0)
+        np.testing.assert_array_equal(got["confusion"], stats["confusion"])
+        assert got["miou"] == miou
+        # data index 0 holds clip 0 of both batches, data index 1 clip 1 of the first
+        want_maps = [maps[0][:1], maps[1]] if r < SPATIAL else [maps[0][1:]]
+        assert len(got["maps"]) == len(want_maps)
+        for g, w in zip(got["maps"], want_maps, strict=True):
+            assert torch.equal(g, w), r
+
+
 def test_train_entry_point_with_a_spatial_mesh_matches_one_process(sp):
     root = sp["root"]
     want = t_train.main(["--cfg", sp["entry"][1], "--device", "cpu", "--frequent", "1"])
@@ -588,28 +690,6 @@ def test_train_entry_point_with_a_spatial_mesh_matches_one_process(sp):
 # ---- in this process ----------------------------------------------------------
 
 
-def test_training_still_refuses_the_unported_knobs():
-    """Quantize, the folds and ``stem: s2d`` stay refused under the spatial
-    axis, by the train step too: before any collective."""
-    split = Mesh(data=1, spatial=2, rank=0, local_rank=0, device=torch.device("cpu"))
-    meta = dict(device="meta", dtype=torch.float32)
-    refused = {
-        "quantize": AccelNet(quantize_ref=True, ref_depth=18, update_depth=18, **meta),
-        "stem: s2d": AccelNet(stem="s2d", norm="batchnorm", ref_depth=18, **meta),
-        "fold_update_downscale": AccelNet(update_input_downscale=2, fold_update_downscale=True,
-                                          ref_depth=18, **meta),
-        "fold_flow_downscale": AccelNet(fold_flow_downscale=True, ref_depth=18, **meta),
-    }
-    tx = ttrainer.SGD(lambda count: 0.01, 0.9, 0.0)
-    step = ttrainer.make_train_step(tx, 19, objective="clip", remat=True, mesh=split)
-    for what, model in refused.items():
-        with pytest.raises(ValueError, match=f"does not serve {what}.*ROADMAP.md"):
-            step(ttrainer.init_train_state(model, tx), {})
-    assert any(isinstance(m, Int8Conv2d) for m in refused["quantize"].modules())
-    assert any(isinstance(m, DilatedResNet) and m.stem == "s2d"
-               for m in refused["stem: s2d"].modules())
-
-
 def test_entry_point_checks_the_crop_split():
     """The crop's rows over the spatial ranks must give shards that divide
     by the model's row stride: 768 over 4 ranks gives 192, against 128."""
@@ -621,3 +701,16 @@ def test_entry_point_checks_the_crop_split():
         t_train.check_split(768, 4, model)
     with pytest.raises(ValueError, match="shards of 255.5 rows"):
         t_train.check_split(511, 2, model)
+    # the folds keep the row stride of the unfolded model (FlowNet's 64 *
+    # flow_input_downscale, the update branch's feat stride * its input
+    # downscale): the flagship's 768 rows split over 2 ranks at input
+    # downscale 2, not at the fast row's 4, which the check names
+    folded = AccelNet(ref_depth=18, update_depth=18, fold_flow_downscale=True,
+                      update_input_downscale=2, fold_update_downscale=True, device="meta",
+                      dtype=torch.float32)
+    assert folded.row_stride == 128
+    t_train.check_split(768, 2, folded)
+    fast = AccelNet(ref_depth=18, update_depth=18, fold_flow_downscale=True,
+                    flow_input_downscale=4, device="meta", dtype=torch.float32)
+    with pytest.raises(ValueError, match="shards of 384 rows.*accel model's row stride 256"):
+        t_train.check_split(768, 2, fast)

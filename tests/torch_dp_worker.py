@@ -10,13 +10,16 @@ rendezvous), ``train`` (cases of train steps: cfg path, the port's
 rank 0 runs again under a group of one), ``eval`` (a model's
 ``state_dict``, its cfg path and global clip batches), ``entry`` and
 ``train_entry`` (argv for the eval and the train entry points under
-``torchrun``'s variables, each with a port for their rendezvous). A
+``torchrun``'s variables, each with a port for their rendezvous), and
+``int8`` (an int8 model's knobs and weights, global clip batches and
+one-clip eval batches: ``int8_case``). A
 spatial spec (``spatial_main``) holds instead a cfg with ``tpu.mesh.spatial``,
 models and their clips, an eval and an eval entry point. A spatial
 training spec (``spatial_train_main``) holds a cfg with
 ``tpu.mesh.spatial``, objective cases (a model's knobs, weights, recipe and
-global batch), train-step cases and a train entry point. The rank writes
-its results to ``SPEC.rank<RANK>``.
+global batch), train-step cases, serving cases (a model's knobs, weights
+and global clip batches: ``serving_case``) and a train entry point. The
+rank writes its results to ``SPEC.rank<RANK>``.
 Imports torch and the port only.
 """
 
@@ -40,6 +43,7 @@ from accel_tpu_torch.experiments import test as eval_entry
 from accel_tpu_torch.experiments import train as train_entry
 from accel_tpu_torch.models import accel as accel_module
 from accel_tpu_torch.models.accel import AccelNet, build_model
+from accel_tpu_torch.ops import quant
 from accel_tpu_torch.ops import warp as warp_module
 from accel_tpu_torch.ops.warp_onehot import warp_onehot
 from accel_tpu_torch.parallel import spatial
@@ -142,9 +146,9 @@ def digest(tensors: dict) -> str:
 def spatial_train_main(spec: dict, spec_path: str, rank: int, world: int) -> None:
     """Each objective case (``objective_grads``; the ``fresh`` one again
     with its backward in a fresh context, held against the first bit for
-    bit here), each train-step case (``train_case``) on the spec's ``data x
-    spatial`` mesh, then the train entry point under ``torchrun``'s
-    variables. Rank 0 alone returns gradients and masters (the same on
+    bit here), each train-step case (``train_case``) and each serving case
+    (``serving_case``) on the spec's ``data x spatial`` mesh, then the train
+    entry point under ``torchrun``'s variables. Rank 0 alone returns gradients and masters (the same on
     every rank: the ranks return their digests)."""
     out = {}
     mesh = mesh_from_cfg(load_config(spec["cfg"]), device="cpu", init_method=spec["init"],
@@ -166,6 +170,8 @@ def spatial_train_main(spec: dict, spec_path: str, rank: int, world: int) -> Non
                 out[name]["grads"] = None
         for name, case in spec.get("steps", {}).items():
             out[name] = train_case(case, mesh)
+        for name, case in spec.get("serving", {}).items():
+            out[name] = serving_case(case, mesh)
     finally:
         mesh.close()
     if "train_entry" in spec:
@@ -175,6 +181,29 @@ def spatial_train_main(spec: dict, spec_path: str, rank: int, world: int) -> Non
         state = train_entry.main(spec["train_entry"]["argv"])
         out["train_entry"] = {"step": state.step, "master_digest": digest(state.master)}
     torch.save(out, f"{spec_path}.rank{rank}")
+
+
+def serving_case(case: dict, mesh: Mesh) -> dict:
+    """``pred_eval_clips`` of a model on this rank's part of each global
+    clip batch of ``case['batches']``: its data index's clips (a batch that
+    does not divide over the data axis clamped as the eval entry point
+    clamps it) and its rows of their frames. Every int8 call's scale, the
+    class maps ``on_preds`` sees (whole frames), the confusion and how
+    many batches this rank held."""
+    model = spatial_model(case)
+    items = []
+    for batch in case["batches"]:
+        rows = batch_rows(mesh, len(batch["clip"]), clamp=True)
+        if rows.stop > rows.start:
+            item = shard_batch(mesh, batch, rows)
+            frame = spatial.frame_rows(mesh, item["clip"].shape[2])
+            items.append(dict(item, clip=item["clip"][:, :, frame]))
+    maps = []
+    with quant.scales_recorded() as scales:
+        miou, _, stats = pred_eval_clips(model, items, 19, case["interval"], case["propagate"],
+                                         mesh=mesh, on_preds=lambda _, preds: maps.append(preds))
+    return {"scales": scales, "maps": maps, "miou": miou, "confusion": stats["confusion"],
+            "batches": len(items)}
 
 
 def spatial_model(case: dict) -> AccelNet:
@@ -210,9 +239,11 @@ def spatial_main(spec: dict, spec_path: str, rank: int, world: int) -> None:
             with spatial.spatial_sharding(mesh, model) as shard:
                 logits = clip_logits(model, clip[:, :, rows].movedim(-1, -3).contiguous(),
                                      case["interval"], case["propagate"])
-                preds = clip_predictions(model, clip[:, :, rows], case["interval"],
-                                         case["propagate"])
-            out[name] = {"logits": logits, "preds": preds, "halo": shard.counters()}
+                with quant.scales_recorded() as scales:
+                    preds = clip_predictions(model, clip[:, :, rows], case["interval"],
+                                             case["propagate"])
+            out[name] = {"logits": logits, "preds": preds, "halo": shard.counters(),
+                         "scales": scales}
         ev = spec["eval"]
         model = spatial_model(spec["models"][ev["model"]])
         # each rank's rows of the frames, as the eval entry point cuts them
@@ -228,6 +259,31 @@ def spatial_main(spec: dict, spec_path: str, rank: int, world: int) -> None:
                       MASTER_PORT=str(spec["entry"]["port"]))
     (out["entry"],) = eval_entry.main(spec["entry"]["argv"])
     torch.save(out, f"{spec_path}.rank{rank}")
+
+
+def int8_case(case: dict, mesh: Mesh) -> dict:
+    """An int8 model on the data axis: ``clip_logits`` of each global clip
+    batch on this rank's rows under the world's scale group (the
+    reference's call: the global batch), with every int8 call's scale;
+    then ``pred_eval_clips`` of one-clip batches split over the ranks as
+    the eval entry point clamps ``TEST.BATCH_IMAGES: 1`` (rank 1 gets no
+    rows, so no batches)."""
+    model = spatial_model(case)
+    out = {}
+    for name, clip in case["clips"].items():
+        rows = batch_rows(mesh, len(clip))
+        with spatial.spatial_sharding(mesh, model):
+            world = quant.active().within(rows.start, rows.stop - rows.start, len(clip))
+            with quant.sharing(world), quant.scales_recorded() as scales:
+                logits = clip_logits(model, clip[rows].movedim(-1, -3).contiguous(),
+                                     case["interval"], case["propagate"])
+        out[name] = {"logits": logits, "scales": scales}
+    rows = batch_rows(mesh, 1, clamp=True)
+    items = [shard_batch(mesh, item, rows) for item in case["items"]] if rows.stop else []
+    miou, _, stats = pred_eval_clips(model, items, 19, case["interval"], case["propagate"],
+                                     mesh=mesh)
+    out["clamped_eval"] = {"miou": miou, "stats": stats, "rows": rows.stop - rows.start}
+    return out
 
 
 def main(spec_path: str, rank: int, world: int) -> None:
@@ -258,6 +314,8 @@ def main(spec_path: str, rank: int, world: int) -> None:
             model, [shard_batch(mesh, item, rows) for item in ev["items"]], 19,
             int(cfg.TEST.KEY_FRAME_INTERVAL), "direct", mesh=mesh)
         out["eval"] = {"miou": miou, "iou": iou, "stats": stats}
+        if "int8" in spec:
+            out["int8"] = int8_case(spec["int8"], mesh)
     finally:
         mesh.close()
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
