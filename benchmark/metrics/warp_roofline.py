@@ -1,0 +1,20 @@
+"""Kernels: Accel's score-map warp ``kernels/warp.cu`` (#1, through
+``ops/warp_cuda.py``): the least time the card could take for the traced
+segment's non-key frames, each one warp of the C-class score map at
+feature stride (bytes: the map and the f32 flow read, the warped map
+written; 7 operations an output element at the f32 peak), as a share of
+the device time of the kernel's events. Moves ``frames_per_s``."""
+
+from benchmark.roofline import bound_s, dtype_bytes, feature_hw, share
+
+
+def read(run):
+    trace = run.trace
+    if trace is None:
+        return None
+    c = run.config
+    h, w = feature_hw(c)
+    elem = 4 if c["network"]["warp_dtype"] == "f32" else dtype_bytes(c)
+    out = c["num_classes"] * h * w
+    n_bytes = 2 * out * elem + 2 * h * w * 4
+    return share(trace.frames["cur"] * bound_s(n_bytes, 7 * out, "f32"), trace.kernel_s("warp"))
