@@ -63,6 +63,7 @@ from accel_tpu_torch.ops.upsample import resize_bilinear
 from accel_tpu_torch.ops.upsample_argmax import upsample_argmax, upsample_argmax_plain
 from accel_tpu_torch.ops.warp import bilinear_warp
 from accel_tpu_torch.parallel import spatial
+from accel_tpu_torch.utils.profiler import spanned
 
 # Max full-resolution frames per batched call inside a group step; B*k
 # beyond this runs in equal chunks (the largest divisor of B*k up to this),
@@ -180,6 +181,7 @@ def _with_key(key_scores, ref_nonkey, B, k):
                       ref_nonkey.reshape(B, k - 1, *ref_nonkey.shape[1:])], dim=1)
 
 
+@spanned("model.warp")
 def _warp_field(model, field, flow):
     """Warp a small per-pixel field (a flow or a scale field) by a step
     flow, in f32, through the model's warp dispatch (``use_pallas_warp``,
@@ -276,6 +278,7 @@ def _group_step_composed_batched(model, frames_g, input_scale=None):
     return _update_fuse_tail(model, frames_g, ref_all, input_scale)
 
 
+@spanned("model.warp")
 def propagate_step(model, carry, prod, flow, scale, cascade: str):
     """One step of the frame-to-frame cascade: ``carry`` warped by
     ``flow``. Returns (the next carry, the next cumulative scale product,
@@ -476,9 +479,16 @@ def clip_predictions_body(model, clip: torch.Tensor, interval: int,
     ``torch.inference_mode``)."""
     if upsample not in UPSAMPLES:
         raise ValueError(f"unknown upsample {upsample!r} {UPSAMPLES}")
-    B, F, H, W, _ = clip.shape
     logits = train_clip_logits(model, clip.permute(0, 1, 4, 2, 3).contiguous(), interval,
                                propagate, input_scale=input_scale)
+    return _class_maps(model, logits, tuple(clip.shape[2:4]), full_res, upsample)
+
+
+@spanned("model.tail")
+def _class_maps(model, logits: torch.Tensor, frame_hw, full_res: bool, upsample: str):
+    """(B,F,C,h,w) logits -> the class maps ``clip_predictions`` returns."""
+    B, F = logits.shape[:2]
+    H, W = frame_hw
     if not full_res or upsample == "nearest_pred":
         pred = logits.argmax(dim=2).to(torch.uint8)
         if not full_res:

@@ -27,6 +27,7 @@ from accel_tpu_torch.ops import quant
 from accel_tpu_torch.ops.upsample_argmax import upsample_argmax
 from accel_tpu_torch.parallel import spatial
 from accel_tpu_torch.parallel.mesh import batch_layout, gather_ints
+from accel_tpu_torch.utils.profiler import span
 
 
 class DataBatch:
@@ -98,9 +99,10 @@ def make_key_cur_predictors(model, full_res_pred: bool = True,
     def scores_out(scores, image):
         if model.family == "accel":
             scores = model.fuse(scores, model.update_scores(image))
-        if not full_res_pred:
-            return scores.argmax(dim=1).to(torch.uint8)
-        return upsample_argmax(scores, image.shape[-2:], plain=not model.use_kernels)
+        with span("model.tail"):
+            if not full_res_pred:
+                return scores.argmax(dim=1).to(torch.uint8)
+            return upsample_argmax(scores, image.shape[-2:], plain=not model.use_kernels)
 
     def key_fn(frame):
         image = frame.permute(0, 3, 1, 2).contiguous()

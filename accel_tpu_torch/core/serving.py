@@ -9,8 +9,10 @@
         pred = seg.push_frame(frame)    # (1, H, W) uint8 class map
 
 ``push_frame`` runs the key or the cur predictor of
-``core/predictor.py`` on each frame; ``push_group`` serves a whole
-keyframe group per call through the batched clip pipeline.
+``core/predictor.py`` on each frame (the span ``serve.key`` or
+``serve.cur``); ``push_group`` serves a whole keyframe group per call
+through the batched clip pipeline (``serve.group``; spans:
+``utils/profiler.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from accel_tpu_torch.core.pipeline import clip_predictions
 from accel_tpu_torch.core.predictor import DataBatch, make_key_cur_predictors
+from accel_tpu_torch.utils.profiler import span, spanned
 
 
 class VideoSegmenter:
@@ -51,9 +54,11 @@ class VideoSegmenter:
         the model's device. The ``deeplab`` family runs every frame as a
         keyframe."""
         if self.is_keyframe_next or self.model.family == "deeplab":
-            out = self._key_p.predict(DataBatch([frame]))[0]
+            with span("serve.key"):
+                out = self._key_p.predict(DataBatch([frame]))[0]
         else:
-            out = self._cur_p.predict(DataBatch([frame, self._anchor_small, self._prop]))[0]
+            with span("serve.cur"):
+                out = self._cur_p.predict(DataBatch([frame, self._anchor_small, self._prop]))[0]
         self._prop = out["prop"]
         self._anchor_small = out["anchor_small"]
         self._t += 1
@@ -64,6 +69,7 @@ class VideoSegmenter:
         per frame (``push_group`` batches a group's frames)."""
         return torch.stack([self.push_frame(clip[:, i]) for i in range(clip.shape[1])], dim=1)
 
+    @spanned("serve.group")
     def push_group(self, frames: torch.Tensor) -> torch.Tensor:
         """frames (B, k, H, W, 3), keyframe first -> (B, k, H, W) uint8.
 

@@ -26,6 +26,7 @@ from accel_tpu_torch.ops.upsample import resize_bilinear
 from accel_tpu_torch.ops.warp import bilinear_warp, flow_to_feature_res
 from accel_tpu_torch.ops.warp_onehot import warp_onehot
 from accel_tpu_torch.parallel import spatial
+from accel_tpu_torch.utils.profiler import spanned
 
 FAMILIES = ("deeplab", "dff", "accel")
 SCALE_CASCADES = ("last", "product", "mean1", "clamp")
@@ -130,16 +131,19 @@ class AccelNet(nn.Module):
 
     # ---- branch applications -------------------------------------------
 
+    @spanned("model.key")
     def ref_propagated(self, image):
         """Keyframe pass of the reference branch -> the tensor that is
         cached and warped (scores for accel, fc6 features for dff)."""
         return self.ref_net(image, mode="features" if self.warp_tensor == "features" else "full")
 
+    @spanned("model.heads")
     def ref_scores_from_propagated(self, prop):
         if self.warp_tensor == "features":
             return self.ref_net.scores_from_features(prop)
         return prop
 
+    @spanned("model.update")
     def update_scores(self, image):
         """Update-branch scores on the feature grid: the branch runs on the
         frame downscaled by ``update_input_downscale``, and its scores are
@@ -155,6 +159,7 @@ class AccelNet(nn.Module):
             s = resize_bilinear(s, feat_hw)
         return s
 
+    @spanned("model.flow")
     def downscale_for_flow(self, frames):
         """(N,3,H,W) full-res -> FlowNet-input resolution."""
         ds = self.flow_input_downscale
@@ -168,6 +173,7 @@ class AccelNet(nn.Module):
             scale_small = scale_small.to(self.dtype)
         return flow, resize_bilinear(scale_small, feat_hw)
 
+    @spanned("model.flow")
     def flow_pair(self, cur_small, anchor_small):
         """Flow (feature res and units) and scale field from already
         downscaled frames; the pair is ``[cur, anchor]``."""
@@ -177,6 +183,7 @@ class AccelNet(nn.Module):
                    cur_small.shape[-1] * ds // self.feat_stride)
         return self._flow_post(flow_small, scale_small, feat_hw)
 
+    @spanned("model.flow")
     def flow_stem_partials(self, frames):
         """Each full-resolution frame's FlowNet conv1 partials in its two
         roles, (cur, anchor), with the flow input downscale folded in
@@ -186,6 +193,7 @@ class AccelNet(nn.Module):
         return (self.flownet.stem_partial(frames, "cur", f),
                 self.flownet.stem_partial(frames, "anchor", f))
 
+    @spanned("model.flow")
     def flow_pair_from_partials(self, cur_part, anchor_part):
         """Flow and scale field (as ``flow_pair``) from conv1 partials."""
         flow_small, scale_small = self.flownet.from_conv1(cur_part + anchor_part)
@@ -194,6 +202,7 @@ class AccelNet(nn.Module):
                    cur_part.shape[-1] * 2 * ds // self.feat_stride)
         return self._flow_post(flow_small, scale_small, feat_hw)
 
+    @spanned("model.flow")
     def flow(self, cur, anchor):
         """Flow mapping cur-frame pixels to their anchor-frame source, at
         feature resolution and units, plus the scale field there."""
@@ -214,6 +223,7 @@ class AccelNet(nn.Module):
             scale = scale * self.norm_scale_gain(scale).view(-1, 1, 1, 1).to(scale.dtype)
         return scale
 
+    @spanned("model.warp")
     def warp(self, prop, flow, scale, normalize_scale=True, max_disp=None, modulate=True):
         """Warp the propagated tensor (in f32, or in its own dtype under
         ``warp_dtype='native'``) and (``modulate``) multiply by the
@@ -243,6 +253,7 @@ class AccelNet(nn.Module):
             warped = warped * scale
         return warped
 
+    @spanned("model.heads")
     def fuse(self, warped_ref_scores, update_scores):
         """1x1 fusion of ``[warped_ref, update]`` in f32."""
         x = torch.cat([warped_ref_scores.to(torch.float32), update_scores.to(torch.float32)],

@@ -3,7 +3,8 @@
 package's count of the same flax trees (running statistics are buffers
 here, ``batch_stats`` there, and neither counts), the summary table's rows
 and its ``TOTAL`` as the JAX one prints them, shape inference without
-computing, the stage timer, a profiler trace, and the NaN check."""
+computing, a profiler trace, and the NaN check (the spans:
+``test_torch_spans.py``)."""
 
 import os
 
@@ -16,7 +17,7 @@ from torch_parity import bridged_models
 from accel_tpu.models.resnet import DilatedResNet as JDilatedResNet
 from accel_tpu.utils import summary as jsummary
 from accel_tpu_torch.models.resnet import DilatedResNet
-from accel_tpu_torch.utils.profiler import StageTimer, debug_nans, profile_trace
+from accel_tpu_torch.utils.profiler import debug_nans, profile_trace
 from accel_tpu_torch.utils.summary import ShapeDtype, infer_shapes, param_count, param_summary
 
 torch.set_num_threads(2)
@@ -58,16 +59,6 @@ def test_infer_shapes_computes_nothing():
     out = infer_shapes(m, torch.zeros((1, 3, 32, 32)))
     assert out == ShapeDtype((1, 512, 2, 2), torch.float32)
     assert seen == ["FakeTensor"]
-
-
-def test_stage_timer():
-    t = StageTimer()
-    with t.stage("a"):
-        x = torch.ones(4) + 1
-    with t.stage("a", sync={"x": x, "y": [x * 2]}):
-        _ = x * 2
-    assert t.counts["a"] == 2 and t.totals["a"] >= 0.0
-    assert t.summary().startswith("a=") and t.summary().endswith("ms")
 
 
 def test_profile_trace(tmp_path):
