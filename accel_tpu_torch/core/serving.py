@@ -12,13 +12,17 @@
 ``core/predictor.py`` on each frame (the span ``serve.key`` or
 ``serve.cur``); ``push_group`` serves a whole keyframe group per call
 through the batched clip pipeline (``serve.group``; spans:
-``utils/profiler.py``).
+``utils/profiler.py``), on a CUDA device from one CUDA graph a group shape
+(``core/graphs.py``).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from accel_tpu_torch.core.graphs import CallGraphs
 from accel_tpu_torch.core.pipeline import clip_predictions
 from accel_tpu_torch.core.predictor import DataBatch, make_key_cur_predictors
 from accel_tpu_torch.utils.profiler import span, spanned
@@ -34,9 +38,12 @@ class VideoSegmenter:
         self.interval = int(interval)
         self.model = model
         self.propagate = propagate
-        self._full_res = full_res
         self._key_p, self._cur_p = make_key_cur_predictors(
             model, full_res_pred=full_res, propagate=propagate)
+        self._group = CallGraphs(
+            functools.partial(clip_predictions, model, interval=self.interval,
+                              propagate=propagate, full_res=full_res),
+            watched=[*model.parameters(), *model.buffers()])
         self.reset()
 
     def reset(self):
@@ -75,7 +82,16 @@ class VideoSegmenter:
 
         One batched pipeline call per keyframe group; the schedule must be
         at a group boundary (``is_keyframe_next``). The ``deeplab`` family
-        runs every frame as a keyframe and takes a group of any length."""
+        runs every frame as a keyframe and takes a group of any length.
+
+        On a CUDA device the call is ``core/graphs.py``'s ``CallGraphs``:
+        the first group of a shape runs eagerly, the second is captured as
+        a CUDA graph, and every later one replays it (one launch) and
+        returns its own copy of the maps. The graph holds a memory pool of
+        about the eager call's peak for as long as the segmenter lives. It
+        reads the model's parameters and buffers in place: an in-place write
+        (``load_state_dict``) makes the next groups run eagerly and capture
+        again; replacing a parameter tensor is not seen."""
         if frames.shape[1] != self.interval and self.model.family != "deeplab":
             raise ValueError(f"group length {frames.shape[1]} != interval {self.interval}")
         if not self.is_keyframe_next:
@@ -83,8 +99,7 @@ class VideoSegmenter:
                 "push_group mid-group: schedule is not at a keyframe "
                 f"(t={self._t}, interval={self.interval}); reset() or finish the group "
                 "with push_frame")
-        pred = clip_predictions(self.model, frames, self.interval, self.propagate,
-                                full_res=self._full_res)
+        pred = self._group(frames)
         # groups are self-contained: the per-frame cache is dropped
         self._t += frames.shape[1]
         self._prop = None

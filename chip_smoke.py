@@ -24,14 +24,17 @@ Phases, one JSON line each:
 4. e2e: Accel-18 (R101 keyframe branch, R18 update branch, FlowNet-S at
    full width, frozenbn + fused7 stem, bf16) at 1024x2048, B=1, k=5,
    through ``VideoSegmenter.push_group``: three incremental + 'last'
-   groups and one direct group, with every kernel launch counted; then the
+   groups and one direct group, with every kernel launch counted (the
+   third incremental group replays a CUDA graph: no launch wrapper runs,
+   see phase 26); then the
    same groups with every kernel replaced by its plain version, and the
    two compared as two bf16 paths are (``compare_paths``: logits, and class
    maps overall and off bf16 near-ties); then the plain path with only the
    stem through its kernel, whose class maps the kernel path must match on
    >= 0.999 of the pixels.
 5. e2e_flagship: one incremental + 'last' group with the flagship cfg's
-   groupnorm + conv7 stem + scale_field_norm mean1.
+   groupnorm + conv7 stem + scale_field_norm mean1 (the launches counted
+   at the CUDA graph's capture, the ms of a replay).
 6. e2e_dff: the bench's DFF row (R101 keyframe fc6 features warped by the
    one-hot warp with the scale field fused in, D=4, native dtype, FlowNet
    at 1/4 input and half width) at 1024x2048, B=1, k=5: two direct groups
@@ -200,6 +203,18 @@ Phases, one JSON line each:
     and all-reduces in forward, recompute and backward, halo bytes, step
     ms and peak memory beside one process's (``e2e_spatial_train``).
 
+26. e2e_graphs: ``push_group`` from CUDA graphs (``core/graphs.py``): for
+    Accel-18 as the benchmark serves it and direct and composed, the DFF
+    row as the benchmark serves it and DeepLab-101, at B=1 and B=4, a
+    segmenter's eager, capturing and replaying calls, each bit-equal to
+    ``clip_predictions`` on its own frames, then a replay on the first
+    frames again; the capturing call's exact launches equal to the eager
+    call's, a replay's none; a returned map unchanged by later calls; a
+    profiled replay one launch call (``cudaGraphLaunch``) with every
+    kernel of the eager call in its device trace; the group's CUDA-event
+    ms, eager against replayed, in alternating turns. The folded fast model
+    (a host copy inside the call) fails its capture and is served eagerly.
+
 Then the ``{"kernels": [...]}`` line (each kernel's first row, with its
 launches on one path it serves and per group there, and its launches on
 every path above; #5 also its dx launches on the training paths), the card's name and
@@ -228,6 +243,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 import zlib
 from pathlib import Path
 
@@ -240,6 +256,7 @@ from accel_tpu_torch import kernels, native
 from accel_tpu_torch.config import load_config
 from accel_tpu_torch.core.checkpoint import load_checkpoint
 from accel_tpu_torch.core.export import export_serving, load_serving
+from accel_tpu_torch.core.graphs import CallGraphs
 from accel_tpu_torch.core import trainer as trainer_module
 from accel_tpu_torch.core.pipeline import (
     clip_logits,
@@ -1095,7 +1112,9 @@ def small_reference() -> None:
 
 def e2e_bench() -> tuple[dict[str, int], int]:
     """Phase 4. Returns the launch counts of the main path's run and its
-    number of groups."""
+    number of groups that ran the launch wrappers: the incremental
+    segmenter's third group replays the CUDA graph its second captured
+    (``core/graphs.py``), which runs no Python launch wrapper."""
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(SEED)
     model = build_model(BENCH_NET, device="cuda", generator=gen)
@@ -1125,8 +1144,11 @@ def e2e_bench() -> tuple[dict[str, int], int]:
     for name in ("warp", "upsample_argmax", "fused_stem"):
         check(launched[name] > 0, f"kernel {name} was not launched on the main path")
     # a warp per non-key frame of an incremental group (one frame a step),
-    # one batched warp per direct group; one tail per group
-    check(launched["warp"] == 3 * (K - 1) + 1 and launched["upsample_argmax"] == len(groups),
+    # one batched warp per direct group; one tail per group; of the three
+    # incremental groups the first runs eagerly, the second is captured
+    # (its launches counted as they are captured) and the third replayed
+    wrapped = len(groups) - 1
+    check(launched["warp"] == 2 * (K - 1) + 1 and launched["upsample_argmax"] == wrapped,
           f"main path launches {launched}")
 
     plain = build_model(BENCH_NET, device="cuda", generator=torch.Generator().manual_seed(SEED),
@@ -1148,7 +1170,7 @@ def e2e_bench() -> tuple[dict[str, int], int]:
         check_bf16_paths(f"e2e kernel vs plain, group {key}", c)
     for key, agree in vs_same_stem.items():
         check(agree >= 0.999, f"e2e kernel vs plain with the kernel stem, group {key}: {agree}")
-    return launched, len(groups)
+    return launched, wrapped
 
 
 def e2e_flagship() -> None:
@@ -1158,10 +1180,10 @@ def e2e_flagship() -> None:
     live_flow_heads(model, clip, SEED + 9)
     seg = VideoSegmenter(model, K, propagate="incremental")
     seg.push_group(clip)  # warm-up
-    seg.reset()
     reset_counts()
-    pred, ms = timed_group(seg, clip)
+    seg.push_group(clip)  # the CUDA graph's capture: the eager call's launches
     launched = counts()
+    pred, ms = timed_group(seg, clip)  # a replay
     check_pred(pred, (1, K, H, W))
     emit(dict(phase="e2e_flagship", config="accel18 groupnorm conv7 mean1 bf16", hw=[H, W], B=1,
               k=K, group_ms=ms, fps=K / (ms / 1e3), launches=launched))
@@ -1903,6 +1925,163 @@ def e2e_quant_small() -> dict[str, int]:
     emit(dict(phase="e2e_quant_small", config="accel18 int8 frozenbn fused7 bf16 direct B=1",
               k=K, **rows))
     return launched
+
+
+# ---- phase 26: push_group from CUDA graphs ---------------------------------------
+
+def bench_network(config: str) -> dict:
+    """The network of a benchmark configuration (``benchmark/configs/``)."""
+    path = Path(__file__).resolve().parent / "benchmark" / "configs" / f"{config}.json"
+    return json.loads(path.read_text())["network"]
+
+
+def profiled_launches(fn) -> tuple[object, dict[str, int], dict[str, int]]:
+    """``fn()`` under ``torch.profiler``: its result, the launch calls on
+    the host by name (those the benchmark counts: a graph launch is one),
+    and the port's kernels among the device events (``benchmark/devtrace.py``'s
+    names), each by count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.devtrace import port_kernel
+    from benchmark.spans import LAUNCHES
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    calls: dict[str, int] = {}
+    seen: dict[str, int] = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            kernel = port_kernel(name)
+            if kernel is not None:
+                seen[kernel] = seen.get(kernel, 0) + 1
+        elif name.startswith(LAUNCHES):
+            calls[name] = calls.get(name, 0) + 1
+    return out, calls, seen
+
+
+def graph_case(name: str, model, propagate: str, clips: list, turns: int = 4,
+               capture_fails: bool = False) -> dict:
+    """``push_group`` of one segmenter (composed: the ``CallGraphs`` of its
+    group step) over ``clips`` (three of one shape):
+    the first call eager, the second captured, the third replayed, then the
+    first clip again (a replay on new frames gives the new frames' maps).
+    Each call's class maps bit-equal to ``clip_predictions``' on its clip;
+    the tensor returned by the capturing call unchanged after the later
+    calls; the capturing call's Python-side launches the eager call's and a
+    replay's none; under the profiler a replay makes one launch call,
+    ``cudaGraphLaunch``, and its device trace holds every kernel the eager
+    call launched, as many times. Then ``turns`` alternating turns of the
+    eager call and the replay, CUDA-event ms. With ``capture_fails`` the
+    capture must fail (a host copy inside the call) and every call serve
+    the eager maps."""
+    want = [clip_predictions(model, c, K, propagate) for c in clips]
+    if propagate == "composed":
+        # push_group serves direct and incremental; the helper takes the
+        # composed group step as push_group takes the others
+        graphs = CallGraphs(functools.partial(clip_predictions, model, interval=K,
+                                              propagate=propagate),
+                            watched=[*model.parameters(), *model.buffers()])
+        serve = graphs
+    else:
+        seg = VideoSegmenter(model, K, propagate=propagate)
+        graphs, serve = seg._group, seg.push_group
+    launched, got = [], []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for c in (*clips, clips[0]):
+            reset_counts()
+            got.append(serve(c))
+            torch.cuda.synchronize()
+            launched.append(counts())
+            if len(got) == 2:
+                captured = got[1].clone()
+    row = dict(phase="e2e_graphs", case=name, propagate=propagate, B=clips[0].shape[0],
+               captures=graphs.captures, capture_failures=graphs.capture_failures,
+               warnings=[str(w.message)[:300] for w in caught])
+    equal = [torch.equal(g, w) for g, w in zip(got, want + want[:1], strict=True)]
+    row.update(bit_equal_to_eager=equal, launches_eager=launched[0],
+               launches_capture=launched[1], launches_replays=launched[2:])
+    if not all(equal):
+        row["class_agreement"] = [(g == w).float().mean().item()
+                                  for g, w in zip(got, want + want[:1], strict=True)]
+        row["eager_again_equal"] = torch.equal(
+            clip_predictions(model, clips[0], K, propagate), want[0])
+    if capture_fails:
+        emit(row)
+        check(all(equal), f"e2e_graphs {name}: an eager fallback's maps differ")
+        check(graphs.captures == 0 and graphs.capture_failures == 1,
+              f"e2e_graphs {name}: the capture did not fail once")
+        return row
+    _, calls, seen = profiled_launches(lambda: serve(clips[1]))
+    eager_kernels = {k: n for k, n in launched[0].items() if n and k != "dilated_conv_dx"}
+    ms = {"eager": [], "graph": []}
+    for turn in range(turns):
+        for side in (("eager", "graph") if turn % 2 == 0 else ("graph", "eager")):
+            fn = ((lambda: clip_predictions(model, clips[0], K, propagate)) if side == "eager"
+                  else (lambda: serve(clips[0])))
+            ms[side].append(cuda_ms(fn)[1])
+    med = statistics.median
+    row.update(replay_launch_calls=calls, replay_port_kernels=seen,
+               eager_port_kernels=eager_kernels, unchanged_after_later_calls=torch.equal(
+                   got[1], captured), group_ms_eager=med(ms["eager"]),
+               group_ms_graph=med(ms["graph"]), group_ms_all=ms, card=card())
+    emit(row)
+    check(all(equal), f"e2e_graphs {name}: graph maps differ from the eager call's")
+    check(row["unchanged_after_later_calls"], f"e2e_graphs {name}: a returned map was overwritten")
+    check(graphs.captures == 1 and graphs.capture_failures == 0,
+          f"e2e_graphs {name}: {graphs.captures} captures, {graphs.capture_failures} failed")
+    check(launched[1] == launched[0], f"e2e_graphs {name}: the capture's launches "
+          f"{launched[1]} != the eager call's {launched[0]}")
+    check(not any(any(c.values()) for c in launched[2:]),
+          f"e2e_graphs {name}: a replay ran a Python launch wrapper: {launched[2:]}")
+    check(sum(calls.values()) == 1 and next(iter(calls)).startswith("cudaGraphLaunch"),
+          f"e2e_graphs {name}: a replay made the launch calls {calls}")
+    check(seen == eager_kernels, f"e2e_graphs {name}: the replay's device trace holds {seen}, "
+          f"the eager call launched {eager_kernels}")
+    return row
+
+
+def e2e_graphs() -> dict:
+    """Phase 26: ``push_group`` from CUDA graphs (``core/graphs.py``), case
+    by case as ``graph_case`` holds it, at B=1 and B=4: Accel-18 as the
+    benchmark serves it (incremental + 'last') and direct and composed, the
+    DFF row as the benchmark serves it (direct), DeepLab-101; then the
+    folded fast model, whose call copies from the host and cannot be
+    captured, served eagerly. Returns the rows by case."""
+    rows = {}
+    accel_net, dff_net = bench_network("accel18-cityscapes"), bench_network("dff-r101-cityscapes")
+    cases = (("accel18", accel_net, ("incremental", "direct", "composed"), SEED + 150),
+             ("dff", dff_net, ("direct",), SEED + 160),
+             ("deeplab101", DEEPLAB_NET, ("direct",), SEED + 170))
+    for config, net, propagates, seed in cases:
+        model = build_model(net, device="cuda", generator=torch.Generator().manual_seed(SEED))
+        one = moving_clip(3 * K, (H, W), seed, "cuda")
+        if config != "deeplab101":
+            live_flow_heads(model, one, seed + 1)
+        for B in (1, 4):
+            clips = ([one[:, i * K:(i + 1) * K] for i in range(3)] if B == 1 else
+                     [torch.cat([moving_clip(K, (H, W), seed + 10 * i + b, "cuda")
+                                 for b in range(B)]) for i in range(1, 4)])
+            for propagate in propagates:
+                name = f"{config}_{propagate}_B{B}"
+                rows[name] = graph_case(name, model, propagate, clips)
+                torch.cuda.empty_cache()
+            del clips
+        del model, one
+        torch.cuda.empty_cache()
+    model = build_model(FOLD_NET, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    one = moving_clip(3 * K, (H, W), SEED + 180, "cuda")
+    live_flow_heads(model, one, SEED + 181)
+    rows["fold_direct_B1"] = graph_case("fold_direct_B1", model, "direct",
+                                        [one[:, i * K:(i + 1) * K] for i in range(3)],
+                                        capture_fails=True)
+    del model, one
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ---- phase 12: video eval from a cfg file ---------------------------------------
@@ -3960,6 +4139,8 @@ def main() -> int:
     noscale_launched = e2e_noscale()
     torch.cuda.empty_cache()
     quant_small_launched = e2e_quant_small()
+    torch.cuda.empty_cache()
+    e2e_graphs()
     torch.cuda.empty_cache()
     # eval from the cfg files: the flagship's 4 step warps and one tail per
     # clip (groupnorm + conv7, no stem kernel); DFF's one batched one-hot

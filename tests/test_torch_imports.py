@@ -34,7 +34,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # ops (11), models (4), core (9), config (2), data (7), utils (5),
+    # ops (11), models (4), core (10), config (2), data (7), utils (5),
     # experiments (5), parallel (mesh, spatial and the package init), native (one
     # package), kernels, convert and seven package inits
-    assert int(out.stdout.strip()) == 56
+    assert int(out.stdout.strip()) == 57

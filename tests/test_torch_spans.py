@@ -9,16 +9,21 @@ under the call's request id, and the class maps are the same bits as with
 tracing off. Spans stay inert while ``torch.export`` traces, while a
 stream captures and inside a span of their own name; CUDA events are
 pooled and resolved only when the records are read; the record buffer is
-bounded and counts what it drops."""
+bounded and counts what it drops. ``push_group`` on the CPU captures no
+CUDA graph (``core/graphs.py``) and gives ``clip_predictions``' maps; with
+the capture stood in, its replay is the span ``serve.replay`` inside
+``serve.group``."""
 
 import collections
 import json
 import os
 
+import graph_stand_in
 import pytest
 import torch
 
 from accel_tpu_torch.core.export import export_serving
+from accel_tpu_torch.core.pipeline import clip_predictions
 from accel_tpu_torch.core.serving import VideoSegmenter
 from accel_tpu_torch.models.accel import build_model
 from accel_tpu_torch.utils import profiler
@@ -166,6 +171,40 @@ def test_class_maps_bit_equal_with_tracing_on_and_off(served):
     assert torch.equal(on_group, off_group)
     for on, off in zip(on_frames, off_frames, strict=True):
         assert torch.equal(on, off)
+
+
+def test_push_group_on_the_cpu_makes_no_graph(served):
+    """The CPU path is the eager call: ``clip_predictions``' maps, no capture."""
+    _, model, propagate, clip = served
+    with torch.inference_mode():
+        seg = VideoSegmenter(model, K, propagate=propagate)
+        outs = [seg.push_group(clip) for _ in range(3)]
+        want = clip_predictions(model, clip, K, propagate)
+    for out in outs:
+        assert torch.equal(out, want)
+    assert seg._group.captures == 0 and seg._group.capture_failures == 0
+    assert not seg._group._graphs
+
+
+def test_push_group_through_a_stand_in_graph(served, monkeypatch):
+    """With the capture stood in (``graph_stand_in.py``): the first group
+    eager, the second captured, the third replayed, each on its own frames,
+    each ``clip_predictions``' maps; the replay inside ``serve.group``."""
+    _, model, propagate, clip = served
+    stand_in = graph_stand_in.use(monkeypatch)
+    clips = [clip, clip.flip(2), clip.flip(3)]
+    with torch.inference_mode():
+        seg = VideoSegmenter(model, K, propagate=propagate)
+        outs = [seg.push_group(clips[0]), seg.push_group(clips[1])]
+        with torch.profiler.profile():
+            outs.append(seg.push_group(clips[2]))
+        for c, out in zip(clips, outs, strict=True):
+            assert torch.equal(out, clip_predictions(model, c, K, propagate))
+    assert stand_in.recorded == 1 and stand_in.replays == 2 and seg._group.captures == 1
+    records = span_records()
+    root = _root(records)
+    (replay,) = [r for r in records if r.name == "serve.replay"]
+    assert root.name == "serve.group" and replay.parent == root.id
 
 
 def test_exported_program_holds_no_span(served):
