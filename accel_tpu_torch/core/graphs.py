@@ -1,24 +1,34 @@
 """CUDA graphs of a serving call: one captured graph per input signature,
 replayed in place of the call's launches.
 
-A group step of the port launches ~1,300-1,600 kernels one at a time from
-Python, and the card waits on the host between them. ``CallGraphs`` serves a
-call ``fn(x) -> Tensor`` by the signature ``(x.shape, x.dtype, x.device)``:
+A serving step of the port launches hundreds of kernels (a ``push_frame``)
+to ~1,300-1,600 (a ``push_group``) one at a time from Python, and the card
+waits on the host between them. ``CallGraphs`` serves a call
+``fn(*xs) -> out`` (``out`` a tensor or a dict of tensors) by the
+signature of ``xs``, each input's shape, dtype and device:
 
 1. the first call of a signature runs ``fn`` eagerly. It is also the
    warm-up a capture needs: cuDNN and cuBLAS handles and workspaces, the
    kernels' attributes and the packed-weight caches are made outside the
    capture;
-2. the second copies ``x`` into a static input buffer, captures ``fn`` on
-   it as a ``torch.cuda.CUDAGraph`` with a memory pool of its own, and
+2. the second copies ``xs`` into static input buffers, captures ``fn`` on
+   them as a ``torch.cuda.CUDAGraph`` with a memory pool of its own, and
    replays the graph;
-3. every later call copies ``x`` in, replays (the span ``serve.replay``,
-   ``utils/profiler.py``) and returns a clone of the static output, so a
-   result the caller keeps is never overwritten by the next call.
+3. every later call copies ``xs`` in, replays (the span ``serve.replay``,
+   ``utils/profiler.py``) and returns a clone of each static output, so a
+   result the caller keeps is never overwritten by the next call. An
+   output that is one of the inputs itself (a direct cur step hands back
+   the keyframe's tensor and anchor) is returned as the caller's own
+   input, with no copy.
 
-Only a call that ``capturable`` admits takes this path; any other call
-runs ``fn`` as it is. If a capture raises (a host sync inside ``fn``, say),
-the signature runs eagerly from then on and ``capture_failures`` counts it.
+Only a call whose first input ``capturable`` admits takes this path; any
+other call runs ``fn`` as it is. If a capture raises (a host sync inside
+``fn``, say), the signature runs eagerly from then on and
+``capture_failures`` counts it. The static buffers are the object's, not a
+caller's: several callers may share one ``CallGraphs`` (the segmenters of
+one model do) where they call it from one thread on one stream, so that
+each call's copy in, replay and copy out are done before the next call
+writes the buffers.
 
 The graph reads the tensors it was captured on in place. Those of
 ``watched`` (a model's parameters and buffers) are stamped at every call
@@ -51,50 +61,61 @@ _EAGER = "eager"  # its capture failed: eager for good
 _VERSION = operator.attrgetter("_version")
 
 
-def capturable(x: torch.Tensor) -> bool:
+def capturable(x) -> bool:
     """Whether a call on ``x`` may be captured and replayed: ``x`` is on a
     CUDA device, the current stream is not capturing already, no
     ``torch.compile`` or ``torch.export`` trace is running, and neither a
     spatial shard nor an int8 scale group is open (their collectives and
     gloo round trips run on the host inside the call)."""
-    return (x.is_cuda and not torch.compiler.is_compiling()
+    return (getattr(x, "is_cuda", False) and not torch.compiler.is_compiling()
             and not torch.cuda.is_current_stream_capturing()
             and spatial.active() is None and quant.active() is None)
 
 
-def _record(fn: Callable[[torch.Tensor], torch.Tensor],
-            static_in: torch.Tensor) -> tuple[torch.cuda.CUDAGraph, torch.Tensor]:
-    """Capture ``fn(static_in)`` on a side stream into a new graph with its
+def _record(fn: Callable, static_in: tuple) -> tuple[torch.cuda.CUDAGraph, object]:
+    """Capture ``fn(*static_in)`` on a side stream into a new graph with its
     own memory pool; returns the graph and its output, which the first
     replay computes."""
-    with torch.cuda.device(static_in.device):
+    with torch.cuda.device(static_in[0].device):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(torch.cuda.Stream()):
             graph.capture_begin()
             try:
-                out = fn(static_in)
+                out = fn(*static_in)
             finally:
                 graph.capture_end()
     return graph, out
 
 
 class _Graph:
-    __slots__ = ("graph", "static_in", "static_out")
+    """A captured signature: the graph, its static inputs, and its outputs
+    as (name, static tensor, index of the input it is or None); name None
+    for a call that returns one tensor."""
 
-    def __init__(self, graph, static_in: torch.Tensor, static_out: torch.Tensor):
-        self.graph, self.static_in, self.static_out = graph, static_in, static_out
+    __slots__ = ("graph", "static_in", "outs")
+
+    def __init__(self, graph, static_in: tuple, out):
+        self.graph, self.static_in = graph, static_in
+        items = out.items() if isinstance(out, dict) else ((None, out),)
+        self.outs = tuple((name, t, next((i for i, s in enumerate(static_in) if t is s), None))
+                          for name, t in items)
+
+    def results(self, xs: tuple):
+        """The replay's outputs for the call on ``xs``: clones, or the
+        caller's own input where the output is that input."""
+        got = {name: t.clone() if i is None else xs[i] for name, t, i in self.outs}
+        return got if self.outs[0][0] is not None else got[None]
 
 
 class CallGraphs:
-    """``fn(x)`` served from one CUDA graph per signature of ``x`` (module
-    docstring). ``watched``: the tensors ``fn`` reads besides ``x`` whose
-    in-place writes must be seen. ``captures`` and ``capture_failures``
-    count the captures made and those that raised."""
+    """``fn(*xs)`` served from one CUDA graph per signature of ``xs``
+    (module docstring). ``watched``: the tensors ``fn`` reads besides
+    ``xs`` whose in-place writes must be seen. ``captures`` and
+    ``capture_failures`` count the captures made and those that raised."""
 
-    def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor],
-                 watched: Iterable[torch.Tensor] = ()):
+    def __init__(self, fn: Callable, watched: Iterable[torch.Tensor] = ()):
         self.fn = fn
         # an inference tensor has no version counter (and takes no write
         # outside inference mode)
@@ -104,34 +125,39 @@ class CallGraphs:
         self.captures = 0
         self.capture_failures = 0
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if not capturable(x):
-            return self.fn(x)
-        # the stamp runs before the launch, while the card waits: two maps
-        # take a third less host time than a tuple a tensor
-        stamp = (list(map(torch.Tensor.data_ptr, self._watched)),
-                 list(map(_VERSION, self._watched)))
+    def stamp(self) -> tuple:
+        """The watched tensors' storages and versions. Two maps take a third
+        less host time than a tuple a tensor."""
+        return (list(map(torch.Tensor.data_ptr, self._watched)),
+                list(map(_VERSION, self._watched)))
+
+    def __call__(self, *xs):
+        if not capturable(xs[0]):
+            return self.fn(*xs)
+        # the stamp runs before the launch, while the card waits
+        stamp = self.stamp()
         if stamp != self._stamp:
             self._graphs.clear()
             self._stamp = stamp
-        key = (tuple(x.shape), x.dtype, x.device)
+        key = tuple((tuple(x.shape), x.dtype, x.device) for x in xs)
         entry = self._graphs.get(key)
         if entry is None or entry is _EAGER:
             self._graphs.setdefault(key, _WARM)
-            return self.fn(x)
+            return self.fn(*xs)
         with torch.inference_mode():
             if entry is _WARM:
-                entry = self._capture(key, x)
+                entry = self._capture(key, xs)
                 if entry is None:
-                    return self.fn(x)
+                    return self.fn(*xs)
             else:
-                entry.static_in.copy_(x)
+                for static, x in zip(entry.static_in, xs):
+                    static.copy_(x)
             with span(REPLAY):
                 entry.graph.replay()
-            return entry.static_out.clone()
+            return entry.results(xs)
 
-    def _capture(self, key: tuple, x: torch.Tensor) -> _Graph | None:
-        static_in = x.clone()
+    def _capture(self, key: tuple, xs: tuple) -> _Graph | None:
+        static_in = tuple(x.clone() for x in xs)
         try:
             graph, out = _record(self.fn, static_in)
         except RuntimeError as e:

@@ -11,9 +11,10 @@ Spans. The port marks its layer boundaries with spans:
 
 ==================  =====================================================
 ``serve.group``     ``VideoSegmenter.push_group``
-``serve.replay``    the CUDA graph a ``push_group`` replays, inside
-                    ``serve.group`` (``core/graphs.py``); the stages run
-                    inside the graph, where no span is live
+``serve.replay``    the CUDA graph a serving call replays
+                    (``core/graphs.py``), inside ``serve.group``,
+                    ``serve.key`` or ``serve.cur``; the stages run inside
+                    the graph, where no span is live
 ``serve.key``       a ``push_frame`` that runs the key predictor
 ``serve.cur``       a ``push_frame`` that runs the cur predictor
 ``model.key``       ``AccelNet.ref_propagated``: the keyframe branch + fc6

@@ -51,9 +51,13 @@ Phases, one JSON line each:
    incremental + 'last' group each, with the exact launches (Accel: both
    stems on the key frame, the update stem and a warp on each other frame,
    a tail on every frame; DFF: one stem, one one-hot warp per non-key
-   frame, a tail per frame), their class maps held against ``push_group``
-   on the same frames, of the kernel model and of the plain model
-   (``compare_class_maps``), then both protocols timed on the host clock
+   frame, a tail per frame) counted call by call on the main path's own
+   run (``frame_launches``: each step's eager and capturing calls launch
+   them, every later call replays and launches none), its maps bit-equal
+   at every frame to the key/cur predictors' eager ones
+   (``eager_push_frame``), which are held against ``push_group`` on the
+   same frames, of the kernel model and of the plain model
+   (``compare_class_maps``); then both protocols timed on the host clock
    in alternating turns.
 10. e2e_fast, e2e_os8mixed: one direct group of the bench's accel18_fast
     and accel18_os8mixed models through ``clip_predictions``, kernels
@@ -114,8 +118,9 @@ Phases, one JSON line each:
     and fc6 through the int8 conv: an int8 im2col and cuBLAS's int8 GEMM;
     the fused7 stem stays float) at 1024x2048 through ``VideoSegmenter``:
     an incremental and a direct group at B=1, a direct group at B=4 and an
-    incremental group through ``push_frame``, with the exact launches of
-    #1-#3 (no #5: int8 takes precedence) and the exact number of int8
+    incremental group through ``push_frame`` (its steps' eager and
+    capturing calls launch, the later frames replay), with the exact
+    launches of #1-#3 (no #5: int8 takes precedence) and the exact number of int8
     GEMMs; its class maps against the plain model's (plain kernels and the
     exact float64 int8 product), overall and off near-ties, within
     ``QUANT_OVERALL``/``QUANT_CLEAR``, and against the plain model with
@@ -214,6 +219,18 @@ Phases, one JSON line each:
     kernel of the eager call in its device trace; the group's CUDA-event
     ms, eager against replayed, in alternating turns. The folded fast model
     (a host copy inside the call) fails its capture and is served eagerly.
+    Then ``push_frame`` from CUDA graphs, for Accel-18 incremental, the DFF
+    row direct and DeepLab-101: three segmenters of one model interleaved
+    over two keyframe groups each, every class map bit-equal to the key/cur
+    predictors' eager maps; the key and cur graphs shared by the three (one
+    capture each), each step's capturing call launching what its eager
+    call launched, every later call a replay with no Python launch
+    wrapper; the returned maps and carried tensors unchanged by the later
+    calls; a profiled replayed key and cur frame one launch call
+    (``cudaGraphLaunch``) each, with every kernel of the step's eager call
+    in its device trace, as many times, and its copies in and out counted
+    and timed on the device; the untraced host ms of the weights' version stamp; key
+    and cur ms eager against replayed, in alternating turns.
 
 Then the ``{"kernels": [...]}`` line (each kernel's first row, with its
 launches on one path it serves and per group there, and its launches on
@@ -265,7 +282,7 @@ from accel_tpu_torch.core.pipeline import (
     pair_loss_and_stats,
     running_stats,
 )
-from accel_tpu_torch.core.predictor import pred_eval_clips
+from accel_tpu_torch.core.predictor import DataBatch, make_key_cur_predictors, pred_eval_clips
 from accel_tpu_torch.core.pretrained import apply_pretrained_cfg, caffe_resnet_table
 from accel_tpu_torch.core.serving import VideoSegmenter
 from accel_tpu_torch.core.trainer import init_train_state, make_optimizer, make_train_step
@@ -1363,31 +1380,80 @@ def e2e_variant(phase: str, config: str, net: dict, propagate: str, seed: int,
     return launched
 
 
-def stream_group(seg: VideoSegmenter, frames: torch.Tensor) -> tuple[torch.Tensor, list[float]]:
+# an Accel push_frame's launches: a key frame runs both stems and a tail, a
+# non-key frame the update branch's stem, a warp and a tail
+ACCEL_FRAME_LAUNCHES = dict(key=launches_of(fused_stem=2, upsample_argmax=1),
+                            cur=launches_of(fused_stem=1, warp=1, upsample_argmax=1))
+
+
+def eager_push_frame(model, propagate: str, frames: torch.Tensor) -> torch.Tensor:
+    """The class maps (1, n, H, W) of ``push_frame`` on the frames (1, n,
+    H, W, 3) of one stream, as the key/cur predictors that its steps call
+    (``make_key_cur_predictors``) make them eagerly: a keyframe every K
+    frames (every frame for DeepLab), the prop and anchor carried."""
+    key_p, cur_p = make_key_cur_predictors(model, propagate=propagate)
+    preds = []
+    for i in range(frames.shape[1]):
+        if i % K == 0 or model.family == "deeplab":
+            out = key_p.predict(DataBatch([frames[:, i]]))[0]
+        else:
+            out = cur_p.predict(DataBatch([frames[:, i], out["anchor_small"], out["prop"]]))[0]
+        preds.append(out["pred"])
+    return torch.stack(preds, dim=1)
+
+
+def frame_launches(calls: list, per_frame: dict) -> tuple[dict[str, int], dict, bool]:
+    """The main path's ``push_frame`` launches ``calls`` [(step, launches)]
+    (``stream_group``) of segmenters whose steps (``core/graphs.py``)
+    started fresh: summed, each call's total by step, and whether each
+    step's first call (eager) and second (its capture), where it had one,
+    launched ``per_frame[step]`` and every later call (a replay) ran no
+    Python launch wrapper."""
+    by_step: dict[str, list] = {}
+    for step, launched in calls:
+        by_step.setdefault(step, []).append(launched)
+    ok = by_step.keys() == per_frame.keys() and all(
+        got[:2] == [per_frame[step]] * len(got[:2])
+        and not any(any(c.values()) for c in got[2:])
+        for step, got in by_step.items())
+    total = {name: sum(c[name] for _, c in calls) for name in calls[0][1]}
+    return total, {step: [sum(c.values()) for c in got] for step, got in by_step.items()}, ok
+
+
+def stream_group(seg: VideoSegmenter, frames: torch.Tensor) -> tuple[torch.Tensor, list, list]:
     """``push_frame`` on each frame of a group, each ending in a
     synchronize (the frame's class map is ready to send): the class maps
-    (1, k, H, W) and the host ms of each frame."""
-    preds, ms = [], []
+    (1, k, H, W), the host ms of each frame and each frame's step ('key'
+    or 'cur') and launches (``counts()``' keys)."""
+    preds, ms, calls = [], [], []
     for i in range(frames.shape[1]):
+        step = "key" if seg.is_keyframe_next or seg.model.family == "deeplab" else "cur"
+        before = counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         preds.append(seg.push_frame(frames[:, i]))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    return torch.stack(preds, dim=1), ms
+        calls.append((step, {name: n - before[name] for name, n in counts().items()}))
+    return torch.stack(preds, dim=1), ms, calls
 
 
-def e2e_stream(phase: str, config: str, net: dict, seed: int, per_group: dict,
+def e2e_stream(phase: str, config: str, net: dict, seed: int, per_frame: dict,
                overall: float, turns: int = 4) -> dict[str, int]:
     """Per-frame serving: a direct and an incremental + 'last' group of
-    ``net`` at 1024x2048 through ``VideoSegmenter.push_frame``, with the
-    exact launches of the two groups (``per_group`` each). Its class maps
-    are held (``compare_class_maps``; push_frame returns no logits) against
+    ``net`` at 1024x2048 through ``VideoSegmenter.push_frame``, three
+    passes of each on fresh steps (``core/graphs.py``): the first runs
+    the key and cur steps eagerly and captures the cur step, the second
+    captures the key step, the third replays every frame. The exact
+    launches, call by call (``frame_launches``; ``per_frame`` a key and a
+    cur step launch), and every pass's maps bit-equal to the key/cur
+    predictors' eager maps (``eager_push_frame``). Those are held
+    (``compare_class_maps``; push_frame returns no logits) against
     ``push_group`` on the same frames and weights, of the kernel model
     (``push_group`` batches the non-key frames, where cuDNN may choose
     other algorithms than at batch 1) and of the plain model. Then
     ``turns`` alternating turns of both protocols on the host clock.
-    Returns the launches."""
+    Returns the launches of the three passes."""
     model = build_model(net, device="cuda", generator=torch.Generator().manual_seed(SEED))
     clip = moving_clip(2 * K, (H, W), seed, "cuda")
     max_flow = live_flow_heads(model, clip, seed + 1)
@@ -1409,21 +1475,25 @@ def e2e_stream(phase: str, config: str, net: dict, seed: int, per_group: dict,
             out[p] = timed_group(segs[p], frames)
         return out
 
-    streamed()  # warm-up: cuDNN algorithm choice at batch 1, allocator
-    grouped()
-    reset_counts()
-    stream_out = streamed()
-    launched = counts()
+    eager = {p: eager_push_frame(model, p, frames) for p, frames in groups}
+    passes = [streamed() for _ in range(3)]
+    launched, by_call, as_expected = {}, {}, {}
+    for p, _ in groups:
+        got, by_call[p], as_expected[p] = frame_launches(
+            [c for out in passes for c in out[p][2]], per_frame)
+        launched = {name: launched.get(name, 0) + n for name, n in got.items()}
+    graph_equal = {p: [torch.equal(out[p][0], eager[p]) for out in passes] for p, _ in groups}
+    grouped()  # warm-up: cuDNN algorithm choice, allocator
     group_out = grouped()
     for p, _ in groups:
-        check_pred(stream_out[p][0], (1, K, H, W))
-    vs_group = {p: compare_class_maps(stream_out[p][0], group_out[p][0], model, frames, p)[0]
+        check_pred(eager[p], (1, K, H, W))
+    vs_group = {p: compare_class_maps(eager[p], group_out[p][0], model, frames, p)[0]
                 for p, frames in groups}
     plain = build_model(net, device="cuda", generator=torch.Generator().manual_seed(SEED),
                         use_kernels=False)
     plain.load_state_dict(model.state_dict())
     reset_counts()
-    vs_plain = {p: compare_class_maps(stream_out[p][0],
+    vs_plain = {p: compare_class_maps(eager[p],
                                       VideoSegmenter(plain, K, propagate=p).push_group(frames),
                                       plain, frames, p)[0]
                 for p, frames in groups}
@@ -1438,7 +1508,7 @@ def e2e_stream(phase: str, config: str, net: dict, seed: int, per_group: dict,
                 for p, (_, ms) in grouped().items():
                     group_ms[p].append(ms)
                 continue
-            for p, (_, ms) in streamed().items():
+            for p, (_, ms, _) in streamed().items():
                 frame_ms[p]["key"].append(ms[0])
                 frame_ms[p]["non_key"].extend(ms[1:])
                 stream_ms[p].append(sum(ms))
@@ -1450,9 +1520,12 @@ def e2e_stream(phase: str, config: str, net: dict, seed: int, per_group: dict,
               push_group_ms={p: med(v) for p, v in group_ms.items()},
               push_frame_group_ms_all=stream_ms, push_group_ms_all=group_ms,
               push_frame_vs_push_group=vs_group, push_frame_vs_plain_push_group=vs_plain,
+              passes_bit_equal_to_eager=graph_equal, launches_by_call=by_call,
               launches=launched))
-    expected = {name: len(groups) * n for name, n in per_group.items()}
-    check(launched == expected, f"{phase} launches {launched} != {expected}")
+    check(all(as_expected.values()), f"{phase} launches by call {by_call}, a key and a cur "
+          f"step's eager and capturing calls each {per_frame}")
+    check(all(all(e) for e in graph_equal.values()),
+          f"{phase}: push_frame differs from the eager predictors: {graph_equal}")
     for p in vs_group:
         check_class_maps(f"{phase} push_frame vs push_group, {p}", vs_group[p], overall)
         check_class_maps(f"{phase} push_frame vs the plain push_group, {p}", vs_plain[p],
@@ -1478,25 +1551,29 @@ QUANT_OVERALL, QUANT_CLEAR = 0.95, 0.99
 INT8_CONVS = {101: 33 * 3 + 4 + 1, 18: 8 * 2 + 3 + 1}
 
 
-def quant_groups(model, clip: torch.Tensor, clip4: torch.Tensor) -> dict:
-    """The int8 phase's serving run: an incremental and a direct group at
-    B=1 and a direct group at B=4 through ``push_group``, then an
-    incremental group through ``push_frame``: {name: (class maps, host ms)}."""
+def quant_groups(model, clip: torch.Tensor, clip4: torch.Tensor) -> tuple[dict, list]:
+    """The int8 phase's serving run on fresh segmenters: an incremental
+    and a direct group at B=1 and a direct group at B=4 through
+    ``push_group``, then an incremental group through ``push_frame`` (the
+    key and cur steps' first calls eager, the cur step's second captured,
+    the later frames replayed): {name: (class maps, host ms)} and the
+    ``push_frame`` calls' steps and launches (``stream_group``)."""
     segs = {p: VideoSegmenter(model, K, propagate=p) for p in ("incremental", "direct")}
     out = {"incremental": timed_group(segs["incremental"], clip[:, :K]),
            "direct": timed_group(segs["direct"], clip[:, K:2 * K]),
            "direct_B4": timed_group(segs["direct"], clip4)}
     segs["incremental"].reset()
-    preds, ms = stream_group(segs["incremental"], clip[:, 2 * K:])
+    preds, ms, calls = stream_group(segs["incremental"], clip[:, 2 * K:])
     out["push_frame"] = (preds, sum(ms))
-    return out
+    return out, calls
 
 
 def e2e_quant() -> dict[str, int]:
     """Phase 15: int8 Accel-18 (``INT8_NET``) at 1024x2048 through
     ``VideoSegmenter``: the groups of ``quant_groups``, with the exact
     launches (both stems and one tail a group, 4 warps an incremental
-    group, 1 a direct one; per frame through ``push_frame``), no dilated
+    group, 1 a direct one; through ``push_frame`` call by call,
+    ``frame_launches``), no dilated
     conv (int8 takes precedence), and the exact number of int8 GEMMs.
     Against the plain model (the kernels' plain versions and the exact
     float64 int8 product) on the same groups: the class maps overall and
@@ -1515,24 +1592,27 @@ def e2e_quant() -> dict[str, int]:
     quant_groups(model, clip, clip4)  # warm-up
     reset_counts()
     mm0 = quant_ops.int_mm.launches
-    out = quant_groups(model, clip, clip4)
+    out, frame_calls = quant_groups(model, clip, clip4)
     launched, int_mm = counts(), quant_ops.int_mm.launches - mm0
     for name, (pred, _) in out.items():
         check_pred(pred, (4 if name == "direct_B4" else 1, K, H, W))
-    # push_frame: both stems on the key frame, the update stem on each other
-    expected = launches_of(fused_stem=2 * 3 + 2 + (K - 1), warp=(K - 1) + 1 + 1 + (K - 1),
-                           upsample_argmax=3 + K)
+    _, frames_by_call, frames_as_expected = frame_launches(frame_calls, ACCEL_FRAME_LAUNCHES)
+    # push_frame (ACCEL_FRAME_LAUNCHES): the key step's eager call and the
+    # cur step's eager and capturing calls launch, the later frames replay
+    expected = launches_of(fused_stem=2 * 3 + 2 + 2, warp=(K - 1) + 1 + 1 + 2,
+                           upsample_argmax=3 + 3)
     passes = INT8_CONVS[101] + INT8_CONVS[18]
     # a group: the key frame's R101 and one R18 call over its B*k frames;
-    # push_frame: the key's R101 and an R18 call per frame
-    expected_mm = 3 * passes + INT8_CONVS[101] + K * INT8_CONVS[18]
+    # push_frame: the key's R101 and R18, and an R18 at each of the cur
+    # step's eager and capturing calls
+    expected_mm = 3 * passes + INT8_CONVS[101] + 3 * INT8_CONVS[18]
 
     plain = build_model(INT8_NET, device="cuda", generator=torch.Generator().manual_seed(SEED),
                         use_kernels=False)
     plain.load_state_dict(model.state_dict())
     reset_counts()
     mm0 = quant_ops.int_mm.launches
-    plain_out = quant_groups(plain, clip, clip4)
+    plain_out, _ = quant_groups(plain, clip, clip4)
     check(not any(counts().values()) and quant_ops.int_mm.launches == mm0,
           f"e2e_quant: the plain path launched {counts()}, "
           f"{quant_ops.int_mm.launches - mm0} int8 GEMMs")
@@ -1544,14 +1624,14 @@ def e2e_quant() -> dict[str, int]:
                           for b in range(pred.shape[0])]
     del plain
     same_stem = plain_with_kernel_stem(INT8_NET, model.state_dict())
-    same_out = quant_groups(same_stem, clip, clip4)
+    same_out, _ = quant_groups(same_stem, clip, clip4)
     vs_same_stem = {name: (out[name][0] == same_out[name][0]).float().mean().item()
                     for name in groups}
     del same_stem, same_out
     bf16 = build_model(BENCH_NET, device="cuda", generator=torch.Generator().manual_seed(SEED))
     bf16.load_state_dict(model.state_dict())
     quant_groups(bf16, clip, clip4)  # warm-up
-    bf16_out = quant_groups(bf16, clip, clip4)
+    bf16_out, _ = quant_groups(bf16, clip, clip4)
     int8_vs_bf16 = {name: (out[name][0] == bf16_out[name][0]).float().mean().item()
                     for name in groups}
     bf16_ms = {name: ms for name, (_, ms) in bf16_out.items()}
@@ -1563,8 +1643,9 @@ def e2e_quant() -> dict[str, int]:
               bf16_group_ms=bf16_ms,
               kernels_vs_plain=vs_plain, class_agreement_vs_plain_same_stem=vs_same_stem,
               int8_vs_bf16_class_agreement=int8_vs_bf16, launches=launched,
-              int8_gemms=int_mm, card=card()))
+              push_frame_launches_by_call=frames_by_call, int8_gemms=int_mm, card=card()))
     check(launched == expected, f"e2e_quant launches {launched} != {expected}")
+    check(frames_as_expected, f"e2e_quant push_frame launches by call {frames_by_call}")
     check(int_mm == expected_mm, f"e2e_quant int8 GEMMs {int_mm} != {expected_mm}")
     for name, per_clip in vs_plain.items():
         for b, c in enumerate(per_clip):
@@ -1809,8 +1890,9 @@ def e2e_noscale() -> dict[str, int]:
     """Phase 21: ``use_scale_field: false``. The Accel-18 bench row without
     the scale field, incremental (the product cascade) through
     ``push_group`` (exact launches: both stems, a warp per non-key frame,
-    one tail) and ``push_frame`` (both stems on the key frame, the update
-    stem and a warp on each other, a tail a frame), against the plain path
+    one tail) and ``push_frame`` over two groups (``ACCEL_FRAME_LAUNCHES``
+    at each step's eager and capturing calls, none at a replay; the second
+    group's maps equal to the first's), against the plain path
     (``check_bf16_paths`` and ``compare_class_maps``). Then the DFF row
     without it, direct: one #4 that takes no scale, one #3, one #2; its
     class maps against the plain path (0.98 overall), its logits and class
@@ -1830,11 +1912,13 @@ def e2e_noscale() -> dict[str, int]:
     plain_out, _ = run_groups(plain, groups)
     vs_plain = compare_paths(out[0][0], plain_out[0][0], model, plain, clip[:, :K], "incremental")
     seg = VideoSegmenter(model, K, propagate="incremental")
-    stream_group(seg, clip[:, K:])  # warm-up
+    # fresh steps: the first group runs the key and cur steps eagerly and
+    # captures the cur step, the second captures the key step
+    streamed, _, calls = stream_group(seg, clip[:, K:])
     seg.reset()
-    reset_counts()
-    streamed, _ = stream_group(seg, clip[:, K:])
-    stream_launched = counts()
+    again, _, more = stream_group(seg, clip[:, K:])
+    stream_launched, stream_by_call, stream_as_expected = frame_launches(
+        calls + more, ACCEL_FRAME_LAUNCHES)
     plain_streamed = VideoSegmenter(plain, K, propagate="incremental").push_clip(clip[:, K:])
     stream_vs_plain = compare_class_maps(streamed, plain_streamed, plain, clip[:, K:],
                                          "incremental")[0]
@@ -1861,14 +1945,15 @@ def e2e_noscale() -> dict[str, int]:
     emit(dict(phase="e2e_noscale", config="use_scale_field: false; accel18 frozenbn fused7 bf16 "
               "incremental, dff101 onehot native D=4 direct", hw=[H, W], k=K,
               max_abs_flow=max_flow, dff_max_abs_flow=dff_flow, push_group_launches=launched,
-              push_frame_launches=stream_launched, dff_launches=dff_launched,
+              push_frame_launches=stream_launched, push_frame_launches_by_call=stream_by_call,
+              push_frame_replays_equal=torch.equal(again, streamed), dff_launches=dff_launched,
               dff_onehot_without_scale=unscaled, kernels_vs_plain=vs_plain,
               push_frame_vs_plain=stream_vs_plain, dff_kernels_vs_plain=dff_vs_plain,
               dff_kernels_vs_plain_same_stem=dff_vs_same_stem))
     check(launched == launches_of(fused_stem=2, warp=K - 1, upsample_argmax=1),
           f"e2e_noscale push_group launches {launched}")
-    check(stream_launched == launches_of(fused_stem=2 + (K - 1), warp=K - 1, upsample_argmax=K),
-          f"e2e_noscale push_frame launches {stream_launched}")
+    check(stream_as_expected, f"e2e_noscale push_frame launches by call {stream_by_call}")
+    check(torch.equal(again, streamed), "e2e_noscale: a replayed push_frame group differs")
     check(dff_launched == launches_of(fused_stem=1, warp_onehot=1, upsample_argmax=1),
           f"e2e_noscale dff launches {dff_launched}")
     # two groups ran under the recorder (run_groups' warm-up and its timed
@@ -1935,32 +2020,45 @@ def bench_network(config: str) -> dict:
     return json.loads(path.read_text())["network"]
 
 
-def profiled_launches(fn) -> tuple[object, dict[str, int], dict[str, int]]:
+def profiled_launches(fn) -> tuple[object, dict[str, int], dict[str, int], dict]:
     """``fn()`` under ``torch.profiler``: its result, the launch calls on
     the host by name (those the benchmark counts: a graph launch is one),
-    and the port's kernels among the device events (``benchmark/devtrace.py``'s
-    names), each by count."""
+    the port's kernels among the device events (``benchmark/devtrace.py``'s
+    names), each by count, and the device's copies beside its other events
+    ({'n', 'ms'} each: the memcpy events and the rest, with their summed
+    device ms). A warm-up step on the card comes first and is not kept:
+    the device trace of a profile's first step can miss its first kernels
+    (a replayed B=4 DFF group's stem kernel was missing once on an H100)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from benchmark.devtrace import port_kernel
     from benchmark.spans import LAUNCHES
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
         out = fn()
         torch.cuda.synchronize()
+        prof.step()
     calls: dict[str, int] = {}
     seen: dict[str, int] = {}
+    device = {"copies": dict(n=0, ms=0.0), "other": dict(n=0, ms=0.0)}
     for e in prof.profiler.kineto_results.events():
         name = e.name()
         if e.device_type() == DeviceType.CUDA:
             kernel = port_kernel(name)
             if kernel is not None:
                 seen[kernel] = seen.get(kernel, 0) + 1
+            side = device["copies" if name.startswith("Memcpy") else "other"]
+            side["n"] += 1
+            side["ms"] += e.duration_ns() / 1e6
         elif name.startswith(LAUNCHES):
             calls[name] = calls.get(name, 0) + 1
-    return out, calls, seen
+    return out, calls, seen, device
 
 
 def graph_case(name: str, model, propagate: str, clips: list, turns: int = 4,
@@ -1988,7 +2086,7 @@ def graph_case(name: str, model, propagate: str, clips: list, turns: int = 4,
         serve = graphs
     else:
         seg = VideoSegmenter(model, K, propagate=propagate)
-        graphs, serve = seg._group, seg.push_group
+        graphs, serve = seg._steps.group, seg.push_group
     launched, got = [], []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -2016,7 +2114,7 @@ def graph_case(name: str, model, propagate: str, clips: list, turns: int = 4,
         check(graphs.captures == 0 and graphs.capture_failures == 1,
               f"e2e_graphs {name}: the capture did not fail once")
         return row
-    _, calls, seen = profiled_launches(lambda: serve(clips[1]))
+    _, calls, seen, _ = profiled_launches(lambda: serve(clips[1]))
     eager_kernels = {k: n for k, n in launched[0].items() if n and k != "dilated_conv_dx"}
     ms = {"eager": [], "graph": []}
     for turn in range(turns):
@@ -2045,11 +2143,112 @@ def graph_case(name: str, model, propagate: str, clips: list, turns: int = 4,
     return row
 
 
+STREAMS = 3
+
+
+def frame_case(name: str, model, propagate: str, clips: list, turns: int = 4) -> dict:
+    """``push_frame`` of ``len(clips)`` segmenters of one model, stream s
+    starting s frames after stream 0, interleaved frame by frame over its
+    clip ((1, 2K, H, W, 3): two keyframe groups). Every class map
+    bit-equal to the key/cur predictors' eager maps on its stream
+    (``eager_push_frame``); the segmenters share one key and one cur
+    ``CallGraphs`` (DeepLab runs the key step alone), each captured once;
+    each step's first call (eager) and second (the capture) make the same
+    Python-side launches, every later one none (a replay); every returned
+    map and carried tensor unchanged after the later calls. Then a
+    replayed key and cur frame under the profiler: one launch call,
+    ``cudaGraphLaunch``, each, every port kernel of the step's eager call
+    in its device trace, as many times, and the device's copies in and out
+    beside the graph's other events; the weights' version stamp's
+    untraced host ms; ``turns`` alternating turns of each step eager and
+    replayed, CUDA-event ms."""
+    n = clips[0].shape[1]
+    want = [eager_push_frame(model, propagate, c) for c in clips]
+    segs = [VideoSegmenter(model, K, propagate=propagate) for _ in clips]
+    steps = segs[0]._steps
+    kinds = ("key",) if model.family == "deeplab" else ("key", "cur")
+    got = [[] for _ in clips]
+    kept, launched = [], {kind: [] for kind in kinds}
+    for tick in range(n + len(clips) - 1):
+        for s, seg in enumerate(segs):
+            if not 0 <= tick - s < n:
+                continue
+            kind = "key" if seg.is_keyframe_next or model.family == "deeplab" else "cur"
+            reset_counts()
+            pred = seg.push_frame(clips[s][:, tick - s])
+            torch.cuda.synchronize()
+            launched[kind].append(counts())
+            got[s].append(pred)
+            held = (pred, seg._prop, seg._anchor_small)
+            kept.append((held, tuple(t.clone() for t in held)))
+    equal = [[torch.equal(g, ws[:, i]) for i, g in enumerate(gs)]
+             for gs, ws in zip(got, want, strict=True)]
+    unchanged = all(torch.equal(t, c) for held, copies in kept for t, c in zip(held, copies))
+    row = dict(phase="e2e_graphs", case=name, propagate=propagate, streams=len(clips),
+               frames_a_stream=n, shared=all(seg._steps is steps for seg in segs),
+               captures={k: getattr(steps, k).captures for k in kinds},
+               capture_failures={k: getattr(steps, k).capture_failures for k in kinds},
+               launches_by_call={k: [sum(c.values()) for c in v] for k, v in launched.items()},
+               bit_equal_to_eager=equal, unchanged_after_later_calls=unchanged)
+    # the first stream is at a group boundary: a key frame, then a cur frame
+    seg, frames = segs[0], clips[0]
+    profiled = {}
+    for kind, i in (("key", 0), ("cur", 1))[:len(kinds)]:
+        pred, calls, seen, device = profiled_launches(lambda i=i: seg.push_frame(frames[:, i]))
+        eager_kernels = {k: c for k, c in launched[kind][0].items()
+                         if c and k != "dilated_conv_dx"}
+        profiled[kind] = dict(launch_calls=calls, port_kernels=seen,
+                              eager_port_kernels=eager_kernels, device=device,
+                              bit_equal_to_eager=torch.equal(pred, want[0][:, i]))
+    watched = len(steps.key._watched)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        steps.key.stamp()
+    stamp_ms = (time.perf_counter() - t0) * 1e3 / 200
+    key_in = (frames[:, 0],)
+    fresh = steps.key(*key_in)
+    step_in = {"key": key_in, "cur": (frames[:, 1], fresh["anchor_small"], fresh["prop"])}
+    ms = {f"{kind}_{side}": [] for kind in kinds for side in ("eager", "graph")}
+    for turn in range(turns):
+        for side in (("eager", "graph") if turn % 2 == 0 else ("graph", "eager")):
+            for kind in kinds:
+                step = getattr(steps, kind)
+                fn = step.fn if side == "eager" else step
+                ms[f"{kind}_{side}"].append(cuda_ms(lambda: fn(*step_in[kind]))[1])
+    med = statistics.median
+    row.update(replayed=profiled, stamp_host_ms=stamp_ms, watched_tensors=watched,
+               step_ms={k: med(v) for k, v in ms.items()}, step_ms_all=ms, card=card())
+    emit(row)
+    check(row["shared"], f"e2e_graphs {name}: the segmenters do not share their steps")
+    check(all(all(e) for e in equal), f"e2e_graphs {name}: push_frame from graphs differs "
+          "from the eager predictors")
+    check(unchanged, f"e2e_graphs {name}: a returned map or carried tensor was overwritten")
+    for kind in kinds:
+        step, calls = getattr(steps, kind), launched[kind]
+        check(step.captures == 1 and step.capture_failures == 0,
+              f"e2e_graphs {name} {kind}: {step.captures} captures, {step.capture_failures} failed")
+        check(any(calls[0].values()) and calls[1] == calls[0]
+              and not any(any(c.values()) for c in calls[2:]),
+              f"e2e_graphs {name} {kind}: Python-side launches by call {row['launches_by_call']}")
+        p = profiled[kind]
+        check(p["bit_equal_to_eager"], f"e2e_graphs {name}: the profiled {kind} frame differs")
+        check(sum(p["launch_calls"].values()) == 1
+              and next(iter(p["launch_calls"])).startswith("cudaGraphLaunch"),
+              f"e2e_graphs {name}: a replayed {kind} frame made the launch calls "
+              f"{p['launch_calls']}")
+        check(p["port_kernels"] == p["eager_port_kernels"],
+              f"e2e_graphs {name}: a replayed {kind} frame's device trace holds "
+              f"{p['port_kernels']}, its step's eager call launched {p['eager_port_kernels']}")
+    return row
+
+
 def e2e_graphs() -> dict:
     """Phase 26: ``push_group`` from CUDA graphs (``core/graphs.py``), case
     by case as ``graph_case`` holds it, at B=1 and B=4: Accel-18 as the
     benchmark serves it (incremental + 'last') and direct and composed, the
-    DFF row as the benchmark serves it (direct), DeepLab-101; then the
+    DFF row as the benchmark serves it (direct), DeepLab-101; then
+    ``push_frame`` from CUDA graphs as ``frame_case`` holds it, for each
+    model as the benchmark serves it (DeepLab-101 direct); then the
     folded fast model, whose call copies from the host and cannot be
     captured, served eagerly. Returns the rows by case."""
     rows = {}
@@ -2071,7 +2270,10 @@ def e2e_graphs() -> dict:
                 rows[name] = graph_case(name, model, propagate, clips)
                 torch.cuda.empty_cache()
             del clips
-        del model, one
+        streams = [moving_clip(2 * K, (H, W), seed + 5 + s, "cuda") for s in range(STREAMS)]
+        name = f"{config}_{propagates[0]}_frames"
+        rows[name] = frame_case(name, model, propagates[0], streams)
+        del model, one, streams
         torch.cuda.empty_cache()
     model = build_model(FOLD_NET, device="cuda", generator=torch.Generator().manual_seed(SEED))
     one = moving_clip(3 * K, (H, W), SEED + 180, "cuda")
@@ -4093,16 +4295,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     deeplab_launched = e2e_deeplab()
     torch.cuda.empty_cache()
-    # per-frame serving: a key frame runs both stems, a non-key frame the
-    # update branch's stem and one warp; every frame one tail
+    # per-frame serving: DFF's key frame runs the stem and a tail, a non-key
+    # frame a one-hot warp and a tail
     stream_launched = e2e_stream(
         "e2e_stream", "accel18 frozenbn fused7 bf16 push_frame", BENCH_NET, SEED + 16,
-        launches_of(fused_stem=2 + (K - 1), warp=K - 1, upsample_argmax=K), overall=0.99)
+        ACCEL_FRAME_LAUNCHES, overall=0.99)
     torch.cuda.empty_cache()
     dff_stream_launched = e2e_stream(
         "e2e_dff_stream", "dff101 frozenbn fused7 bf16 onehot native D=4 push_frame", DFF_NET,
-        SEED + 18, launches_of(fused_stem=1, warp_onehot=K - 1, upsample_argmax=K),
-        overall=0.98)
+        SEED + 18, dict(key=launches_of(fused_stem=1, upsample_argmax=1),
+                        cur=launches_of(warp_onehot=1, upsample_argmax=1)), overall=0.98)
     torch.cuda.empty_cache()
     # a direct group: both stems, one batched warp, one tail
     direct_group = launches_of(fused_stem=2, warp=1, upsample_argmax=1)

@@ -11,7 +11,11 @@ signature eagerly for good and is counted; an in-place write to a watched
 tensor starts the signature again from the eager call; a replay is the
 span ``serve.replay``. The whole-model cases (``push_group`` on the CPU
 makes no graph; through the stand-in it gives ``clip_predictions``' maps)
-run in ``test_torch_spans.py``'s module-scoped models."""
+run in ``test_torch_spans.py``'s module-scoped models. A call of several
+tensors that returns a dict (``push_frame``'s steps) takes the same path:
+its signature is every input's, each output is a copy, and an output that
+is one of the inputs comes back as the caller's own input.
+"""
 
 from types import SimpleNamespace
 
@@ -154,6 +158,38 @@ def test_a_replay_is_the_span_serve_replay(monkeypatch):
     replays = [r for r in records if r.name == REPLAY]
     assert len(groups) == 3 and len(replays) == 2
     assert {r.parent for r in replays} == {g.id for g in groups[1:]}
+
+
+def _step(frame, anchor, prop):
+    """A cur step's shape: a new map and anchor, the carried tensor as it is."""
+    return {"pred": (frame + prop).to(torch.uint8), "anchor_small": frame * 2, "prop": prop}
+
+
+def test_a_tuple_in_and_a_dict_out(monkeypatch):
+    stand_in = graph_stand_in.use(monkeypatch)
+    call = CallGraphs(_step)
+    calls = [tuple(_frames(3 * s + i) for i in range(3)) for s in range(4)]
+    outs = [call(*xs) for xs in calls[:3]]
+    kept = {name: t.clone() for name, t in outs[1].items()}
+    assert stand_in.recorded == 1 and stand_in.replays == 2 and call.captures == 1
+    for xs, out in zip(calls, outs, strict=False):
+        want = _step(*xs)
+        assert out.keys() == want.keys()
+        for name in want:
+            assert torch.equal(out[name], want[name])
+        # the carried tensor is the caller's own, the others copies
+        assert out["prop"] is xs[2]
+    assert all(out["pred"].data_ptr() != outs[2]["pred"].data_ptr() for out in outs[:2])
+    call(*calls[3])
+    for name, t in kept.items():
+        assert torch.equal(outs[1][name], t)
+    # any input's shape is part of the signature: a new one starts eagerly
+    replays = stand_in.replays
+    frame, anchor, _ = calls[3]
+    prop = _frames(99, (2, 1))
+    out = call(frame, anchor, prop)
+    assert torch.equal(out["pred"], (frame + prop).to(torch.uint8))
+    assert stand_in.replays == replays and stand_in.recorded == 1
 
 
 def test_graphs_module_runs_no_capture_on_the_cpu():

@@ -12,7 +12,12 @@ pooled and resolved only when the records are read; the record buffer is
 bounded and counts what it drops. ``push_group`` on the CPU captures no
 CUDA graph (``core/graphs.py``) and gives ``clip_predictions``' maps; with
 the capture stood in, its replay is the span ``serve.replay`` inside
-``serve.group``."""
+``serve.group``. ``push_frame`` through stood-in graphs: three segmenters
+interleaved over two keyframe groups each give eager ``push_frame``'s maps
+from one key and one cur graph they share, and a kept map or carried
+tensor is never overwritten; ``reset()`` keeps the graphs and
+``load_state_dict`` starts them again; a failed capture serves eagerly;
+the replay is ``serve.replay`` inside ``serve.key`` or ``serve.cur``."""
 
 import collections
 import json
@@ -54,6 +59,23 @@ def served(request):
     model = build_model(net, device="cpu", generator=torch.Generator().manual_seed(3))
     clip = torch.randn((1, K, HW, HW, 3), generator=torch.Generator().manual_seed(4)) * 0.5
     return request.param, model, propagate, clip
+
+
+STREAMS = 3
+
+
+@pytest.fixture(scope="module")
+def streams(served):
+    """Three streams of two keyframe groups (2K frames) each, and each
+    one's eager ``push_frame`` maps (the CPU path makes no graph)."""
+    _, model, propagate, clip = served
+    frames = [torch.cat([c, c.flip(1)], dim=1) for c in (clip, clip.flip(2), clip.flip(3))]
+    with torch.inference_mode():
+        want = []
+        for f in frames:
+            seg = VideoSegmenter(model, K, propagate=propagate)
+            want.append([seg.push_frame(f[:, i]) for i in range(2 * K)])
+    return frames, want
 
 
 @pytest.fixture(autouse=True)
@@ -182,8 +204,8 @@ def test_push_group_on_the_cpu_makes_no_graph(served):
         want = clip_predictions(model, clip, K, propagate)
     for out in outs:
         assert torch.equal(out, want)
-    assert seg._group.captures == 0 and seg._group.capture_failures == 0
-    assert not seg._group._graphs
+    assert seg._steps.group.captures == 0 and seg._steps.group.capture_failures == 0
+    assert not seg._steps.group._graphs
 
 
 def test_push_group_through_a_stand_in_graph(served, monkeypatch):
@@ -200,7 +222,7 @@ def test_push_group_through_a_stand_in_graph(served, monkeypatch):
             outs.append(seg.push_group(clips[2]))
         for c, out in zip(clips, outs, strict=True):
             assert torch.equal(out, clip_predictions(model, c, K, propagate))
-    assert stand_in.recorded == 1 and stand_in.replays == 2 and seg._group.captures == 1
+    assert stand_in.recorded == 1 and stand_in.replays == 2 and seg._steps.group.captures == 1
     records = span_records()
     root = _root(records)
     (replay,) = [r for r in records if r.name == "serve.replay"]
@@ -313,3 +335,127 @@ def test_profile_trace_holds_the_spans(tmp_path):
     events = json.loads((tmp_path / trace).read_text())["traceEvents"]
     assert any(e.get("name") == "serve.group" for e in events)
     assert [r.name for r in span_records()] == ["serve.group"]
+
+
+def _interleaved(segs, frames):
+    """Stream s starts s frames after stream 0; frame by frame, each
+    stream's maps, and (returned, a copy) of every map, prop and anchor."""
+    got, kept = [[] for _ in segs], []
+    n = frames[0].shape[1]
+    for tick in range(n + len(segs) - 1):
+        for s, seg in enumerate(segs):
+            if 0 <= tick - s < n:
+                got[s].append(seg.push_frame(frames[s][:, tick - s]))
+                held = (got[s][-1], seg._prop, seg._anchor_small)
+                kept.append((held, [t.clone() for t in held]))
+    return got, kept
+
+
+def test_interleaved_segmenters_share_frame_graphs(served, streams, monkeypatch):
+    """Three segmenters of one model, interleaved over two keyframe groups
+    each: eager ``push_frame``'s maps, from one key and one cur graph they
+    share; no kept map, prop or anchor is overwritten by a later call."""
+    _, model, propagate, _ = served
+    frames, want = streams
+    stand_in = graph_stand_in.use(monkeypatch)
+    with torch.inference_mode():
+        segs = [VideoSegmenter(model, K, propagate=propagate) for _ in range(STREAMS)]
+        got, kept = _interleaved(segs, frames)
+    steps = segs[0]._steps
+    assert all(seg._steps is steps for seg in segs)
+    for gs, ws in zip(got, want, strict=True):
+        assert all(torch.equal(g, w) for g, w in zip(gs, ws, strict=True))
+    for held, copies in kept:
+        assert all(torch.equal(t, c) for t, c in zip(held, copies, strict=True))
+    # 6 key and 24 cur calls: each step's first eager, the second captured
+    assert stand_in.recorded == 2 and stand_in.replays == 6 - 1 + 24 - 1
+    assert steps.key.captures == steps.cur.captures == 1
+    assert steps.key.capture_failures == steps.cur.capture_failures == 0
+
+
+def test_reset_keeps_the_graphs_and_load_state_dict_starts_again(served, streams,
+                                                                   monkeypatch):
+    _, model, propagate, _ = served
+    frames, want = streams
+    stand_in = graph_stand_in.use(monkeypatch)
+    f = frames[0]
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    try:
+        with torch.inference_mode():
+            seg = VideoSegmenter(model, K, propagate=propagate)
+            pushed = [seg.push_frame(f[:, i]) for i in range(K + 1)]  # two keys
+            seg.reset()
+            pushed += [seg.push_frame(f[:, i]) for i in range(2)]
+            assert stand_in.recorded == 2 and seg._steps.key.captures == 1
+            for got, i in zip(pushed, [*range(K + 1), 0, 1], strict=True):
+                assert torch.equal(got, want[0][i])
+            # new weights, written in place: eager, then captured again
+            changed = {k: v * 1.5 if v.is_floating_point() else v for k, v in state.items()}
+            model.load_state_dict(changed)
+            seg.reset()
+            new = [seg.push_frame(f[:, K])]  # the graphs were dropped: eager
+            assert stand_in.recorded == 2 and seg._steps.key.captures == 1
+            seg.reset()
+            new.append(seg.push_frame(f[:, K]))  # captured again
+            assert stand_in.recorded == 3 and seg._steps.key.captures == 2
+            eager = seg._steps.key.fn(f[:, K])["pred"]
+            assert all(torch.equal(n, eager) for n in new)
+            assert not torch.equal(eager, want[0][K])
+    finally:
+        model.load_state_dict(state)
+
+
+def test_a_failed_frame_capture_serves_eagerly(served, streams, monkeypatch):
+    _, model, propagate, _ = served
+    frames, want = streams
+    stand_in = graph_stand_in.use(monkeypatch, fail=True)
+    with torch.inference_mode():
+        seg = VideoSegmenter(model, K, propagate=propagate)
+        with pytest.warns(RuntimeWarning, match="capture .* failed"):
+            got = [seg.push_frame(frames[0][:, i]) for i in range(K + 2)]
+    assert all(torch.equal(g, w) for g, w in zip(got, want[0], strict=False))
+    steps = seg._steps
+    assert stand_in.recorded == 2 and stand_in.replays == 0
+    assert steps.key.capture_failures == steps.cur.capture_failures == 1
+    assert steps.key.captures == steps.cur.captures == 0
+
+
+def test_a_frame_replay_is_serve_replay_inside_serve_key_or_cur(served, streams, monkeypatch):
+    _, model, propagate, _ = served
+    frames, want = streams
+    graph_stand_in.use(monkeypatch)
+    with torch.inference_mode():
+        seg = VideoSegmenter(model, K, propagate=propagate)
+        for i in range(3):  # key (eager), cur (eager), cur (captured)
+            seg.push_frame(frames[0][:, i])
+        seg.reset()
+        seg.push_frame(frames[0][:, 0])  # key (captured)
+        with torch.profiler.profile():
+            got = [seg.push_frame(frames[0][:, i]) for i in (1, 2)]  # cur, cur
+            seg.reset()
+            got.append(seg.push_frame(frames[0][:, 0]))  # key
+    assert all(torch.equal(g, want[0][i]) for g, i in zip(got, (1, 2, 0), strict=True))
+    records = span_records()
+    by_id = {r.id: r for r in records}
+    replays = [r for r in records if r.name == "serve.replay"]
+    assert [by_id[r.parent].name for r in replays] == ["serve.cur", "serve.cur", "serve.key"]
+    assert all(r.request == r.parent for r in replays)
+
+
+def test_a_changed_scale_cascade_gets_steps_of_its_own(served):
+    """The segmenters alive share their steps by model and settings, the
+    model's scale cascade among them: one made after the cascade changed
+    builds and checks its own predictors (incremental 'mean1' is refused)
+    while an older one lives, and the old cascade's steps serve again."""
+    _, model, _, _ = served
+    seg = VideoSegmenter(model, K, propagate="incremental")
+    cascade = model.scale_cascade
+    try:
+        model.scale_cascade = "product"
+        assert VideoSegmenter(model, K, propagate="incremental")._steps is not seg._steps
+        model.scale_cascade = "mean1"
+        with pytest.raises(ValueError, match="scale_cascade='mean1'"):
+            VideoSegmenter(model, K, propagate="incremental")
+    finally:
+        model.scale_cascade = cascade
+    assert VideoSegmenter(model, K, propagate="incremental")._steps is seg._steps
