@@ -51,6 +51,8 @@ ARGTYPES = {
     # x (bf16: NHWC; f32: NCHW), packed weights (9, Cout, Cin), out, N, Cin, Cout, H, W,
     # dilation, is_bf16, stream
     "dilated_conv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, out, planes (N*C), h, w, is_bf16, stream
+    "upsample2x": (_P, _P, _I, _I, _I, _I, _P),
 }
 SOURCES = tuple(ARGTYPES)
 

@@ -121,7 +121,7 @@ class AccelNet(nn.Module):
         if family in ("dff", "accel"):
             scale_channels = head_channels if self.warp_tensor == "features" else num_classes
             self.flownet = FlowNetS(scale_channels, flow_width_mult, use_scale_field,
-                                    device=device, dtype=dtype)
+                                    use_kernels=use_kernels, device=device, dtype=dtype)
 
     @property
     def warp_tensor(self) -> str:
@@ -156,7 +156,7 @@ class AccelNet(nn.Module):
             image = resize_bilinear(image, (image.shape[-2] // ds, image.shape[-1] // ds))
         s = self.update_net(image)
         if tuple(s.shape[-2:]) != feat_hw:
-            s = resize_bilinear(s, feat_hw)
+            s = resize_bilinear(s, feat_hw, plain=not self.use_kernels)
         return s
 
     @spanned("model.flow")
@@ -166,12 +166,13 @@ class AccelNet(nn.Module):
         return resize_bilinear(frames, (frames.shape[-2] // ds, frames.shape[-1] // ds))
 
     def _flow_post(self, flow_small, scale_small, feat_hw):
+        plain = not self.use_kernels
         flow = flow_to_feature_res(flow_small, feat_hw,
-                                   self.flow_input_downscale / self.feat_stride)
+                                   self.flow_input_downscale / self.feat_stride, plain)
         if self.warp_dtype == "native":
             # the resize then runs on the storage dtype
             scale_small = scale_small.to(self.dtype)
-        return flow, resize_bilinear(scale_small, feat_hw)
+        return flow, resize_bilinear(scale_small, feat_hw, plain)
 
     @spanned("model.flow")
     def flow_pair(self, cur_small, anchor_small):

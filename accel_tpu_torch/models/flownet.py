@@ -7,7 +7,9 @@ FlowNet-input pixels, at 1/4 of that resolution. The predict convs start
 at zero (identity warp) and the scale field's bias at one (identity
 modulation). Without the scale field (``use_scale_field=False``) there is
 no ``scale_field`` head and the scale is all ones. "Deconv" is a 2x
-bilinear resize followed by a 3x3 conv.
+bilinear resize followed by a 3x3 conv; the 2x resizes of the features and
+of the flow run on the 2x upsample kernel (``ops/upsample.py::upsample2x``)
+on a card, on its plain version with ``use_kernels=False``.
 
 Folded prologue (``stem_partial`` + ``from_conv1``): conv1 is linear in its
 6 input channels, so ``conv1(cat(d(cur), d(anchor)))`` is the sum of two
@@ -33,9 +35,10 @@ def _leaky(x):
 
 class FlowNetS(nn.Module):
     def __init__(self, scale_channels=19, width_mult=1.0, use_scale_field=True, *,
-                 device=None, dtype=torch.bfloat16):
+                 use_kernels=True, device=None, dtype=torch.bfloat16):
         super().__init__()
         self.dtype = dtype
+        self.use_kernels = use_kernels
         self.scale_channels = scale_channels
         self.use_scale_field = use_scale_field
         wm = lambda ch: max(int(ch * width_mult), 16)  # noqa: E731
@@ -95,12 +98,13 @@ class FlowNetS(nn.Module):
         """The FlowNet-S tail from the (pre-activation) conv1 output."""
         dt = self.dtype
         f32 = torch.float32
+        plain = not self.use_kernels
 
         def upconv(mod, x):
-            return mod(bilinear_upsample(x, 2))
+            return mod(bilinear_upsample(x, 2, plain))
 
         def upflow(f):  # units stay FlowNet-input pixels at every level
-            return bilinear_upsample(f, 2).to(dt)
+            return bilinear_upsample(f, 2, plain).to(dt)
 
         c1 = _leaky(c1_preact.to(dt))
         c2 = _leaky(self.conv2(c1))

@@ -51,7 +51,7 @@ def upsample_argmax_plain(logits: torch.Tensor, out_hw: tuple[int, int]) -> torc
     """The kernel's plain version: materialize the bilinear resize in f32
     (``resize_bilinear``, antialiased on a downscale as ``accel_tpu``'s
     oracle is), then argmax. logits (N,C,h,w) -> (N,H,W) uint8."""
-    up = resize_bilinear(logits.to(torch.float32), tuple(out_hw))
+    up = resize_bilinear(logits.to(torch.float32), tuple(out_hw), plain=True)
     return up.argmax(dim=1).to(torch.uint8)
 
 

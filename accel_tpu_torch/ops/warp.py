@@ -93,8 +93,8 @@ def bilinear_warp(
 
 
 def flow_to_feature_res(flow: torch.Tensor, feat_hw: tuple[int, int],
-                        unit_scale: float) -> torch.Tensor:
+                        unit_scale: float, plain: bool = False) -> torch.Tensor:
     """Resize a flow field (N,2,h,w) to ``feat_hw`` in f32 and rescale its
     units by ``unit_scale`` (e.g. FlowNet ran on 2x-downscaled frames and
-    features are at stride 16 -> 2/16)."""
-    return resize_bilinear(flow.to(torch.float32), feat_hw) * unit_scale
+    features are at stride 16 -> 2/16); ``plain`` as ``resize_bilinear``."""
+    return resize_bilinear(flow.to(torch.float32), feat_hw, plain) * unit_scale

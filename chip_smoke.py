@@ -18,7 +18,13 @@ Phases, one JSON line each:
    wrapper's host work; ``device_ms`` the device's time per call in a run
    of back-to-back calls queued behind a spin kernel, and ``host_ms`` the
    host's time to enqueue one (``device_ms``). A launch-sized kernel is
-   read by ``device_ms`` against the launch floor.
+   read by ``device_ms`` against the launch floor. The 2x upsample (#6,
+   ``kernel_upsample2x``) at FlowNet-S's resize shapes, N=1 and 4, bf16 and
+   f32: the elements that differ from its plain version, ``F.interpolate``
+   (none), and the library's NCHW and channels-last times beside the
+   kernel's. Every path that runs FlowNet-S launches #6
+   ``FLOW_RESIZES`` (8) times a FlowNet pass: its four feature resizes and
+   its four flow resizes.
 3. small_reference: a tiny f32 Accel model on the card (kernels) against
    the same model on the CPU (plain versions): logits and class maps.
 4. e2e: Accel-18 (R101 keyframe branch, R18 update branch, FlowNet-S at
@@ -299,6 +305,7 @@ from accel_tpu_torch.models.resnet import BatchNorm, DilatedResNet
 from accel_tpu_torch.ops import dilated_cuda as dilated_ops
 from accel_tpu_torch.ops import fused_stem as stem_ops
 from accel_tpu_torch.ops import quant as quant_ops
+from accel_tpu_torch.ops import upsample as upsample_ops
 from accel_tpu_torch.ops import upsample_argmax as ua_ops
 from accel_tpu_torch.ops import warp as warp_module
 from accel_tpu_torch.ops import warp_cuda as warp_ops
@@ -342,6 +349,7 @@ LAUNCHERS = {
     "fused_stem": stem_ops.fused_stem_cuda,
     "warp_onehot": onehot_ops.warp_onehot_cuda,
     "dilated_conv": dilated_ops.conv3x3_dilated_cuda,
+    "upsample2x": upsample_ops.upsample2x_cuda,
 }
 REPLACES = {
     "warp": "accel_tpu/ops/warp_pallas.py:84",
@@ -349,7 +357,11 @@ REPLACES = {
     "fused_stem": "accel_tpu/ops/fused_stem.py:84",
     "warp_onehot": "accel_tpu/ops/warp_onehot.py:117",
     "dilated_conv": "accel_tpu/ops/dilated_pallas.py:96",
+    "upsample2x": "no TPU kernel: XLA's resize in accel_tpu/ops/upsample.py",
 }
+# #6's launches a FlowNet-S pass: its decoder's four 2x feature resizes (bf16)
+# and four 2x flow resizes (f32)
+FLOW_RESIZES = 8
 
 
 def emit(obj) -> None:
@@ -801,6 +813,78 @@ def kernel_dilated_conv(results: dict) -> None:
     results["dilated_conv"] = rows[0]
 
 
+# FlowNet-S's 2x resizes at its 512x1024 input: the decoder's features (C, h, w)
+# in bf16 and the flow (2, h, w) in f32
+FLOWNET_RESIZES = ((386, 64, 128), (770, 32, 64), (1026, 16, 32), (1024, 8, 16))
+FLOW_UPFLOWS = ((2, 64, 128), (2, 32, 64), (2, 16, 32), (2, 8, 16))
+
+
+def kernel_upsample2x(results: dict) -> None:
+    """The 2x upsample at FlowNet-S's resize shapes, N=4 (a group's four
+    pairs) and N=1 (a ``push_frame`` pair): the four feature shapes in bf16
+    and in f32, the four flow shapes in f32; then a ragged width, h = w = 1
+    and a tensor one element off a 16-byte boundary (the scalar path).
+    Every output equal to the plain version's, ``F.interpolate``'s
+    (elements that differ: 0). Timed against the library's NCHW kernel and
+    its channels-last one; bound: the input read and the output written
+    once. Then the gradient through ``Upsample2xFunction`` against
+    autograd through ``F.interpolate``. Per N the summed device ms of a
+    pass's eight resizes as the path runs them (``per_pass``) and the
+    library's."""
+    rows, per_pass = [], {}
+    cases = [((n, *s), dt) for n in (4, 1) for s in FLOWNET_RESIZES
+             for dt in (torch.bfloat16, torch.float32)]
+    cases += [((n, *s), torch.float32) for n in (4, 1) for s in FLOW_UPFLOWS]
+    for shape, dtype in cases:
+        x = torch.randn(shape, generator=_gen(SEED + 17), device="cuda").to(dtype)
+        got = upsample_ops.upsample2x_cuda(x)
+        plain = upsample_ops.upsample2x_plain(x)
+        x_cl = x.contiguous(memory_format=torch.channels_last)
+        differ = int((got != plain).sum().item())
+        row = dict(kernel="upsample2x", dtype=str(dtype), shape=list(shape), numel=got.numel(),
+                   max_abs_err=(got.float() - plain.float()).abs().max().item(),
+                   differ_vs_plain=differ,
+                   **timed(lambda: upsample_ops.upsample2x_cuda(x),
+                           lambda: upsample_ops.upsample2x_plain(x)),
+                   library_channels_last_device_ms=device_ms(
+                       lambda: upsample_ops.upsample2x_plain(x_cl))["device_ms"],
+                   plain_ms=median_ms(lambda: upsample_ops.upsample2x_plain(x)),
+                   library_call="F.interpolate(size=(2h, 2w), bilinear): the plain version",
+                   **bound(nbytes(x, got), 0, "f32"))
+        emit(dict(phase="kernel", **row))
+        check(got.dtype == dtype and got.shape == plain.shape and differ == 0,
+              f"upsample2x {shape} {dtype}: {differ} elements differ from the plain version")
+        if dtype == torch.bfloat16 or shape[1] == 2:  # as the path runs them
+            side = per_pass.setdefault(shape[0], dict(device_ms=0.0, library_device_ms=0.0,
+                                                      bound_ms=0.0))
+            for k in side:
+                side[k] += row[k]
+        rows.append(row)
+        del x, x_cl, got, plain
+    flat = torch.randn(2 * 5 * 7 * 16 + 1, generator=_gen(SEED + 18), device="cuda")
+    for name, x in (("ragged", torch.randn((2, 5, 7, 13), generator=_gen(SEED + 18),
+                                           device="cuda").to(torch.bfloat16)),
+                    ("one_by_one", torch.randn((3, 4, 1, 1), generator=_gen(SEED + 18),
+                                               device="cuda")),
+                    ("misaligned", flat[1:].view(2, 5, 7, 16))):
+        differ = int((upsample_ops.upsample2x_cuda(x) != upsample_ops.upsample2x_plain(x)).sum())
+        emit(dict(phase="kernel", kernel="upsample2x", case=name, shape=list(x.shape),
+                  dtype=str(x.dtype), differ_vs_plain=differ))
+        check(differ == 0, f"upsample2x {name}: {differ} elements differ from the plain version")
+    x = torch.randn((4, 386, 64, 128), generator=_gen(SEED + 19), device="cuda")
+    g = torch.randn((4, 386, 128, 256), generator=_gen(SEED + 20), device="cuda")
+    grads = []
+    for fn in (upsample_ops.upsample2x, upsample_ops.upsample2x_plain):
+        leaf = x.detach().requires_grad_()
+        grads.append(torch.autograd.grad(fn(leaf), leaf, g)[0])
+    got, want = grads
+    err, tol = (got - want).abs().max().item(), 1e-5 * want.abs().max().item()
+    emit(dict(phase="grad_upsample2x", shape=list(x.shape), max_abs_err=err, tol=tol,
+              per_pass=per_pass))
+    check(err <= tol, f"upsample2x gradient: max err {err} > {tol}")
+    results["upsample2x"] = rows[0]
+
+
 # ---- phase 13: each kernel's gradients --------------------------------------------
 
 
@@ -1165,7 +1249,8 @@ def e2e_bench() -> tuple[dict[str, int], int]:
     # incremental groups the first runs eagerly, the second is captured
     # (its launches counted as they are captured) and the third replayed
     wrapped = len(groups) - 1
-    check(launched["warp"] == 2 * (K - 1) + 1 and launched["upsample_argmax"] == wrapped,
+    check(launched["warp"] == 2 * (K - 1) + 1 and launched["upsample_argmax"] == wrapped
+          and launched["upsample2x"] == FLOW_RESIZES * wrapped,
           f"main path launches {launched}")
 
     plain = build_model(BENCH_NET, device="cuda", generator=torch.Generator().manual_seed(SEED),
@@ -1206,6 +1291,8 @@ def e2e_flagship() -> None:
               k=K, group_ms=ms, fps=K / (ms / 1e3), launches=launched))
     check(launched["warp"] > 0 and launched["upsample_argmax"] > 0,
           "flagship path skipped a kernel")
+    check(launched["upsample2x"] == FLOW_RESIZES,
+          f"flagship FlowNet resizes {launched['upsample2x']} != {FLOW_RESIZES}")
 
 
 def run_groups(model, groups) -> tuple[list[tuple[torch.Tensor, float]], dict[str, int]]:
@@ -1259,6 +1346,10 @@ def e2e_dff() -> tuple[dict[str, int], int, dict]:
     # incremental group
     check(launched["warp_onehot"] == 2 + (K - 1),
           f"dff warp_onehot launches {launched['warp_onehot']} != {2 + (K - 1)}")
+    # a FlowNet pass a group: the direct groups' eager and capturing calls
+    # and the incremental group's eager call
+    check(launched["upsample2x"] == FLOW_RESIZES * len(groups),
+          f"dff FlowNet resizes {launched['upsample2x']} != {FLOW_RESIZES * len(groups)}")
     # DFF scores warped fc6 features: ~1% of its pixels sit at bf16 near-ties
     # (0.9897-0.9907 overall on an H100, >= 0.99997 on the clear pixels)
     for key, c in vs_plain.items():
@@ -1381,9 +1472,10 @@ def e2e_variant(phase: str, config: str, net: dict, propagate: str, seed: int,
 
 
 # an Accel push_frame's launches: a key frame runs both stems and a tail, a
-# non-key frame the update branch's stem, a warp and a tail
+# non-key frame the update branch's stem, a FlowNet pass, a warp and a tail
 ACCEL_FRAME_LAUNCHES = dict(key=launches_of(fused_stem=2, upsample_argmax=1),
-                            cur=launches_of(fused_stem=1, warp=1, upsample_argmax=1))
+                            cur=launches_of(fused_stem=1, warp=1, upsample_argmax=1,
+                                            upsample2x=FLOW_RESIZES))
 
 
 def eager_push_frame(model, propagate: str, frames: torch.Tensor) -> torch.Tensor:
@@ -1598,9 +1690,10 @@ def e2e_quant() -> dict[str, int]:
         check_pred(pred, (4 if name == "direct_B4" else 1, K, H, W))
     _, frames_by_call, frames_as_expected = frame_launches(frame_calls, ACCEL_FRAME_LAUNCHES)
     # push_frame (ACCEL_FRAME_LAUNCHES): the key step's eager call and the
-    # cur step's eager and capturing calls launch, the later frames replay
+    # cur step's eager and capturing calls launch, the later frames replay;
+    # a FlowNet pass in each group and at each launching cur call
     expected = launches_of(fused_stem=2 * 3 + 2 + 2, warp=(K - 1) + 1 + 1 + 2,
-                           upsample_argmax=3 + 3)
+                           upsample_argmax=3 + 3, upsample2x=FLOW_RESIZES * (3 + 2))
     passes = INT8_CONVS[101] + INT8_CONVS[18]
     # a group: the key frame's R101 and one R18 call over its B*k frames;
     # push_frame: the key's R101 and R18, and an R18 at each of the cur
@@ -1659,12 +1752,15 @@ def e2e_quant() -> dict[str, int]:
 def e2e_fold() -> dict[str, int]:
     """Phase 16: the folded fast model (``FOLD_NET``), a direct and an
     incremental group as ``e2e_variant`` holds them. The conv7 stem runs
-    through cuDNN, so only the warp and the tail kernels launch."""
+    through cuDNN, so only the warp, the tail and the 2x upsample launch:
+    a FlowNet pass, and the update branch's scores (stride 32 of the frame,
+    its input downscale folded in) resized up by 2 to the feature grid."""
     launched = {}
     for propagate, warps, seed in (("direct", 1, SEED + 90), ("incremental", K - 1, SEED + 92)):
         got = e2e_variant(f"e2e_fold_{propagate}", "accel18_fast conv7 fold_update_downscale "
                           "fold_flow_downscale bf16", FOLD_NET, propagate, seed,
-                          launches_of(warp=warps, upsample_argmax=1))
+                          launches_of(warp=warps, upsample_argmax=1,
+                                      upsample2x=FLOW_RESIZES + 1))
         launched = {name: launched.get(name, 0) + n for name, n in got.items()}
     return launched
 
@@ -1741,7 +1837,8 @@ def e2e_export(tmp: Path) -> tuple[dict[str, int], dict[str, int]]:
         torch.cuda.synchronize()
         launched[name] = counts()
         want = seg.push_group(frames)
-        check(launched[name] == launches_of(fused_stem=2, warp=1, upsample_argmax=1),
+        check(launched[name] == launches_of(fused_stem=2, warp=1, upsample_argmax=1,
+                                            upsample2x=FLOW_RESIZES),
               f"e2e_export {name} launches {launched[name]}")
         launched[name + "_vs_push_group"] = held_to_push_group(
             f"e2e_export {name}", got, want, model, frames, "direct")
@@ -1789,7 +1886,8 @@ def e2e_export_args(tmp: Path) -> dict[str, int]:
     emit(dict(phase="e2e_export_args", config="accel18 frozenbn fused7 bf16 direct, B=1, "
               "weights as an argument", hw=[H, W], k=K, **sizes, launches=launched,
               vs_push_group=held, class_maps_moved_by_the_write=moved))
-    check(launched == launches_of(fused_stem=2, warp=1, upsample_argmax=1),
+    check(launched == launches_of(fused_stem=2, warp=1, upsample_argmax=1,
+                                  upsample2x=FLOW_RESIZES),
           f"e2e_export_args launches {launched}")
     check(sizes["artifact_mb"] < 10, f"e2e_export_args: the weights are in the artifact "
           f"({sizes['artifact_mb']} MB)")
@@ -1818,7 +1916,8 @@ def e2e_export_dff(tmp: Path) -> dict[str, int]:
     emit(dict(phase="e2e_export_dff", config="dff101 frozenbn fused7 bf16 onehot native D=4 "
               "direct", hw=[H, W], k=K, max_abs_flow=max_flow, **sizes, launches=launched,
               vs_push_group=held, loaded_ms=loaded_ms, push_group_ms=group_ms))
-    check(launched == launches_of(fused_stem=1, warp_onehot=1, upsample_argmax=1),
+    check(launched == launches_of(fused_stem=1, warp_onehot=1, upsample_argmax=1,
+                                  upsample2x=FLOW_RESIZES),
           f"e2e_export_dff launches {launched}")
     return launched
 
@@ -1950,11 +2049,13 @@ def e2e_noscale() -> dict[str, int]:
               dff_onehot_without_scale=unscaled, kernels_vs_plain=vs_plain,
               push_frame_vs_plain=stream_vs_plain, dff_kernels_vs_plain=dff_vs_plain,
               dff_kernels_vs_plain_same_stem=dff_vs_same_stem))
-    check(launched == launches_of(fused_stem=2, warp=K - 1, upsample_argmax=1),
+    check(launched == launches_of(fused_stem=2, warp=K - 1, upsample_argmax=1,
+                                  upsample2x=FLOW_RESIZES),
           f"e2e_noscale push_group launches {launched}")
     check(stream_as_expected, f"e2e_noscale push_frame launches by call {stream_by_call}")
     check(torch.equal(again, streamed), "e2e_noscale: a replayed push_frame group differs")
-    check(dff_launched == launches_of(fused_stem=1, warp_onehot=1, upsample_argmax=1),
+    check(dff_launched == launches_of(fused_stem=1, warp_onehot=1, upsample_argmax=1,
+                                      upsample2x=FLOW_RESIZES),
           f"e2e_noscale dff launches {dff_launched}")
     # two groups ran under the recorder (run_groups' warm-up and its timed
     # pass), each with its one #4 launch through bilinear_warp, unscaled
@@ -2001,7 +2102,8 @@ def e2e_quant_small() -> dict[str, int]:
         c = compare_class_maps(out[0][0], plain_out[0][0], plain, clip, "direct")[0]
         rows[name] = dict(hw=list(hw), launches=got, int8_gemms_two_groups=gemms,
                           kernels_vs_plain=c)
-        check(got == launches_of(fused_stem=2, warp=1, upsample_argmax=1),
+        check(got == launches_of(fused_stem=2, warp=1, upsample_argmax=1,
+                                 upsample2x=FLOW_RESIZES),
               f"e2e_quant_small {name} launches {got}")
         check(gemms > 0, f"e2e_quant_small {name}: no int8 GEMM ran")
         check_class_maps(f"e2e_quant_small {name} kernel vs plain", c, QUANT_OVERALL, QUANT_CLEAR)
@@ -2020,11 +2122,21 @@ def bench_network(config: str) -> dict:
     return json.loads(path.read_text())["network"]
 
 
+def device_kernel(event_name: str) -> str | None:
+    """Which of the port's kernels a device event is: ``benchmark/devtrace.py``'s
+    names, and #6's (``upsample2x_kernel``)."""
+    from benchmark.devtrace import port_kernel
+
+    if "upsample2x_kernel" in event_name or "_upsample2x_cu_" in event_name:
+        return "upsample2x"
+    return port_kernel(event_name)
+
+
 def profiled_launches(fn) -> tuple[object, dict[str, int], dict[str, int], dict]:
     """``fn()`` under ``torch.profiler``: its result, the launch calls on
     the host by name (those the benchmark counts: a graph launch is one),
-    the port's kernels among the device events (``benchmark/devtrace.py``'s
-    names), each by count, and the device's copies beside its other events
+    the port's kernels among the device events (``device_kernel``), each by
+    count, and the device's copies beside its other events
     ({'n', 'ms'} each: the memcpy events and the rest, with their summed
     device ms). A warm-up step on the card comes first and is not kept:
     the device trace of a profile's first step can miss its first kernels
@@ -2032,7 +2144,6 @@ def profiled_launches(fn) -> tuple[object, dict[str, int], dict[str, int], dict]
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    from benchmark.devtrace import port_kernel
     from benchmark.spans import LAUNCHES
 
     torch.cuda.synchronize()
@@ -2050,7 +2161,7 @@ def profiled_launches(fn) -> tuple[object, dict[str, int], dict[str, int], dict]
     for e in prof.profiler.kineto_results.events():
         name = e.name()
         if e.device_type() == DeviceType.CUDA:
-            kernel = port_kernel(name)
+            kernel = device_kernel(name)
             if kernel is not None:
                 seen[kernel] = seen.get(kernel, 0) + 1
             side = device["copies" if name.startswith("Memcpy") else "other"]
@@ -2826,7 +2937,8 @@ def e2e_train_bn(root: Path, data: Path) -> dict[str, int]:
     out_dir = root / "out" / phase / cfg.dataset.image_set
     rows = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
     losses = [r["loss"] for r in rows]
-    check(launched == launches_of(warp=steps), f"{phase} launches {launched} ({steps} steps)")
+    check(launched == launches_of(warp=steps, upsample2x=FLOW_RESIZES * steps),
+          f"{phase} launches {launched} ({steps} steps)")
     check(steps == 2 and all(math.isfinite(x) for x in losses), f"{phase}: losses {losses}")
     ckpt = load_checkpoint(str(out_dir / cfg.TRAIN.model_prefix), 0)["model"]
     stat_keys = [k for k in ckpt if k.endswith(("running_mean", "running_var"))]
@@ -2850,7 +2962,8 @@ def e2e_train_bn(root: Path, data: Path) -> dict[str, int]:
             check(max_flow > 0.5, f"{phase}: flow {max_flow} too small to exercise the warp")
         models[path_name] = m
     runs = {p: loss_and_grads(m, batch, "pair", cfg) for p, m in models.items()}
-    check(runs["kernels"][2] == launches_of(warp=1), f"{phase}: step launches {runs['kernels'][2]}")
+    check(runs["kernels"][2] == launches_of(warp=1, upsample2x=FLOW_RESIZES),
+          f"{phase}: step launches {runs['kernels'][2]}")
     check(not any(runs["plain"][2].values()), f"{phase}: the plain step launched")
     agreement = grad_agreement(runs["kernels"], runs["plain"])
     stats = {p: {k: v for k, v in m.state_dict().items() if k in stat_keys}
@@ -3233,7 +3346,7 @@ def e2e_dp(root: Path, data: Path) -> dict[str, dict[str, int]]:
     check(backend == "nccl", f"e2e_dp_nccl: backend {backend}")
     check(same_grads and same_loss and same_masters,
           f"e2e_dp_nccl: grads {same_grads}, loss {same_loss}, masters {same_masters}")
-    check(ref["launches"] == launches_of(warp=2 * (K - 1)),
+    check(ref["launches"] == launches_of(warp=2 * (K - 1), upsample2x=FLOW_RESIZES * 2 * (K - 1)),
           f"e2e_dp_nccl launches {ref['launches']}")
     for name in ("train", "bn"):
         refs[name] = dp_step(cases[name], None, steps=1)
@@ -3287,7 +3400,8 @@ def e2e_dp(root: Path, data: Path) -> dict[str, dict[str, int]]:
             all_reduce_numel=per_rank[0]["all_reduce_numel"],
             one_process_first_step_ms=one["first_step_ms"],
             launches_per_rank=[r["launches"] for r in per_rank])
-        expected = launches_of(warp=1 if name == "bn" else 2 * (K - 1))
+        warps = 1 if name == "bn" else 2 * (K - 1)
+        expected = launches_of(warp=warps, upsample2x=FLOW_RESIZES * warps)
         for r, out in enumerate(per_rank):
             check(out["launches"] == expected, f"e2e_dp {name} rank {r} launches {out['launches']}")
             check(out["masters_equal_rank0"], f"e2e_dp {name}: rank {r}'s masters differ")
@@ -3327,7 +3441,8 @@ def e2e_dp(root: Path, data: Path) -> dict[str, dict[str, int]]:
         check(out["stats"]["frames"] == DP_EVAL_CLIPS * K, f"e2e_dp_eval frames {out['stats']}")
         per_rank_clips = DP_EVAL_CLIPS // DP_RANKS
         check(out["launches"] == launches_of(warp=(K - 1) * per_rank_clips,
-                                             upsample_argmax=per_rank_clips),
+                                             upsample_argmax=per_rank_clips,
+                                             upsample2x=FLOW_RESIZES * per_rank_clips),
               f"e2e_dp_eval rank {r} launches {out['launches']}")
     # the quantized evals: int8 scales over the global batch of 2 clips; the
     # controls take each rank's own
@@ -3388,19 +3503,22 @@ SPATIAL_RANKS = 2
 # the flow heads, each rank's launches a group)
 SPATIAL_CASES = {
     "accel18_incremental": (BENCH_NET, "incremental", K, K, SEED + 150,
-                            dict(fused_stem=2, warp=K - 1, upsample_argmax=1)),
+                            dict(fused_stem=2, warp=K - 1, upsample_argmax=1,
+                                 upsample2x=FLOW_RESIZES)),
     # the flagship norm and stem as shipped: groupnorm (its sums over the
     # group), conv7, mean1, bf16. Its random-weight logits (max ~2.6) put
     # more pixels within bf16 rounding of a flip than the clear-margin rule
     # allows for, so it is held through the same weights in f32
     # (SPATIAL_WITNESSED)
     "flagship_incremental": (FLAGSHIP_NET, "incremental", K, K, SEED + 156,
-                             dict(warp=K - 1, upsample_argmax=1)),
+                             dict(warp=K - 1, upsample_argmax=1, upsample2x=FLOW_RESIZES)),
     # the same in f32, on the same frames
     "flagship_f32_incremental": (dict(FLAGSHIP_NET, dtype="float32"), "incremental", K, K,
-                                 SEED + 156, dict(warp=K - 1, upsample_argmax=1)),
+                                 SEED + 156, dict(warp=K - 1, upsample_argmax=1,
+                                                  upsample2x=FLOW_RESIZES)),
     "dff_direct": (DFF_NET, "direct", K, K, SEED + 152,
-                   dict(fused_stem=1, warp_onehot=1, upsample_argmax=1)),
+                   dict(fused_stem=1, warp_onehot=1, upsample_argmax=1,
+                        upsample2x=FLOW_RESIZES)),
     # one frame of DeepLab-101 with every dilated conv on #5: 3 layer4 conv2 + fc6
     "deeplab101_pallas": (dict(DEEPLAB_NET, dilated_conv="pallas"), "direct", 1, 1, SEED + 154,
                           dict(fused_stem=1, dilated_conv=4, upsample_argmax=1)),
@@ -3408,15 +3526,19 @@ SPATIAL_CASES = {
     # ranks (the frame's whole call); in bf16 as served and in f32 on the
     # same weights and frames
     "int8_incremental": (INT8_NET, "incremental", K, K, SEED + 158,
-                         dict(fused_stem=2, warp=K - 1, upsample_argmax=1)),
+                         dict(fused_stem=2, warp=K - 1, upsample_argmax=1,
+                              upsample2x=FLOW_RESIZES)),
     "int8_f32_incremental": (dict(INT8_NET, dtype="float32"), "incremental", K, K, SEED + 158,
-                             dict(fused_stem=2, warp=K - 1, upsample_argmax=1)),
+                             dict(fused_stem=2, warp=K - 1, upsample_argmax=1,
+                                  upsample2x=FLOW_RESIZES)),
     # accel18_fast with both downscales folded (f=2 into the update stem, f=4
-    # into FlowNet's conv1 halves): conv7, so no stem kernel
-    "fold_direct": (FOLD_NET, "direct", K, K, SEED + 160, dict(warp=1, upsample_argmax=1)),
+    # into FlowNet's conv1 halves): conv7, so no stem kernel; the update
+    # branch's scores resized up by 2 besides FlowNet's resizes
+    "fold_direct": (FOLD_NET, "direct", K, K, SEED + 160,
+                    dict(warp=1, upsample_argmax=1, upsample2x=FLOW_RESIZES + 1)),
     # the bench row with the s2d stem (no stem kernel)
     "s2d_incremental": (dict(BENCH_NET, stem="s2d"), "incremental", K, K, SEED + 162,
-                        dict(warp=K - 1, upsample_argmax=1)),
+                        dict(warp=K - 1, upsample_argmax=1, upsample2x=FLOW_RESIZES)),
 }
 # a case's class-map limits against one process where they are not
 # check_class_maps' (0.99 overall, 0.9999 off near-ties): the DFF row's
@@ -3449,6 +3571,7 @@ PLAINS = {
     "fused_stem": (stem_ops.fused_stem_plain, 4),
     "warp_onehot": (onehot_ops.warp_onehot_plain, 6),
     "dilated_conv": (dilated_ops.conv3x3_dilated_plain, 3),
+    "upsample2x": (upsample_ops.upsample2x_plain, 1),
 }
 
 def measured_group(model, frames: torch.Tensor, interval: int, propagate: str) -> dict:
@@ -3545,7 +3668,8 @@ def held_to_plain(name: str, args: tuple, got: torch.Tensor) -> dict:
     #3 and #5; bf16: 1e-2 * max|ref| for #1, one ulp at max|ref| for #4,
     2e-2 * max|ref| for #3 and #5, and at most 0.1% of #3's outputs other
     than the plain version's); #2's class maps equal on >= 0.9999 of the
-    pixels, each disagreement within 1e-5 * max|upscaled logits| of a tie."""
+    pixels, each disagreement within 1e-5 * max|upscaled logits| of a tie;
+    #6 equal to its plain version."""
     ref = PLAINS[name][0](*args)
     row = dict(kernel=name, shape=list(args[0].shape), dtype=str(args[0].dtype))
     if name == "upsample_argmax":
@@ -3564,6 +3688,8 @@ def held_to_plain(name: str, args: tuple, got: torch.Tensor) -> dict:
         tol = 1e-2 * peak if bf16 else 1e-5
     elif name == "warp_onehot":
         tol = 2.0 ** (math.floor(math.log2(max(peak, 2.0 ** -126))) - 7) if bf16 else 1e-5 * peak
+    elif name == "upsample2x":
+        tol = 0.0
     else:
         tol = (2e-2 if bf16 else 1e-4) * peak
     differ = (got != ref).float().mean().item()
@@ -3877,7 +4003,8 @@ def e2e_spatial(root: Path, data: Path, valid_per_clip: int) -> dict[str, dict[s
               one_process_fps=one_eval["stats"]["fps"],
               launches_per_rank=[out["launches"] for out in per_rank],
               one_process_launches=one_eval_launched, card=card()))
-    per_clip = dict(warp=(K - 1) * EVAL_SNIPPETS, upsample_argmax=EVAL_SNIPPETS)
+    per_clip = dict(warp=(K - 1) * EVAL_SNIPPETS, upsample_argmax=EVAL_SNIPPETS,
+                    upsample2x=FLOW_RESIZES * EVAL_SNIPPETS)
     expected = launches_of(**per_clip)
     check(one_eval_launched == expected, f"e2e_spatial_eval one process {one_eval_launched}")
     for r, out in enumerate(per_rank):
@@ -3899,14 +4026,16 @@ def e2e_spatial(root: Path, data: Path, valid_per_clip: int) -> dict[str, dict[s
 SPATIAL_TRAIN_SNIPPETS = 4
 # each case's launches a rank a step: #1's 4 step warps, forward and again in
 # remat's recompute; with every dilated conv on #5, e2e_train_dilated's 38
-# forward, 29 recomputed and 38 dx launches; the pair step's one warp
+# forward, 29 recomputed and 38 dx launches; the pair step's one warp. A
+# FlowNet pass (#6) with each warp.
+_STEP_WARPS = dict(warp=K - 1, upsample2x=FLOW_RESIZES * (K - 1))
 SPATIAL_TRAIN_LAUNCHES = {
-    "train": dict(forward=dict(warp=K - 1), recomputed=dict(warp=K - 1), dx=0),
-    "train_bf16": dict(forward=dict(warp=K - 1), recomputed=dict(warp=K - 1), dx=0),
-    "dilated": dict(forward=dict(warp=K - 1, dilated_conv=38),
-                    recomputed=dict(warp=K - 1, dilated_conv=29), dx=38),
-    "bn": dict(forward=dict(warp=1), recomputed={}, dx=0),
-    "s2d_fold": dict(forward=dict(warp=K - 1), recomputed=dict(warp=K - 1), dx=0),
+    "train": dict(forward=_STEP_WARPS, recomputed=_STEP_WARPS, dx=0),
+    "train_bf16": dict(forward=_STEP_WARPS, recomputed=_STEP_WARPS, dx=0),
+    "dilated": dict(forward=dict(_STEP_WARPS, dilated_conv=38),
+                    recomputed=dict(_STEP_WARPS, dilated_conv=29), dx=38),
+    "bn": dict(forward=dict(warp=1, upsample2x=FLOW_RESIZES), recomputed={}, dx=0),
+    "s2d_fold": dict(forward=_STEP_WARPS, recomputed=_STEP_WARPS, dx=0),
 }
 
 
@@ -4219,7 +4348,7 @@ def e2e_spatial_train(root: Path, data: Path) -> dict:
     check(compared["bn"]["running_stats"] > 0
           and compared["bn"]["running_stats_max_rel_err"] <= 1e-3,
           f"e2e_spatial_train bn: running statistics {compared['bn']['running_stats_max_rel_err']}")
-    entry_launches = launches_of(warp=2 * (K - 1) * 2)
+    entry_launches = launches_of(warp=2 * (K - 1) * 2, upsample2x=FLOW_RESIZES * 2 * (K - 1) * 2)
     check(entry_part["steps"] == [2, 2] and entry_part["one_process_steps"] == 2
           and len(losses) == len(one_losses) == 2,
           f"e2e_spatial_train entry: steps {entry_part['steps']}, losses {losses} {one_losses}")
@@ -4278,6 +4407,7 @@ def main() -> int:
     kernel_fused_stem(results)
     kernel_warp_onehot(results)
     kernel_dilated_conv(results)
+    kernel_upsample2x(results)
     grad_warp()
     grad_dilated_conv(results)
     grad_fused_stem()
@@ -4304,10 +4434,15 @@ def main() -> int:
     dff_stream_launched = e2e_stream(
         "e2e_dff_stream", "dff101 frozenbn fused7 bf16 onehot native D=4 push_frame", DFF_NET,
         SEED + 18, dict(key=launches_of(fused_stem=1, upsample_argmax=1),
-                        cur=launches_of(warp_onehot=1, upsample_argmax=1)), overall=0.98)
+                        cur=launches_of(warp_onehot=1, upsample_argmax=1,
+                                        upsample2x=FLOW_RESIZES)), overall=0.98)
     torch.cuda.empty_cache()
-    # a direct group: both stems, one batched warp, one tail
-    direct_group = launches_of(fused_stem=2, warp=1, upsample_argmax=1)
+    # a direct group: both stems, one batched warp, one tail, a FlowNet pass;
+    # and the update branch's scores resized up by 2 to the feature grid
+    # (fast: its half-resolution input; os8-mixed: its stride 16 on a
+    # stride-8 grid)
+    direct_group = launches_of(fused_stem=2, warp=1, upsample_argmax=1,
+                               upsample2x=FLOW_RESIZES + 1)
     fast_launched = e2e_variant("e2e_fast", "accel18_fast bf16", FAST_NET, "direct",
                                 SEED + 20, direct_group)
     torch.cuda.empty_cache()
@@ -4318,12 +4453,14 @@ def main() -> int:
     # 'last' warps no scale field)
     composed_launched = e2e_variant(
         "e2e_composed", "accel18 frozenbn fused7 bf16 composed", BENCH_NET, "composed",
-        SEED + 24, launches_of(fused_stem=2, warp=(K - 2) + 1, upsample_argmax=1))
+        SEED + 24, launches_of(fused_stem=2, warp=(K - 2) + 1, upsample_argmax=1,
+                               upsample2x=FLOW_RESIZES))
     torch.cuda.empty_cache()
     dff_composed_launched = e2e_variant(
         "e2e_dff_composed", "dff101 frozenbn fused7 bf16 onehot native composed", DFF_NET,
         "composed", SEED + 26, launches_of(fused_stem=1, warp_onehot=(K - 2) + 1,
-                                           upsample_argmax=1), overall=0.98)
+                                           upsample_argmax=1, upsample2x=FLOW_RESIZES),
+        overall=0.98)
     torch.cuda.empty_cache()
     quant_launched = e2e_quant()
     torch.cuda.empty_cache()
@@ -4344,18 +4481,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     e2e_graphs()
     torch.cuda.empty_cache()
-    # eval from the cfg files: the flagship's 4 step warps and one tail per
-    # clip (groupnorm + conv7, no stem kernel); DFF's one batched one-hot
-    # warp and one tail
+    # eval from the cfg files: the flagship's 4 step warps, one tail and a
+    # FlowNet pass per clip (groupnorm + conv7, no stem kernel); DFF's one
+    # batched one-hot warp, one tail and a FlowNet pass
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
         root = Path(tmp)
         data, valid_per_clip = write_eval_tree(root)
         eval_launched = e2e_eval("e2e_eval", "accel18_cityscapes", root, data, valid_per_clip,
-                                 launches_of(warp=K - 1, upsample_argmax=1), overall=0.99)
+                                 launches_of(warp=K - 1, upsample_argmax=1,
+                                             upsample2x=FLOW_RESIZES), overall=0.99)
         torch.cuda.empty_cache()
         dff_eval_launched = e2e_eval("e2e_eval_dff", "dff_cityscapes", root, data,
-                                     valid_per_clip, launches_of(warp_onehot=1, upsample_argmax=1),
-                                     overall=0.98)
+                                     valid_per_clip,
+                                     launches_of(warp_onehot=1, upsample_argmax=1,
+                                                 upsample2x=FLOW_RESIZES), overall=0.98)
         torch.cuda.empty_cache()
         spatial_launched = e2e_spatial(root, data, valid_per_clip)
         torch.cuda.empty_cache()
@@ -4367,18 +4506,25 @@ def main() -> int:
     # remat, the aux loss (1 R101 + 1 R18) does not: 4 + 25 + 9 = 38 forward,
     # 4 + 25 = 29 recomputed, 38 dx. The pair step: 1 warp. Eval of a
     # checkpoint: the flagship's 4 step warps and 1 tail, the pair cfg's one
-    # direct warp and 1 tail.
+    # direct warp and 1 tail. A FlowNet pass with each warp of a step (the
+    # clip step's run inside its checkpointed steps) and with each clip of
+    # an eval.
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         root = Path(tmp)
         data = write_train_tree(root)
+        clip_eval = launches_of(warp=K - 1, upsample_argmax=1, upsample2x=FLOW_RESIZES)
         train_launched = e2e_train("e2e_train", "accel18_cityscapes", root, data,
-                                   launches_of(warp=2 * (K - 1)),
-                                   launches_of(warp=K - 1, upsample_argmax=1))
+                                   launches_of(warp=2 * (K - 1),
+                                               upsample2x=FLOW_RESIZES * 2 * (K - 1)),
+                                   clip_eval)
         pair_launched = e2e_train("e2e_train_pair", "accel18_cityscapes_pair", root, data,
-                                  launches_of(warp=1), launches_of(warp=1, upsample_argmax=1))
+                                  launches_of(warp=1, upsample2x=FLOW_RESIZES),
+                                  launches_of(warp=1, upsample_argmax=1,
+                                              upsample2x=FLOW_RESIZES))
         dilated_launched = e2e_train(
             "e2e_train_dilated", "accel18_cityscapes", root, data,
-            launches_of(warp=2 * (K - 1), dilated_conv=38 + 29, dilated_conv_dx=38), None,
+            launches_of(warp=2 * (K - 1), dilated_conv=38 + 29, dilated_conv_dx=38,
+                        upsample2x=FLOW_RESIZES * 2 * (K - 1)), None,
             set_network=("dilated_conv=pallas",))
         bn_launched = e2e_train_bn(root, data)
         torch.cuda.empty_cache()
@@ -4390,6 +4536,7 @@ def main() -> int:
              for name in ("warp", "upsample_argmax", "fused_stem")}
     paths["warp_onehot"] = ("dff", dff_launched["warp_onehot"], dff_groups)
     paths["dilated_conv"] = ("deeplab101 pallas", deeplab_launched["dilated_conv"], 1)
+    paths["upsample2x"] = ("accel18", accel_launched["upsample2x"], accel_groups)
     by_path = {"accel18": accel_launched, "dff": dff_launched,
                "deeplab101 pallas": deeplab_launched, "accel18 push_frame": stream_launched,
                "dff push_frame": dff_stream_launched, "accel18_fast": fast_launched,

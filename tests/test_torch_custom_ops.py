@@ -1,12 +1,13 @@
-"""The five kernels as ``torch.library`` ops (``torch.ops.accel_tpu_torch.*``,
+"""The six kernels as ``torch.library`` ops (``torch.ops.accel_tpu_torch.*``,
 the form a program traced by ``torch.export`` calls them in), on CPU
 inputs, where each op runs its kernel's plain version.
 
 ``torch.library.opcheck`` holds each op's schema, its fake (shape)
 implementation against the real one, its autograd registration and its
-use under ``aot_autograd`` with dynamic shapes; the inputs of #1, #3 and
-#4 require grad, so their registered gradients (autograd through the plain
-version, as the JAX custom VJPs) run too. Each op's output equals its plain
+use under ``aot_autograd`` with dynamic shapes; the inputs of #1, #3, #4
+and #6 require grad, so their registered gradients (autograd through the
+plain version, as the JAX custom VJPs; #6: ``upsample_bilinear2d``'s
+backward) run too. Each op's output equals its plain
 version's exactly."""
 
 import pytest
@@ -14,6 +15,7 @@ import torch
 
 from accel_tpu_torch.ops import dilated_cuda as tdc
 from accel_tpu_torch.ops import fused_stem as tstem
+from accel_tpu_torch.ops import upsample as tup
 from accel_tpu_torch.ops import upsample_argmax as tua
 from accel_tpu_torch.ops import warp_cuda as twc
 from accel_tpu_torch.ops import warp_onehot as two
@@ -38,6 +40,9 @@ def _case(name: str):
         args = (r(1, 3, 16, 20, grad=True), r(64, 3, 7, 7, scale=0.1, grad=True),
                 r(64, grad=True), r(64, grad=True), None)
         return tstem.fused_stem_op, args, tstem.fused_stem_plain(*args[:4])
+    if name == "upsample2x":
+        args = (r(2, 3, 5, 7, grad=True),)
+        return tup.upsample2x_op, args, tup.upsample2x_plain(*args)
     if name == "conv3x3_dilated":
         args = (r(1, 8, 6, 8), r(4, 8, 3, 3, scale=0.3), 2, None)
         return tdc.conv3x3_dilated_op, args, tdc.conv3x3_dilated_plain(*args[:3])
@@ -50,7 +55,7 @@ def _case(name: str):
 
 
 @pytest.mark.parametrize("name", ["warp", "upsample_argmax", "fused_stem", "warp_onehot",
-                                  "warp_onehot_no_scale", "conv3x3_dilated"])
+                                  "warp_onehot_no_scale", "conv3x3_dilated", "upsample2x"])
 def test_op_passes_opcheck_and_equals_its_plain_version(name):
     op, args, want = _case(name)
     assert op._qualname == f"accel_tpu_torch::{name.removesuffix('_no_scale')}"
